@@ -1,0 +1,21 @@
+"""stheno_torch: the PyTorch/CUDA port of stheno_tpu for the NVIDIA H100.
+
+The same ``Measure``/``GP`` algebra over structured matrices as
+``stheno_tpu``, in PyTorch: plain torch on tensors,
+``torch.autograd.Function`` where the JAX package has a ``custom_vjp``,
+and hand-written CUDA kernels (``ops/csrc``) where it has Pallas kernels.
+Entry points run on the card unless the CPU is asked for
+(``config.set_default_device("cpu")``). This first slice covers the
+exact-GP training-and-prediction step; ``ROADMAP.md`` lists what is still
+to be ported.
+"""
+
+from . import config
+from .matrix import *  # noqa: F401,F403
+from .kernels import *  # noqa: F401,F403
+from .dist import *  # noqa: F401,F403
+from .lazy import LazyMatrix, LazyVector
+from .mo import *  # noqa: F401,F403
+from .model import *  # noqa: F401,F403
+
+__version__ = "0.1.0"

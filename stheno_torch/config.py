@@ -1,0 +1,155 @@
+"""Global numerical configuration.
+
+Counterpart of ``stheno_tpu/config.py``: the dtype-aware Cholesky jitter,
+the escalating-jitter policy, the dense-Cholesky implementation policy and
+the cancellation-free distance switch, plus what only the PyTorch port
+needs: the default device and the float32 matmul-precision pin.
+
+The default device is ``"cuda"``. Raw inputs (numpy arrays, Python
+scalars, lists) are placed on it; tensors keep their own device. When the
+default is CUDA and no card is present, converting a raw input raises
+instead of running on the CPU: the CPU is used only when asked for
+(``set_default_device("cpu")``, as the tests do).
+"""
+
+import contextlib
+
+import torch
+
+__all__ = [
+    "epsilon",
+    "jitter",
+    "set_epsilon",
+    "cholesky_impl",
+    "set_cholesky_impl",
+    "adaptive_jitter",
+    "set_adaptive_jitter",
+    "pin_matmul_precision",
+    "accurate_dists",
+    "accurate_dists_enabled",
+    "default_device",
+    "set_default_device",
+    "resolve_device",
+    "as_tensor",
+]
+
+#: Global jitter override. ``None`` means "dtype-aware default".
+epsilon = None
+
+_DTYPE_EPSILON = {
+    torch.float64: 1e-12,
+    torch.float32: 1e-8,
+    torch.bfloat16: 1e-4,
+}
+
+
+def set_epsilon(value):
+    """Set the global Cholesky jitter. ``None`` restores dtype-aware defaults."""
+    global epsilon
+    epsilon = value
+
+
+#: Escalating-jitter Cholesky: when True, dense factorisations probe a
+#: detached copy and multiply the jitter by 10 until the factor is finite.
+#: Off by default, as in the reference's fixed ``B.epsilon`` semantics.
+adaptive_jitter = False
+
+
+def set_adaptive_jitter(value):
+    """Enable/disable the escalating-jitter dense Cholesky policy."""
+    global adaptive_jitter
+    adaptive_jitter = bool(value)
+
+
+#: Dense-Cholesky implementation policy. "auto" takes the carried-inverse
+#: recursion (``ops/chol.py``, whose f32 base case is the hand-written tile
+#: kernel) on a CUDA tensor of n >= 1024 through which a gradient flows,
+#: and ``torch.linalg.cholesky`` otherwise. "xla" / "fast" force one choice
+#: ("xla" keeps the JAX package's name for the library factorisation).
+cholesky_impl = "auto"
+
+
+def set_cholesky_impl(value):
+    """Set the dense-Cholesky policy: "auto", "xla", or "fast"."""
+    global cholesky_impl
+    if value not in ("auto", "xla", "fast"):
+        raise ValueError(f"unknown cholesky_impl: {value!r}")
+    cholesky_impl = value
+
+
+def pin_matmul_precision():
+    """Pin float32 products to full float32 on the card.
+
+    TF32 keeps 10 mantissa bits, which is the analogue on Hopper of the
+    single-bf16-pass hazard the JAX package measured on the TPU (an
+    indefinite Gram, NaN NLML and gradients off by tens of percent; see
+    ``stheno_tpu/config.py`` on ``matmul_precision``). The library calls
+    this before it runs on the card; it is idempotent."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+#: When set, ``kernels.pw_dists2`` computes squared distances by direct
+#: differencing instead of the matmul identity (cancellation-free near the
+#: diagonal), and the fused Gram kernel is bypassed.
+_accurate_dists = False
+
+
+@contextlib.contextmanager
+def accurate_dists(enable=True):
+    """Context manager: cancellation-free pairwise distances."""
+    global _accurate_dists
+    prev = _accurate_dists
+    _accurate_dists = bool(enable)
+    try:
+        yield
+    finally:
+        _accurate_dists = prev
+
+
+def accurate_dists_enabled():
+    """Whether the cancellation-free distance path is active."""
+    return _accurate_dists
+
+
+def jitter(dtype) -> float:
+    """Cholesky jitter for ``dtype``: the global override if set, else a
+    dtype-aware default (1e-12 for float64, 1e-8 for float32)."""
+    if epsilon is not None:
+        return epsilon
+    return _DTYPE_EPSILON.get(dtype, 1e-8)
+
+
+#: Device that raw inputs are placed on.
+default_device = "cuda"
+
+
+def set_default_device(value):
+    """Set the device raw inputs are placed on (``"cuda"``, ``"cpu"``, ...)."""
+    global default_device
+    default_device = str(value)
+
+
+def resolve_device(value=None):
+    """Resolve ``value`` (default: :data:`default_device`) to a
+    ``torch.device``. Raises when a CUDA device is asked for and there is
+    none: the port never falls back to the CPU on its own."""
+    dev = torch.device(default_device if value is None else value)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "stheno_torch runs on the GPU by default, but CUDA is not "
+                "available. Call stheno_torch.config.set_default_device('cpu') "
+                "(or pass device='cpu') to run on the CPU."
+            )
+        pin_matmul_precision()
+    return dev
+
+
+def as_tensor(x, dtype=None, device=None):
+    """``x`` as a tensor. A tensor keeps its device (and is cast to
+    ``dtype`` if given); anything else goes to ``resolve_device(device)``."""
+    if isinstance(x, torch.Tensor):
+        return x if dtype is None or x.dtype == dtype else x.to(dtype)
+    return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))

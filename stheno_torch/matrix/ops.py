@@ -1,0 +1,736 @@
+"""Structure-aware linear algebra over the structured matrix types.
+
+Counterpart of ``stheno_tpu/matrix/ops.py``, ported for the exact-GP
+path: ``dense``, ``diag``, ``transpose``, ``add``, ``scale``,
+``multiply``, ``matmul``, ``cholesky``, ``solve``, ``iqf``, ``iqf_diag``
+and ``logdet`` (plus the helpers they need). Structure dispatch is by
+``isinstance`` at call time.
+
+The dense-Cholesky-backed reductions (``logdet``, ``iqf``, ``iqf_diag``,
+``solve``) are ``torch.autograd.Function``s whose backward routes the
+whole cotangent through the matrix with the closed-form adjoints of the
+JAX package's custom VJPs (``d logdet A = A^{-1}``, rank-structured outer
+products for the quadratic forms). Their factors are detached, so no
+gradient ever flows back through the factorisation itself.
+
+Differences from the JAX package: a factorisation is "under autodiff"
+when grad mode is on and the matrix requires grad; the fast-path backend
+test is ``mat.is_cuda``; XLA's optimisation barrier and the forward-mode
+fallback have no PyTorch counterpart; the ``A^{-1}`` product of the
+logdet adjoint stays in full float32 (TF32 is no three-pass equivalent
+of the TPU's ``Precision.HIGH``). Woodbury and LowRank matrices are
+supported by the structural ops, but their closed-form solve/logdet
+paths are not ported yet: those reductions densify.
+"""
+
+import torch
+
+from .. import config
+from ..ops.chol import cholesky_nan, cholesky_with_inv
+from ..ops.trimul import auto_nb, syrk_tn_lower
+from .extend import dispatch_extension as _try_ext
+from .types import (
+    Constant,
+    Dense,
+    Diagonal,
+    LowRank,
+    LowerTriangular,
+    UpperTriangular,
+    Woodbury,
+    Zero,
+    is_structured,
+)
+
+__all__ = [
+    "adaptive_jitter_eps",
+    "as_matrix",
+    "dense",
+    "diag",
+    "diag_of",
+    "transpose",
+    "add",
+    "scale",
+    "multiply",
+    "matmul",
+    "cholesky",
+    "solve",
+    "iqf",
+    "iqf_diag",
+    "logdet",
+    "fill_diag",
+    "submatrix",
+]
+
+
+# ---------------------------------------------------------------------------
+# Promotion and basic structure.
+# ---------------------------------------------------------------------------
+
+
+def _t(a):
+    return a.transpose(-1, -2)
+
+
+def _arr(a):
+    """A plain tensor for ``a`` (densifying a structured matrix)."""
+    return dense(a) if is_structured(a) else config.as_tensor(a)
+
+
+def as_matrix(a):
+    """Promote a raw tensor to :class:`Dense`; pass structured matrices through."""
+    if is_structured(a):
+        return a
+    a = config.as_tensor(a)
+    if a.ndim < 2:
+        raise ValueError(f"Cannot promote rank-{a.ndim} array to a matrix.")
+    return Dense(a)
+
+
+def dense(a):
+    """Materialise ``a`` as a plain tensor."""
+    _ext = _try_ext("dense", a)
+    if _ext is not NotImplemented:
+        return _ext
+    if not is_structured(a):
+        return config.as_tensor(a)
+    if isinstance(a, (Dense, LowerTriangular, UpperTriangular)):
+        return a.mat
+    if isinstance(a, Diagonal):
+        return torch.diag_embed(a.diag)
+    if isinstance(a, Zero):
+        return torch.zeros(a.shape, dtype=a.dtype, device=a.device)
+    if isinstance(a, Constant):
+        return a.const[..., None, None].expand(a.shape)
+    if isinstance(a, LowRank):
+        left = a.left if a.middle is None else a.left @ a.middle
+        return left @ _t(a._right)
+    if isinstance(a, Woodbury):
+        return dense(a.diag) + dense(a.lr)
+    raise TypeError(f"Cannot densify {type(a).__name__}.")
+
+
+def diag_of(a):
+    """Diagonal of a matrix as a vector ``(..., n)``."""
+    _ext = _try_ext("diag_of", a)
+    if _ext is not NotImplemented:
+        return _ext
+    if not is_structured(a):
+        return torch.diagonal(config.as_tensor(a), dim1=-2, dim2=-1)
+    if isinstance(a, Diagonal):
+        return a.diag
+    if isinstance(a, (Dense, LowerTriangular, UpperTriangular)):
+        return torch.diagonal(a.mat, dim1=-2, dim2=-1)
+    if isinstance(a, Zero):
+        return torch.zeros(
+            a.shape[:-2] + (min(a.rows, a.cols),), dtype=a.dtype, device=a.device
+        )
+    if isinstance(a, Constant):
+        n = min(a.rows, a.cols)
+        return a.const[..., None].expand(tuple(a.const.shape) + (n,))
+    if isinstance(a, LowRank):
+        left = a.left if a.middle is None else a.left @ a.middle
+        n = min(a.rows, a.cols)
+        return torch.sum(left[..., :n, :] * a._right[..., :n, :], dim=-1)
+    if isinstance(a, Woodbury):
+        return diag_of(a.diag) + diag_of(a.lr)
+    return torch.diagonal(dense(a), dim1=-2, dim2=-1)
+
+
+def diag(a):
+    """Matrix -> diagonal vector, vector -> :class:`Diagonal` matrix."""
+    if is_structured(a):
+        return diag_of(a)
+    a = config.as_tensor(a)
+    if a.ndim >= 2:
+        return torch.diagonal(a, dim1=-2, dim2=-1)
+    return Diagonal(a)
+
+
+def transpose(a):
+    _ext = _try_ext("transpose", a)
+    if _ext is not NotImplemented:
+        return _ext
+    if not is_structured(a):
+        return _t(config.as_tensor(a))
+    if isinstance(a, Dense):
+        return Dense(_t(a.mat))
+    if isinstance(a, Diagonal):
+        return a
+    if isinstance(a, Zero):
+        return Zero(a.dtype, a.cols, a.rows, device=a.device)
+    if isinstance(a, Constant):
+        return Constant(a.const, a._cols, a._rows)
+    if isinstance(a, LowRank):
+        if a.sym and a.middle is None:
+            return a
+        middle = None if a.middle is None else _t(a.middle)
+        return LowRank(a._right, a.left, middle)
+    if isinstance(a, Woodbury):
+        return Woodbury(a.diag, transpose(a.lr))
+    if isinstance(a, LowerTriangular):
+        return UpperTriangular(_t(a.mat))
+    if isinstance(a, UpperTriangular):
+        return LowerTriangular(_t(a.mat))
+    raise TypeError(f"Cannot transpose {type(a).__name__}.")
+
+
+def _as_lowrank(a):
+    """View Constant/LowRank as LowRank."""
+    if isinstance(a, LowRank):
+        return a
+    if isinstance(a, Constant):
+        shape_r = tuple(a.const.shape) + (a._rows, 1)
+        ones_r = torch.ones(shape_r, dtype=a.dtype, device=a.device)
+        middle = a.const[..., None, None]
+        if a._rows == a._cols:
+            return LowRank(ones_r, None, middle)
+        ones_c = torch.ones(
+            tuple(a.const.shape) + (a._cols, 1), dtype=a.dtype, device=a.device
+        )
+        return LowRank(ones_r, ones_c, middle)
+    raise TypeError(f"Cannot view {type(a).__name__} as LowRank.")
+
+
+def _lr_middle(a):
+    if a.middle is not None:
+        return a.middle
+    return torch.eye(a.rank, dtype=a.dtype, device=a.device)
+
+
+# ---------------------------------------------------------------------------
+# Addition / scaling / elementwise multiplication.
+# ---------------------------------------------------------------------------
+
+
+def _ndim(s):
+    return s.ndim if isinstance(s, torch.Tensor) else 0
+
+
+def scale(a, s):
+    """Multiply by a scalar (a batched ``s`` broadcasts against the batch
+    dimensions), preserving structure."""
+    _ext = _try_ext("scale", a, s)
+    if _ext is not NotImplemented:
+        return _ext
+    sm = s[..., None, None] if _ndim(s) else s
+    sv = s[..., None] if _ndim(s) else s
+    if not is_structured(a):
+        return config.as_tensor(a) * sm
+    if isinstance(a, Dense):
+        return Dense(a.mat * sm)
+    if isinstance(a, Diagonal):
+        return Diagonal(a.diag * sv)
+    if isinstance(a, Zero):
+        return a
+    if isinstance(a, Constant):
+        return Constant(a.const * s, a._rows, a._cols)
+    if isinstance(a, LowRank):
+        return LowRank(a.left, a.right, _lr_middle(a) * sm)
+    if isinstance(a, Woodbury):
+        return Woodbury(scale(a.diag, s), scale(a.lr, s))
+    if isinstance(a, (LowerTriangular, UpperTriangular)):
+        return type(a)(a.mat * sm)
+    raise TypeError(f"Cannot scale {type(a).__name__}.")
+
+
+def _is_scalar(x):
+    return not is_structured(x) and _ndim(x) == 0
+
+
+def add(a, b):
+    """Structure-preserving addition of matrices of matching shape; a
+    scalar adds as a constant matrix."""
+    _ext = _try_ext("add", a, b)
+    if _ext is not NotImplemented:
+        return _ext
+    if _is_scalar(a) and _is_scalar(b):
+        return a + b
+    if _is_scalar(b):
+        if isinstance(b, (int, float)) and b == 0:
+            return a
+        a = as_matrix(a)
+        return add(a, Constant(torch.as_tensor(b, dtype=a.dtype, device=a.device), a.rows, a.cols))
+    if _is_scalar(a):
+        return add(b, a)
+
+    a, b = as_matrix(a), as_matrix(b)
+    if isinstance(a, Zero):
+        return b
+    if isinstance(b, Zero):
+        return a
+    if isinstance(a, Diagonal) and isinstance(b, Diagonal):
+        return Diagonal(a.diag + b.diag)
+    if isinstance(a, Constant) and isinstance(b, Constant):
+        return Constant(a.const + b.const, a._rows, a._cols)
+    if isinstance(a, (LowRank, Constant)) and isinstance(b, (LowRank, Constant)):
+        la, lb = _as_lowrank(a), _as_lowrank(b)
+        left = torch.cat(_pad_batch(la.left, lb.left), dim=-1)
+        if la.sym and lb.sym and la.middle is None and lb.middle is None:
+            return LowRank(left)
+        ma, mb = _lr_middle(la), _lr_middle(lb)
+        middle = torch.block_diag(ma, mb) if ma.ndim == mb.ndim == 2 else None
+        if middle is None:
+            raise NotImplementedError("Batched low-rank sums are not ported yet.")
+        right = None
+        if not (la.sym and lb.sym):
+            right = torch.cat(_pad_batch(la._right, lb._right), dim=-1)
+        return LowRank(left, right, middle)
+    if isinstance(a, Diagonal) and isinstance(b, (LowRank, Constant)):
+        return Woodbury(a, _as_lowrank(b))
+    if isinstance(a, (LowRank, Constant)) and isinstance(b, Diagonal):
+        return Woodbury(b, _as_lowrank(a))
+    if isinstance(a, Woodbury) and isinstance(b, Diagonal):
+        return Woodbury(add(a.diag, b), a.lr)
+    if isinstance(a, Diagonal) and isinstance(b, Woodbury):
+        return Woodbury(add(a, b.diag), b.lr)
+    if isinstance(a, Woodbury) and isinstance(b, (LowRank, Constant)):
+        return Woodbury(a.diag, add(a.lr, _as_lowrank(b)))
+    if isinstance(a, (LowRank, Constant)) and isinstance(b, Woodbury):
+        return Woodbury(b.diag, add(_as_lowrank(a), b.lr))
+    if isinstance(a, Woodbury) and isinstance(b, Woodbury):
+        return Woodbury(add(a.diag, b.diag), add(a.lr, b.lr))
+    return Dense(dense(a) + dense(b))
+
+
+def _pad_batch(x, y):
+    """Broadcast the batch dimensions of two factors for concatenation."""
+    batch = torch.broadcast_shapes(x.shape[:-2], y.shape[:-2])
+    return x.expand(batch + x.shape[-2:]), y.expand(batch + y.shape[-2:])
+
+
+def multiply(a, b):
+    """Elementwise (Hadamard) product."""
+    _ext = _try_ext("multiply", a, b)
+    if _ext is not NotImplemented:
+        return _ext
+    if _is_scalar(a):
+        return scale(b, a)
+    if _is_scalar(b):
+        return scale(a, b)
+    if not is_structured(a) and not is_structured(b):
+        return config.as_tensor(a) * config.as_tensor(b)
+    a, b = as_matrix(a), as_matrix(b)
+    if isinstance(a, Zero) or isinstance(b, Zero):
+        return Zero(a.dtype, a.rows, a.cols, device=a.device)
+    if isinstance(a, Diagonal) and isinstance(b, Diagonal):
+        return Diagonal(a.diag * b.diag)
+    if isinstance(a, Diagonal):
+        return Diagonal(a.diag * diag_of(b))
+    if isinstance(b, Diagonal):
+        return Diagonal(diag_of(a) * b.diag)
+    if isinstance(a, Constant):
+        return scale(b, a.const)
+    if isinstance(b, Constant):
+        return scale(a, b.const)
+    return Dense(dense(a) * dense(b))
+
+
+# ---------------------------------------------------------------------------
+# Matrix multiplication.
+# ---------------------------------------------------------------------------
+
+
+def matmul(a, b, tr_a=False, tr_b=False):
+    """``a @ b`` with optional transposes, preserving structure where cheap."""
+    _ext = _try_ext("matmul", a, b, tr_a=tr_a, tr_b=tr_b)
+    if _ext is not NotImplemented:
+        return _ext
+    if tr_a:
+        a = transpose(a)
+    if tr_b:
+        b = transpose(b)
+    a_s, b_s = is_structured(a), is_structured(b)
+    if not a_s and not b_s:
+        return config.as_tensor(a) @ config.as_tensor(b)
+    if a_s and not b_s:
+        b = config.as_tensor(b)
+        if b.ndim == 1:
+            return matmul(a, b[:, None])[..., 0]
+        if isinstance(a, Zero):
+            return torch.zeros(
+                torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]) + (a.rows, b.shape[-1]),
+                dtype=a.dtype,
+                device=a.device,
+            )
+        if isinstance(a, Diagonal):
+            return a.diag[..., :, None] * b
+        if isinstance(a, Constant):
+            s = torch.sum(b, dim=-2, keepdim=True)
+            return (a.const[..., None, None] * s).expand(
+                torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]) + (a.rows, b.shape[-1])
+            )
+        if isinstance(a, LowRank):
+            tmp = _t(a._right) @ b
+            if a.middle is not None:
+                tmp = a.middle @ tmp
+            return a.left @ tmp
+        if isinstance(a, Woodbury):
+            return matmul(a.diag, b) + matmul(a.lr, b)
+        return dense(a) @ b
+    if b_s and not a_s:
+        a = config.as_tensor(a)
+        if a.ndim == 1:
+            return matmul(a[None, :], b)[..., 0, :]
+        return _t(matmul(transpose(b), _t(a)))
+
+    if isinstance(a, Zero) or isinstance(b, Zero):
+        return Zero(a.dtype, a.rows, b.cols, device=a.device)
+    if isinstance(a, Diagonal) and isinstance(b, Diagonal):
+        return Diagonal(a.diag * b.diag)
+    if isinstance(a, (LowRank, Constant)):
+        la = _as_lowrank(a)
+        new_right = _arr(matmul(transpose(b), la._right))
+        return LowRank(la.left, new_right, la.middle)
+    if isinstance(b, (LowRank, Constant)):
+        lb = _as_lowrank(b)
+        new_left = _arr(matmul(a, lb.left))
+        return LowRank(new_left, lb._right, lb.middle)
+    if isinstance(a, Diagonal):
+        return Dense(a.diag[..., :, None] * dense(b))
+    if isinstance(b, Diagonal):
+        return Dense(dense(a) * b.diag[..., None, :])
+    if isinstance(a, Woodbury):
+        return add(matmul(a.diag, b), matmul(a.lr, b))
+    if isinstance(b, Woodbury):
+        return add(matmul(a, b.diag), matmul(a, b.lr))
+    return Dense(dense(a) @ dense(b))
+
+
+# ---------------------------------------------------------------------------
+# Factorisations and solves.
+# ---------------------------------------------------------------------------
+
+
+def _cached(a, key, compute):
+    """Memoise ``compute()`` on ``a._cache``."""
+    cache = getattr(a, "_cache", None)
+    if cache is None:
+        return compute()
+    if key not in cache:
+        cache[key] = compute()
+    return cache[key]
+
+
+def adaptive_jitter_eps(mat, base):
+    """Smallest jitter in ``{base * 10^k}`` under which ``chol(mat + eps I)``
+    succeeds, probed on a detached copy (one host sync per probe)."""
+    n = mat.shape[-1]
+    eye = torch.eye(n, dtype=mat.dtype, device=mat.device)
+    sg = mat.detach()
+    eps, cap = float(base), float(base) * 1e12
+    while eps < cap and bool(torch.any(torch.linalg.cholesky_ex(sg + eps * eye)[1] > 0)):
+        eps *= 10.0
+    return eps
+
+
+def _under_autodiff(mat):
+    """True when a gradient flows through this factorisation."""
+    return torch.is_grad_enabled() and mat.requires_grad
+
+
+def _auto_policy_use_fast(mat):
+    """The "auto" policy's fast-path predicate: a CUDA tensor, n >= 1024,
+    and a gradient flowing through this factorisation. On the card the
+    library factorisation is used for value-only calls; the differentiated
+    ones take the carried-inverse recursion, whose downstream solves and
+    adjoints are then products (the JAX package's measured rationale,
+    ``stheno_tpu/matrix/ops.py:_chol_dense``; whether it holds on the H100
+    is for H100 measurements to decide)."""
+    return mat.is_cuda and mat.shape[-1] >= 1024 and _under_autodiff(mat)
+
+
+def _chol_dense(mat):
+    """Jittered dense Cholesky: ``(L, Linv_or_None)``."""
+    n = mat.shape[-1]
+    eps = config.jitter(mat.dtype)
+    adaptive = config.adaptive_jitter
+    if adaptive:
+        eps = adaptive_jitter_eps(mat, eps)
+    policy = config.cholesky_impl
+    use_fast = _auto_policy_use_fast(mat) if policy == "auto" else policy == "fast"
+    if adaptive and use_fast:
+        # The recursion amplifies rounding beyond what the probe saw: one
+        # safety decade, as in the JAX package.
+        eps = eps * 10.0
+    mat = mat + eps * torch.eye(n, dtype=mat.dtype, device=mat.device)
+    if use_fast:
+        return cholesky_with_inv(mat)
+    return cholesky_nan(mat), None
+
+
+def _lower_with_inv(pair):
+    L, Linv = pair
+    tri = LowerTriangular(L)
+    if Linv is not None:
+        tri._cache["inv"] = Linv
+    return tri
+
+
+def cholesky(a):
+    """Lower Cholesky factor, with the configured jitter for dense
+    factorisations. Cached per matrix object; the jitter settings and the
+    grad mode are part of the key, so a bumped jitter never returns a
+    factor computed under the old one."""
+    _ext = _try_ext("cholesky", a)
+    if _ext is not NotImplemented:
+        return _ext
+    if not is_structured(a):
+        return _lower_with_inv(_chol_dense(config.as_tensor(a)))
+
+    def compute():
+        if isinstance(a, Diagonal):
+            return Diagonal(torch.sqrt(a.diag))
+        if isinstance(a, Zero):
+            return a
+        return _lower_with_inv(_chol_dense(dense(a)))
+
+    key = ("cholesky", config.epsilon, config.adaptive_jitter, torch.is_grad_enabled())
+    return _cached(a, key, compute)
+
+
+def _solve_triangular(tri, b, lower):
+    b_arr = _arr(b)
+    inv = getattr(tri, "_cache", {}).get("inv")
+    if inv is not None and b_arr.ndim == inv.ndim:
+        return inv @ b_arr
+    return torch.linalg.solve_triangular(tri.mat, b_arr, upper=not lower)
+
+
+def solve(a, b):
+    """``a^{-1} b``. A 1-D ``b`` is one column and comes back 1-D."""
+    _ext = _try_ext("solve", a, b)
+    if _ext is not NotImplemented:
+        return _ext
+    if not is_structured(b):
+        b_arr = config.as_tensor(b)
+        if b_arr.ndim == 1:
+            return solve(a, b_arr[:, None])[..., 0]
+    if isinstance(a, LowerTriangular):
+        return _solve_triangular(a, b, lower=True)
+    if isinstance(a, UpperTriangular):
+        return _solve_triangular(a, b, lower=False)
+    if isinstance(a, Diagonal):
+        return _arr(b) / a.diag[..., :, None]
+    a = as_matrix(a)
+    L = cholesky(a)
+    if not isinstance(L, LowerTriangular):
+        return solve(transpose(L), solve(L, b))
+    b_arr = _arr(b)
+    if b_arr.ndim != dense(a).ndim:
+        y = _solve_triangular(L, b_arr, lower=True)
+        return torch.linalg.solve_triangular(_t(L.mat), y, upper=True)
+    return _SolveChol.apply(*_chol_arrays(a), b_arr)
+
+
+# --- Closed-form adjoints of the dense Cholesky-backed reductions ----------
+
+
+def _chol_arrays(a):
+    """``(mat, L, Linv_or_None)``, reusing the cached factorisation. ``L``
+    and ``Linv`` are detached: the reductions' backward routes the whole
+    cotangent through ``mat``."""
+    mat = dense(a)
+    L = cholesky(a)
+    inv = getattr(L, "_cache", {}).get("inv")
+    return mat, L.mat.detach(), None if inv is None else inv.detach()
+
+
+def _sym(M):
+    """Symmetric part of a matrix cotangent (the primals factor the
+    symmetric part of their input)."""
+    return 0.5 * (M + _t(M))
+
+
+def _kinv_from_chol(L, Linv):
+    """``A^{-1}`` from its Cholesky factor: one structure-aware product of
+    the carried inverse, after two triangular solves if there is none. Full
+    float32 on the card (TF32 is no equivalent of the TPU's 3-pass HIGH)."""
+    if Linv is None:
+        eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand(L.shape)
+        Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return syrk_tn_lower(Linv, nb=auto_nb(Linv.shape[-1]))
+
+
+def _half_solve(L, Linv, b):
+    if Linv is not None:
+        return Linv @ b
+    return torch.linalg.solve_triangular(L, b, upper=False)
+
+
+def _chol_apply_inv(L, Linv, b):
+    """``A^{-1} b`` from the factor: two products or two triangular solves."""
+    if Linv is not None:
+        return _t(Linv) @ (Linv @ b)
+    half = torch.linalg.solve_triangular(L, b, upper=False)
+    return torch.linalg.solve_triangular(_t(L), half, upper=True)
+
+
+class _LogdetChol(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mat, L, Linv):
+        ctx.save_for_backward(L, Linv)
+        return 2 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        L, Linv = ctx.saved_tensors
+        return g[..., None, None] * _kinv_from_chol(L, Linv), None, None
+
+
+class _IqfDiagChol(torch.autograd.Function):
+    """``diag(b^T A^{-1} c)``; ``sym`` marks ``c is b`` (the NLML case),
+    whose backward reuses one solve and needs no symmetric projection."""
+
+    @staticmethod
+    def forward(ctx, mat, L, Linv, b, c, sym):
+        lb = _half_solve(L, Linv, b)
+        lc = lb if sym else _half_solve(L, Linv, c)
+        ctx.sym = sym
+        ctx.save_for_backward(L, Linv, b, None if sym else c)
+        return torch.sum(lb * lc, dim=-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        L, Linv, b, c = ctx.saved_tensors
+        ab = _chol_apply_inv(L, Linv, b)
+        gb = g[..., None, :]
+        if ctx.sym:
+            bc_bar = ab * gb
+            # b is passed twice (as b and c), so each slot gets half of
+            # d/db = 2 A^{-1} b g.
+            return -(bc_bar @ _t(ab)), None, None, bc_bar, bc_bar, None
+        ac = _chol_apply_inv(L, Linv, c)
+        mat_bar = -_sym((ab * gb) @ _t(ac))
+        return mat_bar, None, None, ac * gb, ab * gb, None
+
+
+class _IqfChol(torch.autograd.Function):
+    """``b^T A^{-1} c``; ``sym`` marks ``c is b``."""
+
+    @staticmethod
+    def forward(ctx, mat, L, Linv, b, c, sym):
+        lb = _half_solve(L, Linv, b)
+        lc = lb if sym else _half_solve(L, Linv, c)
+        ctx.sym = sym
+        ctx.save_for_backward(L, Linv, b, None if sym else c)
+        return _t(lb) @ lc
+
+    @staticmethod
+    def backward(ctx, g):
+        L, Linv, b, c = ctx.saved_tensors
+        ab = _chol_apply_inv(L, Linv, b)
+        ac = ab if ctx.sym else _chol_apply_inv(L, Linv, c)
+        # value = b^T A^{-1} c; dA = -A^{-1} b g c^T A^{-1} (symmetric A).
+        ab_g = ab @ g
+        if ctx.sym:
+            mat_bar = -(ab @ _sym(g) @ _t(ab))
+            # b is passed as both b and c: the two slots' cotangents add up.
+            return mat_bar, None, None, ac @ _t(g), ab_g, None
+        mat_bar = -_sym(ab_g @ _t(ac))
+        return mat_bar, None, None, ac @ _t(g), ab_g, None
+
+
+class _SolveChol(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mat, L, Linv, b):
+        x = _chol_apply_inv(L, Linv, b)
+        ctx.save_for_backward(L, Linv, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        L, Linv, x = ctx.saved_tensors
+        # x = A^{-1} b: bbar = A^{-1} g; Abar = -sym(bbar x^T).
+        b_bar = _chol_apply_inv(L, Linv, g)
+        return -_sym(b_bar @ _t(x)), None, None, b_bar
+
+
+def _as_col_operand(b):
+    """Uprank a 1-D quadratic-form operand to a single column."""
+    if not is_structured(b):
+        b = config.as_tensor(b)
+        if b.ndim == 1:
+            return b[:, None]
+    return b
+
+
+_CLOSED_FORM = (Diagonal, LowerTriangular, UpperTriangular)
+
+
+def iqf(a, b, c=None):
+    """Inner quadratic form ``b^T a^{-1} c`` (``c`` defaults to ``b``) as a
+    :class:`Dense`. 1-D operands are single columns."""
+    b = _as_col_operand(b)
+    c = b if c is None else _as_col_operand(c)
+    if isinstance(a, _CLOSED_FORM):
+        return Dense(_t(_arr(b)) @ solve(a, c))
+    a = as_matrix(a)
+    L = cholesky(a)
+    b_arr = _arr(b)
+    sym = c is b
+    c_arr = b_arr if sym else _arr(c)
+    if not isinstance(L, LowerTriangular):
+        lb = solve(L, b_arr)
+        lc = lb if sym else solve(L, c_arr)
+        return Dense(_t(lb) @ lc)
+    return Dense(_IqfChol.apply(*_chol_arrays(a), b_arr, c_arr, sym))
+
+
+def iqf_diag(a, b, c=None):
+    """``diag(b^T a^{-1} c)`` as a vector ``(..., m)``."""
+    b = _as_col_operand(b)
+    c = b if c is None else _as_col_operand(c)
+    b_arr = _arr(b)
+    if isinstance(a, _CLOSED_FORM):
+        return torch.sum(b_arr * solve(a, c), dim=-2)
+    a = as_matrix(a)
+    L = cholesky(a)
+    sym = c is b
+    c_arr = b_arr if sym else _arr(c)
+    if not isinstance(L, LowerTriangular):
+        lb = solve(L, b_arr)
+        lc = lb if sym else solve(L, c_arr)
+        return torch.sum(lb * lc, dim=-2)
+    return _IqfDiagChol.apply(*_chol_arrays(a), b_arr, c_arr, sym)
+
+
+def logdet(a):
+    """Log-determinant."""
+    _ext = _try_ext("logdet", a)
+    if _ext is not NotImplemented:
+        return _ext
+    if isinstance(a, Diagonal):
+        return torch.sum(torch.log(a.diag), dim=-1)
+    if isinstance(a, (LowerTriangular, UpperTriangular)):
+        return torch.sum(torch.log(torch.diagonal(a.mat, dim1=-2, dim2=-1)), dim=-1)
+    a = as_matrix(a)
+    L = cholesky(a)
+    if not isinstance(L, LowerTriangular):
+        return 2 * torch.sum(torch.log(diag_of(L)), dim=-1)
+    return _LogdetChol.apply(*_chol_arrays(a))
+
+
+# ---------------------------------------------------------------------------
+# Construction helpers.
+# ---------------------------------------------------------------------------
+
+
+def fill_diag(scalar, n):
+    """Diagonal matrix with every diagonal entry ``scalar``."""
+    scalar = config.as_tensor(scalar)
+    return Diagonal(scalar[..., None].expand(tuple(scalar.shape) + (n,)))
+
+
+def submatrix(a, mask):
+    """Principal submatrix selected by a boolean mask (a numpy array or a
+    CPU tensor): the NaN missing-data path."""
+    idx = torch.as_tensor(mask).nonzero().flatten()
+    a = as_matrix(a)
+    if isinstance(a, Diagonal):
+        return Diagonal(a.diag[..., idx.to(a.device)])
+    if isinstance(a, Zero):
+        return Zero(a.dtype, len(idx), len(idx), device=a.device)
+    if isinstance(a, Constant):
+        return Constant(a.const, len(idx), len(idx))
+    idx = idx.to(a.device)
+    return Dense(dense(a)[..., idx, :][..., :, idx])

@@ -1,0 +1,99 @@
+"""Finite-dimensional distributions.
+
+Counterpart of ``stheno_tpu/model/fdd.py``. ``FDD(p, x, noise)`` is
+process ``p`` at inputs ``x`` plus additive noise: a :class:`Normal`
+whose mean/variance thunks are all lazy, with the fused
+``var_diag``/``mean_var``/``mean_var_diag`` paths.
+"""
+
+import torch
+
+from .. import config
+from ..dist import Normal
+from ..kernels import elwise, mean_eval, mean_var, mean_var_diag, pairwise
+from ..matrix import Dense, Diagonal, Zero, add, diag_of, fill_diag, is_structured, submatrix
+from ..mo import infer_size
+
+__all__ = ["FDD", "noise_as_matrix", "take"]
+
+
+def noise_as_matrix(noise, dtype, n, device):
+    """Promote noise to a structured matrix: ``None`` -> Zero, scalar ->
+    scaled identity, vector -> Diagonal, matrix -> Dense. Raw (non-tensor)
+    noise takes the inputs' dtype and device."""
+    if noise is None:
+        return Zero(dtype, n, n, device=device)
+    if is_structured(noise):
+        return noise
+    if not isinstance(noise, torch.Tensor):
+        noise = torch.as_tensor(noise, dtype=dtype, device=device)
+    if noise.ndim == 0:
+        return fill_diag(noise, n)
+    if noise.ndim == 1:
+        return Diagonal(noise)
+    return Dense(noise)
+
+
+def _input(x):
+    """Place a raw input on the default device; tensors pass through."""
+    return x if isinstance(x, FDD) else config.as_tensor(x)
+
+
+class FDD(Normal):
+    """Finite-dimensional distribution of a process at inputs ``x``."""
+
+    def __init__(self, p, x, noise=None):
+        from .gp import GP
+
+        self.p = p
+        self.x = x = _input(x)
+        if not isinstance(p, GP):
+            # Input-tagging wrapper: `p` is a process id used in lazy rules.
+            self.noise = None
+            return
+
+        kernel = p.kernel
+        mean = p.mean
+        self.noise = noise_as_matrix(noise, x.dtype, infer_size(kernel, x), x.device)
+
+        def construct_mean():
+            return mean_eval(mean, x)
+
+        def construct_var():
+            return add(pairwise(kernel, x), self.noise)
+
+        def construct_var_diag():
+            return elwise(kernel, x) + diag_of(self.noise)[..., :, None]
+
+        def construct_mean_var():
+            m, v = mean_var(mean, kernel, x)
+            return m, add(v, self.noise)
+
+        def construct_mean_var_diag():
+            m, vd = mean_var_diag(mean, kernel, x)
+            return m, vd + diag_of(self.noise)[..., :, None]
+
+        Normal.__init__(
+            self,
+            construct_mean,
+            construct_var,
+            var_diag=construct_var_diag,
+            mean_var=construct_mean_var,
+            mean_var_diag=construct_mean_var_diag,
+        )
+
+    def __repr__(self):
+        return f"<FDD: process={self.p!r}, input={tuple(self.x.shape)}, noise={self.noise!r}>"
+
+
+def take(fdd: FDD, mask):
+    """Subset an FDD (inputs and noise) by a boolean mask: the
+    missing-data path."""
+    mask = torch.as_tensor(mask).cpu()
+    if mask.dtype != torch.bool:
+        raise AssertionError(
+            "Can only take from finite-dimensional distributions according to a mask."
+        )
+    idx = mask.nonzero().flatten().to(fdd.x.device)
+    x = fdd.x[..., idx] if fdd.x.ndim == 1 else fdd.x[..., idx, :]
+    return FDD(fdd.p, x, submatrix(fdd.noise, mask))
