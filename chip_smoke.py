@@ -5,15 +5,25 @@
 Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a)
 and the CUDA toolkit. It builds the hand-written kernels from
 ``stheno_torch/ops/csrc``, holds each against its plain PyTorch version
-on the card, drives the port's main path (the exact-GP
-training-and-prediction step) and checks it against the same port run in
-float64 on the CPU, then times each kernel beside its bound, its plain
-version and the nearest PyTorch library call, and profiles one N=2000
-training step (device time by kernel, device busy share). Each phase
-prints one JSON line; the line before the last lists the kernels, and
-the last line is
+on the card, and drives the port's two paths through their entry points:
+
+- the main path, the exact-GP training-and-prediction step at N=2000,
+  checked against the same port run in float64 on the CPU;
+- the matrix-free path at N=262,144 (``bench.py:bench_iterative_262k``:
+  the stochastic NLML value and gradient with a fresh and an amortised
+  preconditioner, the representer weights, the cached mean, the variance
+  cache and its queries, the serving bundle), checked at N=8192 in
+  float64 against the dense exact GP and at N=262,144 against the same
+  step in float64 on the card.
+
+It then times each kernel beside its bound, its plain version and the
+nearest PyTorch library call, times the matrix-free path's steps, and
+profiles one N=2000 and one N=262,144 training step (device time by
+kernel, device busy share). Each phase prints one JSON line; the line
+before the last lists the kernels, and the last line is
 ``{"ok": true, "device": {...}}``. Any mismatch, build or launch error,
-or a missing card ends it with a non-zero exit code and no result line.
+unconverged solve, or a missing card ends it with a non-zero exit code
+and no result line.
 """
 
 import json
@@ -39,7 +49,14 @@ KERNELS = {
         "source": "stheno_torch/ops/csrc/chol_tile.cu",
         "replaces": "stheno_tpu/ops/pallas_chol.py:112",
     },
+    "gram_matvec": {
+        "source": "stheno_torch/ops/csrc/gram_matvec.cu",
+        "replaces": "stheno_tpu/ops/gram_matvec.py:53",
+    },
 }
+
+# The matrix-free path's size (bench.py:bench_iterative_262k).
+N_IT = 262_144
 
 
 class SmokeFailure(AssertionError):
@@ -75,6 +92,26 @@ def time_ms(fn, reps=20, inner=1, warmup=3):
         end.record()
         end.synchronize()
         samples.append(start.elapsed_time(end) / inner)
+    return statistics.median(samples)
+
+
+def device_ms(fn, reps=3):
+    """Median over ``reps`` samples of the device time of one call of
+    ``fn``: a spin kernel holds the stream while the host enqueues the
+    start event, ``fn``'s launches and the end event, so no host time falls
+    between the two events."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)  # tens of ms, against tens of us of enqueueing
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
     return statistics.median(samples)
 
 
@@ -248,8 +285,18 @@ def phase_chol_tile():
 def _counts():
     from stheno_torch.ops import chol_tile as K2
     from stheno_torch.ops import gram as K1
+    from stheno_torch.ops import gram_matvec as K3
 
-    return {"gram": K1.launches, "chol_tile": K2.launches}
+    return {"gram": K1.launches, "chol_tile": K2.launches, "gram_matvec": K3.launches}
+
+
+def _set_counts(counts):
+    from stheno_torch.ops import chol_tile as K2
+    from stheno_torch.ops import gram as K1
+    from stheno_torch.ops import gram_matvec as K3
+
+    K1.launches, K2.launches, K3.launches = (
+        counts["gram"], counts["chol_tile"], counts["gram_matvec"])
 
 
 def _rel(a, b):
@@ -267,8 +314,6 @@ def phase_main_path():
     the largest float64 value."""
     from stheno_torch import EQ, GP
     from stheno_torch import entry as E
-    from stheno_torch.ops import chol_tile as K2
-    from stheno_torch.ops import gram as K1
 
     fn, (x, y, x_new, params) = E.entry()
     x_nb = torch.linspace(0.0, 10.0, 500, device="cuda")
@@ -280,8 +325,7 @@ def phase_main_path():
             noise = torch.full((), 0.1, dtype=x.dtype, device=x.device)
             return (f | (f(x, noise), y))(x_new).marginals()
 
-    K1.launches = 0
-    K2.launches = 0
+    _set_counts({"gram": 0, "chol_tile": 0, "gram_matvec": 0})
     out_entry = fn(x, y, x_new, params)
     after_entry = _counts()
     val = E.nlml_n2000(xb, yb, ell)
@@ -404,9 +448,10 @@ def phase_times(errs, counts):
         "n2000_value_grad_ms": time_ms(lambda: E.nlml_n2000(xb, yb, ell, grad=True)),
         "entry_step_ms": time_ms(lambda: fn(*args)),
     }
-    # Launches made by the timing runs do not count: restore the main
-    # path's counts.
-    K1.launches, K2.launches = saved["gram"], saved["chol_tile"]
+    kernels.append(_k3_times())
+    # Launches made by the timing runs do not count: restore the paths'
+    # counts.
+    _set_counts(saved)
     emit({"phase": "times", "kernels": kernels, "flagship": step})
 
     line = []
@@ -429,6 +474,330 @@ def phase_times(errs, counts):
     return line
 
 
+# ---------------------------------------------------------------------------
+# Kernel K3 and the matrix-free path.
+
+
+def _gmv_atol_scale(kind, x, y, v):
+    """``|G| @ |v|``, the scale of K3's sum: the entries of every kind but
+    linear are positive, so ``|G| = G`` there."""
+    from stheno_torch.ops import gram_matvec as K3
+
+    if kind == "linear":
+        return (x.abs() @ y.abs().T) @ v.abs()
+    return K3.gram_matvec_plain(kind, x, y, v.abs(), 1.3)
+
+
+def _gmv_rtol(m, dtype):
+    """K3 and its plain version sum the same m products in other orders:
+    a random walk of roundings, about sqrt(m) eps of ``|G| @ |v|``; 8 times
+    that is the tolerance."""
+    return 8 * math.sqrt(m) * torch.finfo(dtype).eps
+
+
+def _path_inputs(dtype=torch.float32):
+    from stheno_torch import entry as E
+
+    return E.iterative_inputs(N_IT, device="cuda", dtype=dtype)
+
+
+def phase_gram_matvec():
+    """K3 against its plain version on the card: every kind at a ragged
+    shape in float32 and float64, and the matrix-free path's shapes (an
+    8192-row slice of the N=262,144 inputs against all columns for p in
+    1, 17, 64, 256, and the 4096-point mean query), each within
+    ``_gmv_rtol`` of ``|G| @ |v|``. Returns the largest absolute error at
+    the path's shapes."""
+    from stheno_torch.ops import gram_matvec as K3
+    from stheno_torch.ops.gram import KINDS
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    results, path_err = [], 0.0
+
+    def hold(kind, x, y, v, tag, alpha=1.3):
+        out = K3.gram_matvec(kind, x, y, v, alpha)
+        ref = K3.gram_matvec_plain(kind, x, y, v, alpha)
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()), f"gram_matvec {kind} {tag}")
+        rtol = _gmv_rtol(y.shape[0], x.dtype)
+        rel = float(((out - ref).abs() / _gmv_atol_scale(kind, x, y, v).clamp_min(1e-30)).max())
+        check(rel <= rtol, f"gram_matvec {kind} {tag}: error {rel} of |G||v| > {rtol}")
+        results.append({"kind": kind, "case": tag, "max_rel_err": rel, "rtol": rtol})
+        return max_err(out, ref)
+
+    for dtype in (torch.float32, torch.float64):
+        x = torch.randn(3000, 2, generator=gen, device="cuda", dtype=dtype)
+        y = torch.randn(2500, 2, generator=gen, device="cuda", dtype=dtype)
+        v = torch.randn(2500, 5, generator=gen, device="cuda", dtype=dtype)
+        for kind in KINDS:
+            hold(kind, x, y, v, f"3000x2 by 2500x2 p=5 {dtype}")
+    # x is y: the Matérn diagonal must be exactly g(0) = 1.
+    xs = torch.randn(4000, 1, generator=gen, device="cuda")
+    eye = torch.eye(4000, device="cuda")[:, :64]
+    diag = K3.gram_matvec("matern12", xs, xs, eye).diagonal()
+    check(bool((diag == 1).all()), "gram_matvec: the Matérn diagonal is not exactly 1")
+
+    x, _, _ = _path_inputs()
+    x = x[:, None]
+    rows = x[:8192]
+    for p in (1, 17, 64, 256):
+        v = torch.randn(N_IT, p, generator=gen, device="cuda")
+        path_err = max(path_err, hold("eq", rows, x, v, f"8192x1 by {N_IT}x1 p={p}"))
+    xq = torch.linspace(0.0, 10.0, 4096, device="cuda")[:, None]
+    v = torch.randn(N_IT, 1, generator=gen, device="cuda")
+    path_err = max(path_err, hold("eq", xq, x, v, f"4096x1 by {N_IT}x1 p=1"))
+    emit({"phase": "gram_matvec_vs_plain", "cases": results})
+    return path_err
+
+
+def _dense_posterior(x, y, params, x_new):
+    """The exact NLML with its gradients and the posterior marginals at
+    ``x_new`` through the ported dense path (``Measure.logpdf``,
+    conditioning), for the matrix-free path's model."""
+    from stheno_torch import GP
+    from stheno_torch import entry as E
+
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    noise = torch.tensor(E.ITERATIVE_NOISE, dtype=x.dtype, device=x.device)
+    with torch.enable_grad():
+        f = GP(E.iterative_kernel(leaves))
+        val = -f.measure.logpdf(f(x, noise), y)
+        grads = torch.autograd.grad(val, list(leaves.values()))
+    with torch.no_grad():
+        f = GP(E.iterative_kernel(params))
+        mean, var = (f | (f(x, noise), y))(x_new).marginals()
+    return val.detach(), dict(zip(leaves, grads)), mean, var
+
+
+def phase_iterative():
+    """The matrix-free path at N=262,144, float32, driven once through the
+    entry points with every count at 0: the shared preconditioner, the
+    fresh and the amortised training step, the weights, the cached mean at
+    4096 points, the variance cache and the cached variance at 2048
+    points, and the serving bundle. Every CG must converge and every
+    output be finite; K3 must launch in each forward sweep and K1 in each
+    step's backward. The variance-cache build is timed here (one run).
+    Returns the path's launch counts, its preconditioner state and
+    variance cache, and that time."""
+    from stheno_torch import entry as E
+
+    x, y, params = _path_inputs()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x_mean = torch.linspace(0.0, 10.0, 4096, device="cuda")
+    x_var = torch.linspace(0.0, 10.0, 2048, device="cuda")
+    report, deltas = {"phase": "iterative_path", "n": N_IT}, {}
+
+    def leg(name, fn):
+        before = _counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = _counts()
+        deltas[name] = {k: after[k] - before[k] for k in after}
+        check(deltas[name]["gram_matvec"] >= 1, f"{name}: K3 did not launch")
+        return out
+
+    _set_counts({"gram": 0, "chol_tile": 0, "gram_matvec": 0})
+    state = leg("precond_build", lambda: E.iterative_precond_state(x, params, gen))
+    steps = {}
+    for name, kw in (("step", {}), ("amortised_step", {"precond_state": state})):
+        val, grads, info = leg(name, lambda kw=kw: E.iterative_step(x, y, params, gen, **kw))
+        check(deltas[name]["gram"] >= 1, f"{name}: K1 did not launch in the surrogate backward")
+        check(info["cg_converged"], f"{name}: CG did not converge ({info})")
+        check(all(bool(torch.isfinite(t)) for t in (val, *grads.values())), f"{name} not finite")
+        steps[name] = {"nlml": float(val), "cg_iters": info["cg_iters"],
+                       "cg_rel_residual": float(info["cg_rel_residual"]),
+                       **{f"grad_{k}": float(g) for k, g in grads.items()}}
+    alpha, winfo = leg("weights", lambda: E.serving_weights(x, y, params, state))
+    check(float(winfo["rel_residual"]) <= 1e-4, f"weights: CG did not converge ({winfo})")
+    mean = leg("cached_mean", lambda: E.serving_mean(x, params, alpha, x_mean))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    cache = leg("var_cache_build", lambda: E.serving_variance_cache(x, params, gen))
+    end.record()
+    end.synchronize()
+    build_s = start.elapsed_time(end) / 1e3
+    var = E.serving_var(x, params, cache, x_var)
+    bundle = leg("serving_bundle",
+                 lambda: E.serving_bundle(x, y, params, gen, precond_state=state))
+    b_mean, b_var = bundle.mean(x_var), bundle.var(x_var)
+    torch.cuda.synchronize()
+    counts = _counts()
+    check(float(bundle.solve_info["rel_residual"]) <= 1e-4, "serving bundle: weights unconverged")
+    for name, t, xq in (("mean", mean, x_mean), ("var", var, x_var), ("bundle_mean", b_mean, x_var),
+                        ("bundle_var", b_var, x_var)):
+        check(t.shape == xq.shape and bool(torch.isfinite(t).all()), f"{name}: shape or not finite")
+    check(bool((var >= 0).all()), "cached variance negative")
+    report.update({
+        "launches": counts,
+        "launches_by_leg": deltas,
+        "steps": steps,
+        "weights": {"cg_iters": winfo["iters"], "rel_residual": float(winfo["rel_residual"])},
+        "mean_range": [float(mean.min()), float(mean.max())],
+        "var_range": [float(var.min()), float(var.max())],
+        "bundle_mean_vs_mean_max_abs": max_err(b_mean, E.serving_mean(x, params, alpha, x_var)),
+        "var_cache_build_s": build_s,
+    })
+    emit(report)
+    return counts, state, cache, build_s
+
+
+def _rel_grads(grads, ref):
+    return {k: _rel(grads[k], ref[k]) for k in grads}
+
+
+def phase_iterative_gates(state32):
+    """Correctness gates of the matrix-free path, on the card:
+
+    - N=8192, float64: the NLML and its gradients against the exact NLML
+      of the ported dense path (``Measure.logpdf``), and the cached mean
+      and variance against the dense posterior. 4096 probes keep the
+      Hutchinson noise of the gradient estimate below the gate (16 probes
+      alone scatter it by tens of percent at this size).
+    - N=262,144: the float32 step against the same step in float64 on
+      the card, with the same probes and state, both at cg_tol 1e-3 (the
+      float64 run at block 2048 for memory). 1e-3 is about as far as the
+      float32 solve of the probe columns gets here: each product sums
+      some 65,000 entries of order 1 per row, so its rounding (about
+      3e-5) against the noise term 0.1 v floors the whitened residual
+      near 3e-4; runs at 1e-6 and 1e-4 wandered (residual 0.13 after 500
+      iterations, 0.04 after 200). The weights solve (y alone) reaches
+      1e-4.
+
+    NLML rel <= 1e-3 and gradients rel <= 5e-2, as the main path's
+    gates; the mean and variance within 1e-4 of the largest dense value."""
+    from stheno_torch import entry as E
+    from stheno_torch.iterative import nlml as NL
+
+    report = {"phase": "iterative_gates"}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x, y, params = E.iterative_inputs(8192, device="cuda", dtype=torch.float64)
+    x_new = torch.linspace(-0.5, 10.5, 1000, device="cuda", dtype=torch.float64)
+    ref_v, ref_g, ref_mean, ref_var = _dense_posterior(x, y, params, x_new)
+    state = E.iterative_precond_state(x, params, gen)
+    val, grads, info = E.iterative_step(x, y, params, gen, precond_state=state, num_probes=4096,
+                                        cg_tol=1e-8, max_cg_iters=500)
+    alpha, winfo = E.serving_weights(x, y, params, state, cg_tol=1e-8, max_cg_iters=500)
+    mean = E.serving_mean(x, params, alpha, x_new)
+    cache = E.serving_variance_cache(x, params, gen, cg_tol=1e-6, max_cg_iters=50)
+    var = E.serving_var(x, params, cache, x_new)
+    g8 = {
+        "nlml": float(val), "nlml_exact": float(ref_v), "nlml_rel": _rel(val, ref_v),
+        "grad_rel": _rel_grads(grads, ref_g), "cg_iters": info["cg_iters"],
+        "mean_max_abs_err": max_err(mean, ref_mean), "var_max_abs_err": max_err(var, ref_var),
+    }
+    report["n8192_f64"] = g8
+    check(info["cg_converged"] and float(winfo["rel_residual"]) <= 1e-8, f"N=8192 CG {g8}")
+    check(g8["nlml_rel"] <= 1e-3, f"N=8192 NLML {g8}")
+    check(all(r <= 5e-2 for r in g8["grad_rel"].values()), f"N=8192 gradients {g8}")
+    check(g8["mean_max_abs_err"] <= 1e-4 * max(1.0, float(ref_mean.abs().max())), f"N=8192 mean {g8}")
+    check(g8["var_max_abs_err"] <= 1e-4 * max(1.0, float(ref_var.abs().max())), f"N=8192 var {g8}")
+
+    x32, y32, p32 = _path_inputs()
+    u32 = torch.randn(N_IT, 16, generator=gen, device="cuda")
+    out = {}
+    for dtype, block in ((torch.float32, 8192), (torch.float64, 2048)):
+        leaves = {k: v.to(dtype).requires_grad_(True) for k, v in p32.items()}
+        with torch.enable_grad():
+            v, h = NL._nlml(leaves, y32.to(dtype), E.ITERATIVE_NOISE, x32.to(dtype)[:, None],
+                            u32.to(dtype), None, tuple(t.to(dtype) for t in state32),
+                            E.iterative_kernel, 1e-3, 200, 30, 64, "eig", block=block)
+            g = dict(zip(leaves, torch.autograd.grad(v, list(leaves.values()))))
+        check(h["cg_converged"], f"N={N_IT} {dtype} step at cg_tol 1e-3: {h}")
+        out[dtype] = (v.detach(), g, h)
+    (v32, g32, h32), (v64, g64, h64) = out[torch.float32], out[torch.float64]
+    big = {
+        "nlml_f32": float(v32), "nlml_f64": float(v64), "nlml_rel": _rel(v32, v64),
+        "grad_f32": {k: float(t) for k, t in g32.items()},
+        "grad_f64": {k: float(t) for k, t in g64.items()},
+        "grad_rel": _rel_grads(g32, g64),
+        "cg_iters_f32": h32["cg_iters"], "cg_iters_f64": h64["cg_iters"],
+        "cg_rel_residual_f32": float(h32["cg_rel_residual"]),
+        "cg_rel_residual_f64": float(h64["cg_rel_residual"]),
+    }
+    report[f"n{N_IT}_f32_vs_f64"] = big
+    emit(report)
+    check(big["nlml_rel"] <= 1e-3, f"N={N_IT} f32 NLML {big}")
+    check(all(r <= 5e-2 for r in big["grad_rel"].values()), f"N={N_IT} f32 gradients {big}")
+
+
+def _k3_times():
+    """K3 per call at the matrix-free path's shapes (CUDA events, one
+    warm-up, median of 3): the full N=262,144 square sweep at p = 17 (the
+    CG solve), 64 (the preconditioner), 256 (the variance basis) and 1
+    (the weights), and the 4096-point mean query; beside each its device
+    time (``device_ms``: the kernel and the column split's sum, no host
+    time), its bound,
+    its plain version, and the sweep a PyTorch user would write over the
+    same row blocks, ``exp(-0.5 cdist(xb, y)^2) @ v`` (the library call;
+    the port never makes it). The kernels line takes p = 17."""
+    from stheno_torch.ops import gram_matvec as K3
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = _path_inputs()[0][:, None]
+    xq = torch.linspace(0.0, 10.0, 4096, device="cuda")[:, None]
+    shapes = {}
+    for tag, rows, p in (("p17", x, 17), ("p64", x, 64), ("p256", x, 256), ("p1", x, 1),
+                         ("query4096_p1", xq, 1)):
+        v = torch.randn(N_IT, p, generator=gen, device="cuda")
+        n, m, d = rows.shape[0], N_IT, 1
+
+        def library(rows=rows, v=v):
+            return torch.cat([torch.exp(-0.5 * torch.cdist(xb, x).square()) @ v
+                              for xb in torch.split(rows, 8192)])
+
+        byts = (n * d + m * d + m * p + n * p) * 4
+        flops = n * m * (2 * d + 4 + 2 * p) + 2 * (n + m) * d
+        b_ms, b_by = bound(byts, flops, torch.float32)
+        slow = n * p > 8192 * 64
+        call = lambda rows=rows, v=v: K3.gram_matvec("eq", rows, x, v)  # noqa: E731
+        shapes[tag] = {
+            "shape": [n, m, d, p],
+            "ms": time_ms(call, reps=3, warmup=1),
+            "device_ms": device_ms(call, reps=1 if slow else 3),
+            "plain_ms": time_ms(lambda: K3.gram_matvec_plain("eq", rows, x, v),
+                                reps=1 if slow else 3, warmup=1),
+            "library_ms": time_ms(library, reps=1 if slow else 3, warmup=1),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "launch_shape": K3.launch_shape(n, m, p, 4),
+        }
+    return {"name": "gram_matvec", **shapes["p17"], "shapes": shapes}
+
+
+def phase_path_times(state, cache, build_s):
+    """The matrix-free path's steps under bench.py's suite names: CUDA
+    events around each call, one warm-up and the median of 3 (the
+    variance-cache build: its one timed run in ``phase_iterative``); the
+    peak device memory of the amortised step."""
+    from stheno_torch import entry as E
+
+    saved = _counts()
+    x, y, params = _path_inputs()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    alpha, _ = E.serving_weights(x, y, params, state)
+    x_mean = torch.linspace(0.0, 10.0, 4096, device="cuda")
+    x_var = torch.linspace(0.0, 10.0, 2048, device="cuda")
+
+    def secs(fn):
+        return time_ms(fn, reps=3, warmup=1) / 1e3
+
+    out = {
+        "iterative_n262144_precond_build_s": secs(lambda: E.iterative_precond_state(x, params, gen)),
+        "iterative_n262144_step_s": secs(lambda: E.iterative_step(x, y, params, gen)),
+    }
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["iterative_n262144_amortised_step_s"] = secs(
+        lambda: E.iterative_step(x, y, params, gen, precond_state=state))
+    out["amortised_step_max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    out["posterior_weights_n262144_s"] = secs(lambda: E.serving_weights(x, y, params, state))
+    out["cached_posterior_mean_n262144_s"] = secs(lambda: E.serving_mean(x, params, alpha, x_mean))
+    out["var_cache_build_n262144_s"] = build_s
+    out["cached_posterior_var_n262144_s"] = secs(lambda: E.serving_var(x, params, cache, x_var))
+    _set_counts(saved)
+    emit({"phase": "iterative_times", **out})
+
+
 def _union_length(intervals):
     """Total length of the union of ``(start, end)`` intervals."""
     total, start, end = 0.0, None, None
@@ -449,60 +818,66 @@ def _kernel_name(name):
     return head.rsplit("::", 1)[-1].replace("void ", "").strip()[:80]
 
 
-def phase_profile():
-    """One N=2000 value+grad step under torch.profiler, after warm-up: the
-    device time by kernel, and the share of the step's span (from its start
-    on the host to the end of its last device activity) in which the device
-    was busy. The profiler slows the host, so that share is a lower bound.
-    The device launches seen must match the wrappers' counts."""
+def _profile(label, fn):
+    """Run ``fn`` once under torch.profiler: ``(span_us, busy_us,
+    by_name, launches)``, with the step's span from its start on the host
+    to the end of its last device activity, the device's busy time in it,
+    ``{kernel: (launches, device_us)}`` and the wrappers' counts of the
+    run. The profiler slows the host, so busy / span is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from stheno_torch import entry as E
-    from stheno_torch.ops import chol_tile as K2
-    from stheno_torch.ops import gram as K1
-
-    xb, yb, ell = E.n2000_inputs()
-    for _ in range(3):
-        E.nlml_n2000(xb, yb, ell, grad=True)
     torch.cuda.synchronize()
     before = _counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("n2000_value_grad"):
-            E.nlml_n2000(xb, yb, ell, grad=True)
+        with record_function(label):
+            fn()
             torch.cuda.synchronize()
     after = _counts()
     events = prof.events()
     # The annotation is recorded twice, on the host and as a device span;
     # only the host one marks the step's start, and neither is a kernel.
-    (step,) = [
-        e for e in events if e.name == "n2000_value_grad" and e.device_type == DeviceType.CPU
-    ]
+    (step,) = [e for e in events if e.name == label and e.device_type == DeviceType.CPU]
     device = [
         e
         for e in events
-        if e.device_type == DeviceType.CUDA
-        and not e.is_user_annotation
-        and e.name != "n2000_value_grad"
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation and e.name != label
     ]
     check(device, "the profiler recorded no device activity")
     intervals = [(e.time_range.start, e.time_range.end) for e in device]
     span_us = max(step.time_range.end, max(e for _, e in intervals)) - step.time_range.start
-    busy_us = _union_length(intervals)
-
     by_name = {}
     for e in device:
         n, us = by_name.get(_kernel_name(e.name), (0, 0.0))
         by_name[_kernel_name(e.name)] = (n + 1, us + e.time_range.end - e.time_range.start)
+    launches = {k: after[k] - before[k] for k in after}
+    return span_us, _union_length(intervals), by_name, launches
+
+
+def _top(by_name, k=12):
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:k]
+    return [{"name": n, "launches": c, "device_ms": us / 1e3} for n, (c, us) in top]
+
+
+def phase_profile():
+    """One N=2000 value+grad step under torch.profiler, after warm-up: the
+    device time by kernel and the device busy share. The device launches
+    seen must match the wrappers' counts."""
+    from stheno_torch import entry as E
+
+    xb, yb, ell = E.n2000_inputs()
+    for _ in range(3):
+        E.nlml_n2000(xb, yb, ell, grad=True)
+    span_us, busy_us, by_name, launches = _profile(
+        "n2000_value_grad", lambda: E.nlml_n2000(xb, yb, ell, grad=True))
     k1_n, k1_us = by_name.get("gram_kernel", (0, 0.0))
     k2_names = ("diag_factor", "panel", "trailing")
     k2_us = sum(by_name.get(k, (0, 0.0))[1] for k in k2_names)
-    tiles = after["chol_tile"] - before["chol_tile"]
-    check(k1_n == after["gram"] - before["gram"] >= 1,
-          f"profiled gram_kernel launches {k1_n} != wrapper count {after['gram'] - before['gram']}")
+    tiles = launches["chol_tile"]
+    check(k1_n == launches["gram"] >= 1,
+          f"profiled gram_kernel launches {k1_n} != wrapper count {launches['gram']}")
     check(by_name.get("diag_factor", (0, 0.0))[0] == 8 * tiles == 16,
           f"profiled diag_factor launches {by_name.get('diag_factor')} for {tiles} tiles")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     emit(
         {
             "phase": "profile",
@@ -512,9 +887,46 @@ def phase_profile():
             "device_busy_share": busy_us / span_us,
             "gram_device_ms_per_launch": k1_us / k1_n / 1e3,
             "chol_tile_device_ms_per_tile": k2_us / tiles / 1e3,
-            "kernels": [
-                {"name": k, "launches": n, "device_ms": us / 1e3} for k, (n, us) in top
-            ],
+            "kernels": _top(by_name),
+        }
+    )
+
+
+def phase_profile_iterative(state):
+    """One amortised N=262,144 value+grad step under torch.profiler, after
+    a warm-up: device time by kernel, K3's and K1's device time per
+    launch, and the device busy share. K3's and K1's device launches must
+    match the wrappers' counts."""
+    from stheno_torch import entry as E
+
+    saved = _counts()
+    x, y, params = _path_inputs()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    E.iterative_step(x, y, params, gen, precond_state=state)
+    span_us, busy_us, by_name, launches = _profile(
+        "n262144_amortised_value_grad",
+        lambda: E.iterative_step(x, y, params, gen, precond_state=state))
+    _set_counts(saved)
+    k3_n, k3_us = by_name.get("gmv_kernel", (0, 0.0))
+    red_n, red_us = by_name.get("gmv_reduce", (0, 0.0))
+    k1_n, k1_us = by_name.get("gram_kernel", (0, 0.0))
+    check(k3_n == launches["gram_matvec"] >= 1,
+          f"profiled gmv_kernel launches {k3_n} != wrapper count {launches['gram_matvec']}")
+    check(k1_n == launches["gram"] >= 1,
+          f"profiled gram_kernel launches {k1_n} != wrapper count {launches['gram']}")
+    emit(
+        {
+            "phase": "profile_iterative",
+            "step": f"N={N_IT} EQ stochastic NLML value+grad, amortised, float32",
+            "span_ms": span_us / 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / span_us,
+            "gram_matvec_launches": k3_n,
+            "gram_matvec_device_ms_per_launch": (k3_us + red_us) / k3_n / 1e3,
+            "gram_matvec_reduce_device_ms": red_us / 1e3,
+            "gram_launches": k1_n,
+            "gram_device_ms_per_launch": k1_us / k1_n / 1e3,
+            "kernels": _top(by_name, 16),
         }
     )
 
@@ -531,11 +943,30 @@ def main():
     from stheno_torch import config
 
     config.pin_matmul_precision()
-    phase_card()
-    errs = {"gram": phase_gram(), "chol_tile": phase_chol_tile()}
-    counts = phase_main_path()
-    kernels = phase_times(errs, counts)
-    phase_profile()
+    seconds = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    run("card_and_build", phase_card)
+    errs = {
+        "gram": run("gram", phase_gram),
+        "chol_tile": run("chol_tile", phase_chol_tile),
+        "gram_matvec": run("gram_matvec", phase_gram_matvec),
+    }
+    counts = run("main_path", phase_main_path)
+    it_counts, state, cache, build_s = run("iterative_path", phase_iterative)
+    run("iterative_gates", phase_iterative_gates, state)
+    # Each kernel's launches are those of the path it serves: K1 and K2
+    # on the main path, K3 on the matrix-free path.
+    kernels = run("times", phase_times, errs, {**counts, "gram_matvec": it_counts["gram_matvec"]})
+    run("iterative_times", phase_path_times, state, cache, build_s)
+    run("profile", phase_profile)
+    run("profile_iterative", phase_profile_iterative, state)
+    emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(
         json.dumps(

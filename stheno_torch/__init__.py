@@ -5,9 +5,10 @@ The same ``Measure``/``GP`` algebra over structured matrices as
 ``torch.autograd.Function`` where the JAX package has a ``custom_vjp``,
 and hand-written CUDA kernels (``ops/csrc``) where it has Pallas kernels.
 Entry points run on the card unless the CPU is asked for
-(``config.set_default_device("cpu")``). This first slice covers the
-exact-GP training-and-prediction step; ``ROADMAP.md`` lists what is still
-to be ported.
+(``config.set_default_device("cpu")``). Ported so far: the exact-GP
+training-and-prediction step, and the matrix-free (iterative) exact-GP
+path of ``stheno_torch.iterative``; ``ROADMAP.md`` lists what is still to
+be ported.
 """
 
 from . import config

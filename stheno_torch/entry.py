@@ -10,19 +10,44 @@ the model of ``bench.py:bench_n2000``:
 - :func:`entry` returns the step and its example arguments at the JAX
   shapes (n=1024, m=256, float32);
 - :func:`nlml_n2000` is the reference's headline, the periodic-EQ NLML at
-  N=2000 (:func:`n2000_inputs`), as a value or a value and gradient.
+  N=2000 (:func:`n2000_inputs`), as a value or a value and gradient;
+- the matrix-free path of ``bench.py:bench_iterative_262k`` (the exact GP
+  at N=262,144, whose Gram cannot be stored): :func:`iterative_inputs`
+  makes its data, :func:`iterative_precond_state` its shared
+  preconditioner, :func:`iterative_step` its NLML value and gradient
+  (fresh or amortised preconditioner), and :func:`serving_weights`,
+  :func:`serving_mean`, :func:`serving_variance_cache`,
+  :func:`serving_var` and :func:`serving_bundle` its amortised
+  posterior, each with the benchmark's settings as defaults.
 
 Raw inputs go to ``device`` (default ``config.default_device``, the card);
 tensors keep their own device.
 """
 
+import numpy as np
 import torch
 
 from . import config
+from . import iterative as it
 from .kernels import EQ
 from .model import GP
 
-__all__ = ["flagship_step", "entry", "periodic_nlml", "n2000_inputs", "nlml_n2000"]
+__all__ = [
+    "flagship_step",
+    "entry",
+    "periodic_nlml",
+    "n2000_inputs",
+    "nlml_n2000",
+    "iterative_kernel",
+    "iterative_inputs",
+    "iterative_precond_state",
+    "iterative_step",
+    "serving_weights",
+    "serving_mean",
+    "serving_variance_cache",
+    "serving_var",
+    "serving_bundle",
+]
 
 
 def _eq_model(params):
@@ -97,3 +122,97 @@ def nlml_n2000(x, y, ell, grad=False):
         val = periodic_nlml(x, y, ell)
         (g,) = torch.autograd.grad(val, ell)
     return val.detach(), g
+
+
+# ---------------------------------------------------------------------------
+# The matrix-free path at N=262,144 (bench.py:bench_iterative_262k).
+
+#: Observation-noise variance of the matrix-free path.
+ITERATIVE_NOISE = 0.1
+
+
+def iterative_kernel(params):
+    """``exp(log_s2) * EQ().stretch(exp(log_ell))``."""
+    return torch.exp(params["log_s2"]) * EQ().stretch(torch.exp(params["log_ell"]))
+
+
+def iterative_inputs(n=262_144, device=None, dtype=torch.float32, seed=0):
+    """The benchmark's data, made as ``bench.py`` makes it: ``x`` is ``n``
+    sorted uniform points on [0, 10], ``y = sin x + 0.1 noise``, from a
+    numpy ``RandomState(seed)``; and the parameters ``log_s2 = log_ell =
+    0``. Returns ``(x, y, params)``."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    dev = config.resolve_device(device)
+    r = np.random.RandomState(seed)
+    x = torch.as_tensor(np.sort(r.rand(n).astype(np_dtype)) * 10, device=dev)
+    y = torch.sin(x) + 0.1 * torch.as_tensor(r.randn(n).astype(np_dtype), device=dev)
+    params = {k: torch.zeros((), dtype=dtype, device=dev) for k in ("log_s2", "log_ell")}
+    return x, y, params
+
+
+def iterative_precond_state(x, params, generator, rank=64, block=8192):
+    """The shared eig-preconditioner state ``(U, lam)`` (amortised
+    training and serving)."""
+    return it.eig_precond_state(iterative_kernel, params, x, rank, generator, block=block)
+
+
+def iterative_step(x, y, params, generator, *, precond_state=None, noise=ITERATIVE_NOISE,
+                   num_probes=16, cg_tol=1e-2, max_cg_iters=200, slq_steps=30,
+                   precond_rank=64, block=8192, compensated=False):
+    """The training step: the stochastic NLML and its gradient with
+    respect to ``params``, with a fresh rank-``precond_rank`` eig
+    preconditioner or the given ``precond_state``. Returns ``(value,
+    grads, info)`` with ``info`` the forward solve's health dict."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        val, info = it.iterative_nlml(
+            iterative_kernel, leaves, x, y, noise, generator, num_probes=num_probes,
+            cg_tol=cg_tol, max_cg_iters=max_cg_iters, slq_steps=slq_steps,
+            precond_rank=precond_rank, precond_state=precond_state, block=block,
+            return_info=True, compensated=compensated,
+        )
+        grads = torch.autograd.grad(val, list(leaves.values()))
+    return val.detach(), dict(zip(leaves, grads)), info
+
+
+def serving_weights(x, y, params, precond_state, *, noise=ITERATIVE_NOISE, cg_tol=1e-4,
+                    max_cg_iters=200, block=8192):
+    """The representer weights on the shared state: ``(alpha, info)``."""
+    return it.posterior_weights(
+        iterative_kernel, params, x, y, noise, cg_tol=cg_tol, max_cg_iters=max_cg_iters,
+        precond_state=precond_state, block=block,
+    )
+
+
+def serving_mean(x, params, alpha, x_new, *, block=8192):
+    """The posterior mean at ``x_new`` from the weights (no CG)."""
+    with torch.no_grad():
+        return it.cached_posterior_mean(iterative_kernel, params, x, alpha, x_new, block=block)
+
+
+def serving_variance_cache(x, params, generator, *, noise=ITERATIVE_NOISE, rank=256,
+                           power_iters=2, refine=True, cg_tol=1e-3, max_cg_iters=20,
+                           block=4096):
+    """The amortised variance cache of the benchmark's settings."""
+    return it.variance_cache(
+        iterative_kernel, params, x, noise, rank=rank, generator=generator,
+        power_iters=power_iters, refine=refine, cg_tol=cg_tol, max_cg_iters=max_cg_iters,
+        block=block,
+    )
+
+
+def serving_var(x, params, cache, x_new, *, chunk=1024):
+    """The posterior variance at ``x_new`` from the cache (no CG)."""
+    with torch.no_grad():
+        return it.cached_posterior_var(iterative_kernel, params, x, cache, x_new, chunk=chunk)
+
+
+def serving_bundle(x, y, params, generator, *, precond_state=None, noise=ITERATIVE_NOISE,
+                   rank=256, block=8192, chunk=1024, var_max_cg_iters=20):
+    """The serving bundle :class:`~stheno_torch.iterative.AmortisedPosterior`
+    (weights and variance cache in one object)."""
+    return it.AmortisedPosterior(
+        iterative_kernel, params, x, y, noise, rank=rank, generator=generator,
+        precond_state=precond_state, block=block, chunk=chunk,
+        var_max_cg_iters=var_max_cg_iters,
+    )

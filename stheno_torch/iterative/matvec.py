@@ -1,0 +1,170 @@
+"""Matrix-free kernel matvecs.
+
+Counterpart of ``stheno_tpu/iterative/matvec.py``: ``(k(x, x_cols) [+
+noise I]) @ v`` without ever storing the N x N Gram. Two routes, chosen
+by the expression and by whether a gradient is needed, never by catching
+an error:
+
+- **Fused (kernel K3).** ``k`` is a chain of ``ScaledKernel``s over input
+  wrappers (stretch, shift, select, transform, periodic) over a stationary
+  leaf (EQ, RQ, Matérn) or ``Linear``, and no gradient flows: the inputs
+  are warped once (O(N d)) and :func:`~stheno_torch.ops.gram_matvec.gram_matvec`
+  computes ``g(d2) @ v`` (the CUDA kernel on the card, its plain version on
+  the CPU); the scales multiply the product and the noise term is added.
+- **Blocked sweep.** Everything else (other expressions, a required
+  gradient, ``config.accurate_dists()``, which K3's matmul-identity
+  distances cannot honour): the JAX package's structure, one
+  ``(block, m)`` Gram tile per row block (K1 on the card) times ``v``.
+  When a gradient is needed each block runs under
+  ``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``: the
+  backward pass rebuilds each tile instead of saving all of them, so peak
+  memory stays O(block * m).
+
+Not ported yet (each raises ``NotImplementedError``; ``ROADMAP.md`` lists
+them): ``tile_dtype``, ``symmetric=True`` and ``compensated=True``. Any
+``precision`` below full float32 raises too: the JAX package measured
+that single-pass tile products put the NLML 18% off with gradients about
+9x wrong. Every tile product in the port is a full float32 (or float64)
+FMA product, which is at least as accurate as the JAX default ``"high"``.
+"""
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from .. import config
+from ..kernels.eval import pairwise
+from ..kernels.kernel import Linear, ScaledKernel, _InputWrappedKernel, _Stationary
+from ..kernels.util import uprank
+from ..matrix import dense
+from ..ops.gram_matvec import gram_matvec
+
+__all__ = ["kernel_matvec"]
+
+_FULL_PRECISION = (None, "high", "float32", "highest")
+_LOW_PRECISION = ("default", "bfloat16", "tensorfloat32")
+
+
+def not_ported(what):
+    """The error of an option this port does not have yet."""
+    return NotImplementedError(
+        f"{what} is not ported to stheno_torch yet (see ROADMAP.md, queue 1 item 9)."
+    )
+
+
+def fused_form(k):
+    """``(scales, wrappers, leaf)`` when ``k`` is a chain of scalings and
+    input wrappers over a stationary or linear leaf, else ``None``."""
+    scales, wrappers = [], []
+    while True:
+        if isinstance(k, ScaledKernel):
+            scales.append(k.scale)
+            k = k.k
+        elif isinstance(k, _InputWrappedKernel):
+            wrappers.append(k)
+            k = k.k
+        elif isinstance(k, (_Stationary, Linear)):
+            return scales, wrappers, k
+        else:
+            return None
+
+
+def _requires_grad(t):
+    return isinstance(t, torch.Tensor) and t.requires_grad
+
+
+def _fused_matvec(form, x, xc, v2):
+    """K3's product for the fused form, or ``None`` when a gradient would
+    flow through it (then the differentiable blocked sweep runs)."""
+    scales, wrappers, leaf = form
+    xw, yw = x, xc
+    for w in wrappers:
+        xw, yw = w._warp_pair(xw, yw)
+        xw, yw = uprank(xw), uprank(yw)
+    kind = "linear" if isinstance(leaf, Linear) else leaf.kind
+    alpha = leaf._alpha() if kind != "linear" else 1.0
+    if xw.dtype != v2.dtype or xw.dtype != yw.dtype:
+        return None
+    if torch.is_grad_enabled() and any(
+        _requires_grad(t) for t in (xw, yw, v2, alpha, *scales)
+    ):
+        return None
+    out = gram_matvec(kind, xw, yw, v2, alpha)
+    for s in scales:
+        out = out * s
+    return out
+
+
+def _tile_product(k, xb, xc, v2):
+    return dense(pairwise(k, xb, xc)) @ v2
+
+
+def kernel_matvec(
+    k,
+    x,
+    v,
+    noise=None,
+    block=4096,
+    tile_dtype=None,
+    x_cols=None,
+    symmetric=None,
+    precision="high",
+    compensated=False,
+):
+    """Compute ``(k(x, x_cols) [+ noise I]) @ v`` matrix-free.
+
+    Args:
+        k: kernel expression.
+        x: row inputs ``(n, d)`` (or ``(n,)``).
+        v: right-hand sides ``(m, p)`` (or ``(m,)``) with ``m = len(x_cols)``.
+        noise: optional scalar (or ``(n,)``) diagonal noise (square case only).
+        block: row-block size of the blocked sweep.
+        tile_dtype: not ported (must be ``None``).
+        x_cols: optional column inputs (default: ``x``, the square Gram).
+        symmetric: not ported (``None`` or ``False``).
+        precision: ``"high"``, ``"float32"``, ``"highest"`` or ``None``: all
+            run full float32 (or float64) products. ``"default"``,
+            ``"bfloat16"`` and ``"tensorfloat32"`` raise.
+        compensated: not ported (must be false).
+
+    Returns:
+        ``(n, p)`` (or ``(n,)`` matching ``v``).
+    """
+    if compensated:
+        raise not_ported("kernel_matvec(compensated=True), the two-float matvec,")
+    if tile_dtype is not None:
+        raise not_ported("kernel_matvec(tile_dtype=...)")
+    if symmetric:
+        raise not_ported("kernel_matvec(symmetric=True)")
+    if precision in _LOW_PRECISION:
+        raise not_ported(
+            f"kernel_matvec(precision={precision!r}) (tile products below full float32)"
+        )
+    if precision not in _FULL_PRECISION:
+        raise ValueError(f"Unknown precision {precision!r}.")
+    x = uprank(x)
+    square = x_cols is None
+    xc = x if square else uprank(x_cols)
+    v_in = config.as_tensor(v)
+    v2 = v_in[:, None] if v_in.ndim == 1 else v_in
+
+    out = None
+    form = fused_form(k)
+    if form is not None and not config.accurate_dists_enabled():
+        out = _fused_matvec(form, x, xc, v2)
+    if out is None:
+        need_grad = torch.is_grad_enabled()
+        tiles = []
+        for xb in torch.split(x, min(block, max(x.shape[0], 1))):
+            if need_grad:
+                tiles.append(checkpoint(_tile_product, k, xb, xc, v2, use_reentrant=False))
+            else:
+                tiles.append(_tile_product(k, xb, xc, v2))
+        out = torch.cat(tiles, dim=0)
+
+    if noise is not None:
+        if not square:
+            raise ValueError("noise only applies to the square (x_cols=None) case.")
+        noise = torch.as_tensor(noise, dtype=v2.dtype, device=v2.device)
+        noise_col = noise[:, None] if noise.ndim == 1 else noise
+        out = out + noise_col * v2
+    return out[:, 0] if v_in.ndim == 1 else out

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-The sources in ``csrc/*.cu`` have a plain C interface. At first use they
-are compiled by ``nvcc`` for ``sm_90a`` (one process per source, all
-started together), linked into one shared library and loaded with
-``ctypes``. The library is cached under ``build/stheno_torch/<hash>/`` at
-the root of the checkout, keyed by a hash of the sources and the flags, so
-an edited source is rebuilt and an unchanged one is not.
+The sources in ``csrc/*.cu`` have a plain C interface and share headers
+``csrc/*.cuh``. At first use they are compiled by ``nvcc`` for ``sm_90a``
+(one process per source, all started together), linked into one shared
+library and loaded with ``ctypes``. The library is cached under
+``build/stheno_torch/<hash>/`` at the root of the checkout, keyed by a
+hash of the sources, the headers and the flags, so an edited source or
+header is rebuilt and an unchanged one is not.
 
 Nothing here runs at import: the CPU tests import every module, and there
 is no ``nvcc`` without the CUDA toolkit.
@@ -46,13 +47,15 @@ def _nvcc():
     )
 
 
-def _sources():
-    return sorted(_CSRC.glob("*.cu"))
+def _sources(csrc=_CSRC):
+    return sorted(csrc.glob("*.cu"))
 
 
-def _digest(sources):
+def _digest(csrc=_CSRC):
+    """Hash of the flags and of every source and header in ``csrc``: an
+    edited ``.cuh`` rebuilds the kernels that include it."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in sources:
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -93,6 +96,8 @@ def _declare(lib):
     lib.stheno_gram.restype = i
     lib.stheno_chol_tile.argtypes = [p, p, i, p]
     lib.stheno_chol_tile.restype = i
+    lib.stheno_gram_matvec.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, i, i, d, p]
+    lib.stheno_gram_matvec.restype = i
     return lib
 
 
@@ -101,10 +106,9 @@ def library():
     global _lib
     with _lock:
         if _lib is None:
-            sources = _sources()
-            target = _BUILD_ROOT / _digest(sources) / "libstheno_kernels.so"
+            target = _BUILD_ROOT / _digest() / "libstheno_kernels.so"
             if not target.exists():
-                _build(target, sources)
+                _build(target, _sources())
             _lib = _declare(ctypes.CDLL(str(target)))
         return _lib
 

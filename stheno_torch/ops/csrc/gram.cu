@@ -18,9 +18,12 @@
 // the diagonal d2 is exactly 0.
 
 #include <cuda_runtime.h>
-#include <math.h>
+
+#include "gram_kind.cuh"
 
 namespace {
+
+using namespace stheno;
 
 constexpr int kTM = 64;        // rows of out per block
 constexpr int kTN = 128;       // cols of out per block
@@ -29,31 +32,6 @@ constexpr int kThreadsX = 32;  // a warp spans 32 consecutive columns
 constexpr int kThreadsY = 8;
 constexpr int kRowsPerThread = kTM / kThreadsY;  // 8
 constexpr int kColsPerThread = kTN / kThreadsX;  // 4
-
-enum Kind { kEq = 0, kRq = 1, kMatern12 = 2, kMatern32 = 3, kMatern52 = 4, kLinear = 5 };
-
-__device__ __forceinline__ float dev_exp(float v) { return expf(v); }
-__device__ __forceinline__ double dev_exp(double v) { return exp(v); }
-__device__ __forceinline__ float dev_sqrt(float v) { return sqrtf(v); }
-__device__ __forceinline__ double dev_sqrt(double v) { return sqrt(v); }
-__device__ __forceinline__ float dev_pow(float a, float b) { return powf(a, b); }
-__device__ __forceinline__ double dev_pow(double a, double b) { return pow(a, b); }
-
-template <int KIND, typename T>
-__device__ __forceinline__ T epilogue(T d2, T inner, T alpha) {
-  if (KIND == kLinear) return inner;
-  d2 = d2 > T(0) ? d2 : T(0);
-  if (KIND == kEq) return dev_exp(T(-0.5) * d2);
-  if (KIND == kRq) return dev_pow(T(1) + d2 / (T(2) * alpha), -alpha);
-  const T d = dev_sqrt(d2 + T(1e-36));
-  if (KIND == kMatern12) return dev_exp(-d);
-  if (KIND == kMatern32) {
-    const T r = T(1.7320508075688772) * d;
-    return (T(1) + r) * dev_exp(-r);
-  }
-  const T r = T(2.23606797749979) * d;  // matern52
-  return (T(1) + r + r * r / T(3)) * dev_exp(-r);
-}
 
 template <int KIND, typename T>
 __global__ void __launch_bounds__(kThreadsX * kThreadsY)

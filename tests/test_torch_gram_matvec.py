@@ -1,0 +1,130 @@
+"""Parity of the port's fused Gram x V (kernel K3's plain version and its
+wrapper) with the JAX package's Pallas kernel in interpret mode, at the
+shapes of ``tests/test_gram_matvec.py``; the wrapper's guards; the launch
+shape chosen for the card; and the kernel build's source digest."""
+
+import shutil
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stheno_tpu.ops.gram_matvec import gram_matvec as jgram_matvec
+from stheno_torch.ops import _build
+from stheno_torch.ops import gram_matvec as tgmv
+from stheno_torch.ops.gram import KINDS, gram_plain
+from tests.test_torch_helpers import np_, torch_cpu  # noqa: F401
+
+# rtol 2e-5: the tolerance tests/test_gram_matvec.py holds the Pallas
+# kernel to against the dense float32 product (the sums run in another
+# order).
+RTOL = 2e-5
+
+
+@pytest.mark.parametrize("kind", ["eq", "matern32", "rq", "linear"])
+def test_gram_matvec_matches_pallas_interpret(kind):
+    r = np.random.RandomState(0)
+    x = r.randn(37, 2).astype(np.float32)
+    y = r.randn(23, 2).astype(np.float32)
+    v = r.randn(23, 5).astype(np.float32)
+    ref = jgram_matvec(kind, jnp.asarray(x), jnp.asarray(y), jnp.asarray(v), alpha=1.3,
+                       interpret=True)
+    out = tgmv.gram_matvec(kind, torch.tensor(x), torch.tensor(y), torch.tensor(v), 1.3)
+    assert out.shape == (37, 5) and out.dtype == torch.float32
+    np.testing.assert_allclose(np_(out), np_(ref), rtol=RTOL, atol=1e-5)
+
+
+def test_gram_matvec_square_accumulation_matches_pallas_interpret():
+    # n = 1100 spans three of the Pallas kernel's 512-row tiles and three
+    # of its column tiles; atol 2e-4 as in tests/test_gram_matvec.py (a
+    # sum of 1100 terms).
+    r = np.random.RandomState(1)
+    x = r.randn(1100, 1).astype(np.float32)
+    v = r.randn(1100, 3).astype(np.float32)
+    ref = jgram_matvec("eq", jnp.asarray(x), jnp.asarray(x), jnp.asarray(v), interpret=True)
+    xt = torch.tensor(x)
+    out = tgmv.gram_matvec("eq", xt, xt, torch.tensor(v))
+    np.testing.assert_allclose(np_(out), np_(ref), rtol=RTOL, atol=2e-4)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_version_is_the_blocked_dense_product_f64(kind):
+    # float64, a ragged last block: the blocked plain version equals the
+    # dense Gram times v to rounding (rtol 1e-12).
+    r = np.random.RandomState(2)
+    x, y, v = (torch.tensor(r.randn(*s)) for s in ((70, 3), (45, 3), (45, 4)))
+    out = tgmv.gram_matvec_plain(kind, x, y, v, 0.7, block=16)
+    ref = gram_plain(kind, x, y, 0.7) @ v
+    np.testing.assert_allclose(np_(out), np_(ref), rtol=1e-12, atol=1e-12)
+
+
+def test_gram_matvec_refuses_a_gradient():
+    x = torch.randn(6, 1, dtype=torch.float64, requires_grad=True)
+    v = torch.randn(6, 2, dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        tgmv.gram_matvec("eq", x, x, v)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        tgmv.gram_matvec("rq", x.detach(), x.detach(), v, torch.tensor(1.0, requires_grad=True))
+    with torch.no_grad():
+        assert tgmv.gram_matvec("eq", x, x, v).shape == (6, 2)
+
+
+def test_gram_matvec_rejects_what_the_kernel_does_not_take():
+    x = torch.zeros(4, 2)
+    v = torch.zeros(4, 1)
+    with pytest.raises(TypeError):
+        tgmv.gram_matvec("eq", x.double(), x, v)
+    with pytest.raises(TypeError):
+        tgmv.gram_matvec("eq", x.to(torch.bfloat16), x.to(torch.bfloat16), v.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        tgmv.gram_matvec("eq", x, torch.zeros(4, 3), v)
+    with pytest.raises(ValueError):
+        tgmv.gram_matvec("eq", x, x, torch.zeros(5, 1))
+    with pytest.raises(ValueError):
+        tgmv.gram_matvec("cosine", x, x, v)
+
+
+def test_cpu_call_launches_no_kernel():
+    before = tgmv.launches
+    x = torch.randn(9, 1)
+    tgmv.gram_matvec("eq", x, x, torch.randn(9, 3))
+    assert tgmv.launches == before
+
+
+@pytest.mark.parametrize(
+    "n, m, p, itemsize",
+    [
+        (262_144, 262_144, 17, 4),
+        (262_144, 262_144, 256, 4),
+        (8192, 262_144, 1, 4),
+        (4096, 262_144, 1, 4),
+        (3000, 2500, 5, 8),
+        (37, 23, 5, 4),
+    ],
+)
+def test_launch_shape_covers_every_column_once(n, m, p, itemsize):
+    pc, span, splits = tgmv.launch_shape(n, m, p, itemsize)
+    assert pc in (1, 4, 8, 16, 32) and (pc >= p or pc == 32)
+    assert span % 64 == 0 and 1 <= splits <= 65535
+    # Every column lies in exactly one split, and no split is empty.
+    assert span * splits >= m and span * (splits - 1) < m
+    # A split sweeps at least about 1024 columns, never fewer than m
+    # allows.
+    assert splits <= -(-m // 1024)
+
+
+def test_build_digest_follows_sources_and_headers(tmp_path):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    assert sorted(p.name for p in csrc.glob("*.cuh")), "the kernels share a header"
+    assert [p.name for p in _build._sources(csrc)] == [p.name for p in _build._sources()]
+    base = _build._digest(csrc)
+    assert base == _build._digest()
+    header = csrc / "gram_kind.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = _build._digest(csrc)
+    assert edited != base
+    source = csrc / "gram_matvec.cu"
+    source.write_text(source.read_text() + "\n// edited\n")
+    assert _build._digest(csrc) not in (base, edited)

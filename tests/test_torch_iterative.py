@@ -1,0 +1,517 @@
+"""Parity of the port's matrix-free path (``stheno_torch.iterative``) with
+``stheno_tpu.iterative``: each function against its JAX counterpart on the
+same numpy inputs, in float64 at small sizes (n <= 300, block 64 with a
+ragged tail), and the stochastic NLML core with the same probes drawn by
+numpy. Where randomness is involved, both packages get the same draws.
+
+Tolerances: the two packages run the same float64 algorithms, so direct
+computations agree to rounding (rtol 1e-10). Iterative solves at a tight
+tolerance agree to the solve's accuracy (rtol 1e-7); their iteration
+counts and recorded CG coefficients agree exactly or to rounding.
+"""
+
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import stheno_tpu as sj
+import stheno_torch as st
+from stheno_tpu import iterative as jit_
+from stheno_tpu.iterative import nlml as jnlml
+from stheno_torch import iterative as tit
+from stheno_torch.convert import precond_state_from_jax
+from stheno_torch.iterative import nlml as tnlml
+from stheno_torch.ops import gram_matvec as tgmv
+from tests.test_torch_helpers import np_, spd, torch_cpu  # noqa: F401
+
+EXACT = 1e-10
+SOLVE = 1e-7
+N, BLOCK = 150, 64  # three row blocks, the last ragged
+
+
+def _data(n=N, seed=0):
+    r = np.random.RandomState(seed)
+    x = np.sort(r.rand(n) * 10)
+    return x, np.sin(x) + 0.1 * r.randn(n)
+
+
+def kf_j(p):
+    return jnp.exp(p["log_s2"]) * sj.EQ().stretch(jnp.exp(p["log_ell"]))
+
+
+def kf_t(p):
+    return torch.exp(p["log_s2"]) * st.EQ().stretch(torch.exp(p["log_ell"]))
+
+
+PARAMS = {"log_s2": 0.2, "log_ell": -0.1}
+
+
+def pj(params=PARAMS):
+    return {k: jnp.asarray(v) for k, v in params.items()}
+
+
+def pt(params=PARAMS, grad=False):
+    return {k: torch.tensor(v, dtype=torch.float64, requires_grad=grad) for k, v in params.items()}
+
+
+def T(a):
+    return torch.tensor(np.asarray(a))
+
+
+def J(a):
+    return jnp.asarray(np.asarray(a))
+
+
+def _mv(pkg, k, x, block=BLOCK, noise=None):
+    return lambda v: pkg.kernel_matvec(k, x, v, noise=noise, block=block)
+
+
+@pytest.fixture(scope="module")
+def jstate():
+    """The JAX package's eig-preconditioner state at PARAMS (rank 40)."""
+    x, _ = _data()
+    return jit_.eig_precond_state(kf_j, pj(), J(x), 40, jax.random.PRNGKey(3), block=BLOCK)
+
+
+# ---------------------------------------------------------------------------
+# kernel_matvec
+
+
+KERNELS = {
+    # Fused form (K3 on the card, its plain version here): scale over
+    # stretch over EQ, a periodic warp to d = 2, and a Matérn leaf.
+    "scaled_eq": (lambda M: 1.7 * M.EQ().stretch(0.8)),
+    "periodic": (lambda M: M.EQ().stretch(2.0).periodic(1.3)),
+    "matern32": (lambda M: 0.5 * M.Matern32().shift(0.2)),
+    # Not fused: a sum takes the blocked sweep.
+    "sum": (lambda M: M.Matern52() + 0.3 * M.EQ()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+@pytest.mark.parametrize("noise", [None, "scalar", "vector"])
+def test_kernel_matvec_square_matches_jax(name, noise):
+    x, _ = _data()
+    r = np.random.RandomState(1)
+    v = r.randn(N, 3)
+    nz = {None: None, "scalar": 0.1, "vector": 0.05 + r.rand(N)}[noise]
+    ref = jit_.kernel_matvec(KERNELS[name](sj), J(x), J(v), noise=None if nz is None else J(nz),
+                             block=BLOCK)
+    out = tit.kernel_matvec(KERNELS[name](st), T(x), T(v), noise=None if nz is None else T(nz),
+                            block=BLOCK)
+    np.testing.assert_allclose(np_(out), np_(ref), rtol=EXACT, atol=1e-12)
+    # A 1-D v round-trips its shape.
+    out1 = tit.kernel_matvec(KERNELS[name](st), T(x), T(v[:, 0]), block=BLOCK)
+    ref1 = jit_.kernel_matvec(KERNELS[name](sj), J(x), J(v[:, 0]), block=BLOCK)
+    assert out1.shape == (N,)
+    np.testing.assert_allclose(np_(out1), np_(ref1), rtol=EXACT, atol=1e-12)
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_kernel_matvec_cross_matches_jax(name):
+    x, _ = _data()
+    xc = np.linspace(-1.0, 11.0, 70)
+    v = np.random.RandomState(2).randn(70, 2)
+    ref = jit_.kernel_matvec(KERNELS[name](sj), J(x), J(v), x_cols=J(xc), block=BLOCK)
+    out = tit.kernel_matvec(KERNELS[name](st), T(x), T(v), x_cols=T(xc), block=BLOCK)
+    np.testing.assert_allclose(np_(out), np_(ref), rtol=EXACT, atol=1e-12)
+
+
+def test_kernel_matvec_dispatch_by_expression_and_gradient(monkeypatch):
+    calls = []
+    real = tgmv.gram_matvec
+    from stheno_torch.iterative import matvec as tmv
+
+    def spy(*a, **kw):
+        calls.append(a[0])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tmv, "gram_matvec", spy)
+    x, v = T(_data()[0]), T(np.ones((N, 2)))
+    tit.kernel_matvec(KERNELS["scaled_eq"](st), x, v, block=BLOCK)
+    tit.kernel_matvec(KERNELS["periodic"](st), x, v, block=BLOCK)
+    assert calls == ["eq", "eq"]
+    tit.kernel_matvec(KERNELS["sum"](st), x, v, block=BLOCK)  # Not a fused form.
+    with st.config.accurate_dists():
+        tit.kernel_matvec(KERNELS["scaled_eq"](st), x, v, block=BLOCK)
+    ell = torch.tensor(0.8, dtype=torch.float64, requires_grad=True)
+    tit.kernel_matvec(st.EQ().stretch(ell), x, v, block=BLOCK)  # A gradient is needed.
+    assert calls == ["eq", "eq"]
+    with torch.no_grad():
+        tit.kernel_matvec(st.EQ().stretch(ell), x, v, block=BLOCK)
+    assert calls == ["eq", "eq", "eq"]
+
+
+def test_kernel_matvec_gradients_match_jax():
+    # The differentiable blocked sweep (checkpointed per block) against
+    # jax.grad through the JAX package's checkpointed scan.
+    x, _ = _data()
+    r = np.random.RandomState(4)
+    v, w = r.randn(N, 2), r.randn(N, 2)
+
+    def loss_j(p, xx, noise):
+        return jnp.sum(J(w) * jit_.kernel_matvec(kf_j(p), xx, J(v), noise=noise, block=BLOCK))
+
+    gj = jax.grad(loss_j, argnums=(0, 1, 2))(pj(), J(x), jnp.asarray(0.1))
+    p_t = pt(grad=True)
+    xt = T(x).requires_grad_(True)
+    nt = torch.tensor(0.1, dtype=torch.float64, requires_grad=True)
+    loss = torch.sum(T(w) * tit.kernel_matvec(kf_t(p_t), xt, T(v), noise=nt, block=BLOCK))
+    gt = torch.autograd.grad(loss, [*p_t.values(), xt, nt])
+    for a, b in zip(gt, [gj[0][k] for k in p_t] + [gj[1], gj[2]]):
+        np.testing.assert_allclose(np_(a), np_(b), rtol=EXACT, atol=1e-11)
+
+
+# ---------------------------------------------------------------------------
+# CG and quadrature
+
+
+def _spd_operator(n=120, noise=0.3):
+    x, _ = _data(n, seed=5)
+    K = np.exp(-0.5 * (x[:, None] - x[None, :]) ** 2) + noise * np.eye(n)
+    return K
+
+
+@pytest.mark.parametrize("precond", [False, True])
+def test_batched_cg_matches_jax(precond):
+    K = _spd_operator()
+    b = np.random.RandomState(6).randn(120, 4)
+    D = 1.0 / np.diag(K)
+    kw = dict(tol=1e-10, max_iters=300, track_tridiag=12)
+    sj_, ij = jit_.batched_cg(lambda v: J(K) @ v, J(b),
+                              precond=(lambda r: J(D)[:, None] * r) if precond else None, **kw)
+    st_, it_ = tit.batched_cg(lambda v: T(K) @ v, T(b),
+                              precond=(lambda r: T(D)[:, None] * r) if precond else None, **kw)
+    np.testing.assert_allclose(np_(st_), np_(sj_), rtol=SOLVE, atol=1e-10)
+    assert it_["iters"] == int(ij["iters"])
+    # The final residual sits in the rounding regime: both below tol.
+    assert float(it_["rel_residual"]) <= 1e-10 and float(ij["rel_residual"]) <= 1e-10
+    for a, b_ in zip(it_["tridiag"][:2], ij["tridiag"][:2]):
+        np.testing.assert_allclose(np_(a), np_(b_), rtol=1e-8, atol=1e-12)
+    np.testing.assert_array_equal(np_(it_["tridiag"][2]), np_(ij["tridiag"][2]))
+
+
+def test_batched_cg_vector_rhs_warm_start_and_min_iters():
+    K = _spd_operator(60)
+    b = np.random.RandomState(7).randn(60)
+    x0 = 0.1 * np.ones(60)
+    kw = dict(tol=1e-3, max_iters=100, min_iters=9)
+    sj_, ij = jit_.batched_cg(lambda v: J(K) @ v, J(b), x0=J(x0), **kw)
+    st_, it_ = tit.batched_cg(lambda v: T(K) @ v, T(b), x0=T(x0), **kw)
+    assert st_.shape == (60,)
+    assert it_["iters"] == int(ij["iters"]) >= 9
+    np.testing.assert_allclose(np_(st_), np_(sj_), rtol=1e-9, atol=1e-12)
+
+
+def test_lanczos_and_slq_logdet_match_jax():
+    # A spread spectrum (B B^T / n + I) keeps 12 steps away from Krylov
+    # exhaustion, where Lanczos amplifies rounding differences.
+    K = spd(100, seed=8)
+    z = np.random.RandomState(8).randn(100, 5)
+    aj, bj = jit_.lanczos(lambda v: J(K) @ v, J(z), 12)
+    at, bt = tit.lanczos(lambda v: T(K) @ v, T(z), 12)
+    np.testing.assert_allclose(np_(at), np_(aj), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(np_(bt), np_(bj), rtol=1e-9, atol=1e-12)
+    lj = jit_.slq_logdet(lambda v: J(K) @ v, J(z), num_steps=12)
+    lt = tit.slq_logdet(lambda v: T(K) @ v, T(z), num_steps=12)
+    np.testing.assert_allclose(float(lt), float(lj), rtol=1e-9)
+
+
+def test_cg_quadrature_logdet_matches_jax():
+    from stheno_tpu.iterative.slq import cg_quadrature_logdet as jcq
+    from stheno_torch.iterative.slq import cg_quadrature_logdet as tcq
+
+    r = np.random.RandomState(9)
+    a = 0.5 + r.rand(10, 4)
+    b = 0.3 * r.rand(10, 4)
+    steps = np.array([10, 7, 3, 1], np.int32)
+    norms = 1.0 + r.rand(4)
+    ref = jcq(J(a), J(b), jnp.asarray(steps), J(norms))
+    out = tcq(T(a), T(b), torch.tensor(steps), T(norms))
+    np.testing.assert_allclose(float(out), float(ref), rtol=EXACT)
+
+
+# ---------------------------------------------------------------------------
+# Preconditioners and the whitened solver
+
+
+def test_pivoted_cholesky_and_woodbury_match_jax():
+    x, _ = _data()
+    Lj = jit_.pivoted_cholesky(sj.EQ(), J(x), 25)
+    Lt = tit.pivoted_cholesky(st.EQ(), T(x), 25)
+    # Entries of order 1: atol 1e-10 covers the rounding of the residual
+    # rows that both subtract.
+    np.testing.assert_allclose(np_(Lt), np_(Lj), rtol=1e-9, atol=1e-10)
+    r = np.random.RandomState(10).randn(N, 2)
+    Pj = jit_.woodbury_preconditioner(Lj, 0.1)(J(r))
+    Pt = tit.woodbury_preconditioner(Lt, 0.1)(T(r))
+    np.testing.assert_allclose(np_(Pt), np_(Pj), rtol=1e-8, atol=1e-10)
+    from stheno_tpu.iterative.pchol import preconditioner_sqrt_ops as jsq
+    from stheno_torch.iterative.pchol import preconditioner_sqrt_ops as tsq
+
+    for a, b in zip(tsq(Lt, 0.1)[:2], jsq(Lj, 0.1)[:2]):
+        np.testing.assert_allclose(np_(a(T(r))), np_(b(J(r))), rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(float(tsq(Lt, 0.1)[2]), float(jsq(Lj, 0.1)[2]), rtol=EXACT)
+
+
+def test_eig_preconditioner_factors_and_ops_match_jax():
+    x, _ = _data()
+    om = np.random.RandomState(11).randn(N, 20)
+    Uj, lj = jit_.eig_preconditioner_factors(_mv(jit_, sj.EQ(), J(x)), J(om), 2)
+    Ut, lt = tit.eig_preconditioner_factors(_mv(tit, st.EQ(), T(x)), T(om), 2)
+    np.testing.assert_allclose(np_(lt), np_(lj), rtol=1e-9, atol=1e-12)
+    # The eigenvectors are defined up to sign: compare the projector.
+    np.testing.assert_allclose(np_(Ut @ Ut.T), np_(Uj @ Uj.T), atol=1e-9)
+    v = np.random.RandomState(12).randn(N, 3)
+    ops_j = jit_.eig_preconditioner_ops(Uj, lj, 0.1, N)
+    ops_t = tit.eig_preconditioner_ops(Ut, lt, 0.1, N)
+    for a, b in zip(ops_t[:3], ops_j[:3]):
+        np.testing.assert_allclose(np_(a(T(v))), np_(b(J(v))), rtol=1e-8, atol=1e-10)
+        assert a(T(v[:, 0])).shape == (N,)
+    np.testing.assert_allclose(float(ops_t[3]), float(ops_j[3]), rtol=EXACT)
+
+
+def test_make_whitened_solver_matches_jax(jstate):
+    x, y = _data()
+    state = precond_state_from_jax([np.asarray(a) for a in jstate], device="cpu")
+    sol_j, info_j = jit_.make_whitened_solver(
+        _mv(jit_, kf_j(pj()), J(x)), N, jnp.asarray(0.1), 40, state=jstate
+    )(J(np.c_[y, np.cos(x)]), tol=1e-10, max_iters=200, true_residual=True)
+    solve_t = tit.make_whitened_solver(
+        _mv(tit, kf_t(pt()), T(x)), N, torch.tensor(0.1, dtype=torch.float64), 40, state=state
+    )
+    sol_t, info_t = solve_t(T(np.c_[y, np.cos(x)]), tol=1e-10, max_iters=200, true_residual=True)
+    assert solve_t.compensated is False
+    np.testing.assert_allclose(np_(sol_t), np_(sol_j), rtol=SOLVE, atol=1e-9)
+    assert info_t["iters"] == int(info_j["iters"])
+    assert float(info_t["rel_residual_true"]) < 1e-8
+
+
+# ---------------------------------------------------------------------------
+# The NLML core with shared probes
+
+
+def _core_case(precond, jstate):
+    x, y = _data()
+    r = np.random.RandomState(13)
+    u = r.randn(N, 6)
+    om = r.randn(N, 40) if precond == "eig" else None
+    pstate = jstate if precond == "state" else None
+    method = "pivoted" if precond == "pivoted" else "eig"
+    return x, y, u, om, pstate, method
+
+
+@pytest.mark.parametrize("precond", ["eig", "state", "pivoted"])
+def test_nlml_core_value_and_gradients_match_jax(precond, jstate):
+    x, y, u, om, pstate, method = _core_case(precond, jstate)
+    common = (1e-10, 400, 60, 40)  # cg_tol, max_cg_iters, quad_steps, precond_rank
+
+    def mv_fn(k, xx, v, nz):
+        return jit_.kernel_matvec(k, xx, v, noise=nz, block=BLOCK)
+
+    def value_j(p, noise, xx, yy):
+        val, info = jnlml._nlml(
+            p, yy, noise, xx, J(u), None if om is None else J(om), pstate, kf_j, mv_fn, None,
+            *common, method, 1, None,
+        )
+        return val, info
+
+    (vj, hj), gj = jax.value_and_grad(value_j, argnums=(0, 1, 2, 3), has_aux=True)(
+        pj(), jnp.asarray(0.1), J(x), J(y)
+    )
+    p_t = pt(grad=True)
+    nt = torch.tensor(0.1, dtype=torch.float64, requires_grad=True)
+    xt, yt = T(x).requires_grad_(True), T(y).requires_grad_(True)
+    st_state = None if pstate is None else precond_state_from_jax(
+        [np.asarray(a) for a in pstate], device="cpu")
+    vt, ht = tnlml._nlml(
+        p_t, yt, nt, xt, T(u), None if om is None else T(om), st_state, kf_t, *common, method, 1,
+        block=BLOCK,
+    )
+    gt = torch.autograd.grad(vt, [*p_t.values(), nt, xt, yt])
+    # The value and every gradient to the solves' accuracy (rtol 1e-7);
+    # the CG ran the same number of steps.
+    assert ht["cg_iters"] == int(hj["cg_iters"]) and ht["cg_converged"]
+    np.testing.assert_allclose(float(vt.detach()), float(vj), rtol=SOLVE)
+    refs = [gj[0][k] for k in p_t] + [gj[1], gj[2], gj[3]]
+    for name, a, b in zip(["log_s2", "log_ell", "noise", "x", "y"], gt, refs):
+        np.testing.assert_allclose(np_(a), np_(b), rtol=SOLVE, atol=1e-9, err_msg=name)
+
+
+def test_iterative_nlml_runs_with_a_generator_and_reports_health():
+    x, y = _data()
+    p_t = pt(grad=True)
+    g = torch.Generator().manual_seed(0)
+    val, info = tit.iterative_nlml(kf_t, p_t, T(x), T(y), 0.1, g, num_probes=4, cg_tol=1e-8,
+                                   precond_rank=30, block=BLOCK, return_info=True)
+    grads = torch.autograd.grad(val, list(p_t.values()))
+    assert info["cg_converged"] and info["cg_iters"] > 0
+    assert torch.isfinite(val) and all(torch.isfinite(t) for t in grads)
+
+
+def test_stalled_cg_warns():
+    x, y = _data()
+    with pytest.warns(RuntimeWarning, match="CG STALLED"):
+        _, info = tit.iterative_nlml(kf_t, pt(), T(x), T(y), 0.1, torch.Generator(),
+                                     cg_tol=1e-14, max_cg_iters=1, precond_rank=0,
+                                     block=BLOCK, return_info=True)
+    assert not info["cg_converged"]
+
+
+# ---------------------------------------------------------------------------
+# The posterior
+
+
+@pytest.fixture(scope="module")
+def jweights(jstate):
+    x, y = _data()
+    return jit_.posterior_weights(kf_j, pj(), J(x), J(y), 0.1, cg_tol=1e-10,
+                                  precond_state=jstate, block=BLOCK)
+
+
+def test_posterior_weights_and_cached_mean_match_jax(jstate, jweights):
+    x, y = _data()
+    state = precond_state_from_jax([np.asarray(a) for a in jstate], device="cpu")
+    alpha_t, info_t = tit.posterior_weights(kf_t, pt(), T(x), T(y), 0.1, cg_tol=1e-10,
+                                            precond_state=state, block=BLOCK)
+    alpha_j, info_j = jweights
+    np.testing.assert_allclose(np_(alpha_t), np_(alpha_j), rtol=SOLVE, atol=1e-8)
+    assert info_t["iters"] == int(info_j["iters"])
+    xn = np.linspace(-1.0, 11.0, 77)
+    mj = jit_.cached_posterior_mean(kf_j, pj(), J(x), alpha_j, J(xn), block=BLOCK)
+    mt = tit.cached_posterior_mean(kf_t, pt(), T(x), alpha_t, T(xn), block=BLOCK)
+    np.testing.assert_allclose(np_(mt), np_(mj), rtol=SOLVE, atol=1e-8)
+
+
+@pytest.mark.parametrize("precond", ["rank", "none"])
+def test_posterior_weights_fresh_and_plain_cg_match_jax(precond):
+    # Without a state the whitened solver draws its own subspace block
+    # (different numbers in the two packages); at cg_tol 1e-10 both land
+    # on the same weights. Vector noise takes plain CG in both.
+    x, y = _data()
+    noise = 0.1 if precond == "rank" else 0.05 + 0.1 * np.random.RandomState(14).rand(N)
+    aj, _ = jit_.posterior_weights(kf_j, pj(), J(x), J(y), J(noise), cg_tol=1e-10,
+                                   precond_rank=30, block=BLOCK)
+    at, _ = tit.posterior_weights(kf_t, pt(), T(x), T(y), T(noise), cg_tol=1e-10,
+                                  precond_rank=30, block=BLOCK)
+    np.testing.assert_allclose(np_(at), np_(aj), rtol=1e-6, atol=1e-7)
+
+
+def test_iterative_posterior_mean_matches_jax(jstate):
+    x, y = _data()
+    xn = np.linspace(0.0, 10.0, 33)
+    state = precond_state_from_jax([np.asarray(a) for a in jstate], device="cpu")
+    mj, _ = jit_.iterative_posterior_mean(kf_j, pj(), J(x), J(y), 0.1, J(xn), cg_tol=1e-10,
+                                          precond_state=jstate, block=BLOCK)
+    mt, _ = tit.iterative_posterior_mean(kf_t, pt(), T(x), T(y), 0.1, T(xn), cg_tol=1e-10,
+                                         precond_state=state, block=BLOCK)
+    np.testing.assert_allclose(np_(mt), np_(mj), rtol=SOLVE, atol=1e-8)
+
+
+@pytest.mark.parametrize("mode", ["scan", "host"])
+def test_iterative_posterior_var_matches_jax(mode, jstate):
+    x, y = _data()
+    xn = np.linspace(-1.0, 11.0, 45)  # chunk 20: two full chunks and a padded one
+    state = precond_state_from_jax([np.asarray(a) for a in jstate], device="cpu")
+    vj = jit_.iterative_posterior_var(kf_j, pj(), J(x), J(y), 0.1, J(xn), cg_tol=1e-10,
+                                      precond_state=jstate, block=BLOCK, chunk=20, mode=mode)
+    vt = tit.iterative_posterior_var(kf_t, pt(), T(x), T(y), 0.1, T(xn), cg_tol=1e-10,
+                                     precond_state=state, block=BLOCK, chunk=20, mode=mode)
+    np.testing.assert_allclose(np_(vt), np_(vj), rtol=1e-6, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# The compensated policy and what is not ported
+
+
+def test_compensated_policy_matches_jax():
+    from stheno_tpu.iterative import compensated as jc
+
+    lam = np.array([3.0, 6.3e4])
+    for noise in (0.1, 0.01, 1e-4):
+        for comp in ("auto", False, None, True):
+            ref = jc.resolve_compensated(comp, noise, J(lam), 262_144, jnp.float32, True)
+            out = tit.resolve_compensated(comp, noise, T(lam), 262_144, torch.float32, True)
+            assert out == bool(ref)
+    assert tit.plain_noise_wall(6.3e4, 262_144, torch.float32) == pytest.approx(
+        jc.plain_noise_wall(6.3e4, 262_144, jnp.float32), rel=1e-12)
+    assert tit.AUTO_WALL_FACTOR == jc.AUTO_WALL_FACTOR
+    assert tit.resolve_compensated("auto", 1e-9, T(lam), 100, torch.float32, False) is False
+    with pytest.raises(ValueError):
+        tit.resolve_compensated(True, 0.1, T(lam), 100, torch.float32, False)
+    with pytest.raises(ValueError):
+        tit.resolve_compensated("sometimes", 0.1, T(lam), 100, torch.float32, True)
+
+
+def test_options_not_ported_raise():
+    x, y = _data(40)
+    xt, yt = T(x), T(y)
+    v = torch.ones(40, 1, dtype=torch.float64)
+    k = st.EQ()
+    for kw in ({"compensated": True}, {"tile_dtype": torch.bfloat16}, {"symmetric": True},
+               {"precision": "default"}, {"precision": "bfloat16"},
+               {"precision": "tensorfloat32"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tit.kernel_matvec(k, xt, v, **kw)
+    with pytest.raises(ValueError):
+        tit.kernel_matvec(k, xt, v, precision="fast")
+    U = torch.linalg.qr(torch.randn(40, 4, dtype=torch.float64))[0]
+    lam = torch.ones(4, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tit.eig_preconditioner_ops(U, lam, 0.1, 40, compensated=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tit.iterative_nlml(kf_t, pt(), xt, yt, 0.1, torch.Generator(), compensated=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tit.iterative_nlml(kf_t, pt(), xt, yt, 0.1, torch.Generator(),
+                           surrogate_tile_dtype=torch.bfloat16)
+    # "auto" resolving True (noise far below the wall of the state's
+    # Ritz values) raises too; it never runs the plain path instead.
+    big = (U, torch.full((4,), 1e12, dtype=torch.float64))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tit.posterior_weights(kf_t, pt(), xt, yt, 1e-6, precond_state=big)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tit.iterative_nlml(kf_t, pt(), xt, yt, 1e-6, torch.Generator(), precond_state=big)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tit.variance_cache(kf_t, pt(), xt, 0.1, rank=4, generator=torch.Generator(),
+                           basis_tile_dtype=torch.bfloat16)
+
+
+def test_eig_precond_state_warns_without_a_generator_and_refreshes_like_jax():
+    x, _ = _data(50)
+    with pytest.warns(UserWarning, match="generator"):
+        U, lam = tit.eig_precond_state(kf_t, pt(), T(x), 8, block=16)
+    assert U.shape == (50, 8) and bool((lam >= 0).all())
+    # A refresh from the same warm-start block is deterministic: it
+    # matches the JAX package's.
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        U2, lam2 = tit.eig_precond_state(kf_t, pt(), T(x), 8, init=U, block=16)
+    Uj, lamj = jit_.eig_precond_state(kf_j, pj(), J(x), 8, init=J(np_(U)), block=16)
+    np.testing.assert_allclose(np_(lam2), np_(lamj), rtol=1e-9)
+    np.testing.assert_allclose(np_(U2 @ U2.T), np_(Uj @ Uj.T), atol=1e-9)
+
+
+def test_float32_nlml_gradients_follow_float64():
+    # Float32 inputs: the solves run in float32 and the surrogate sweep in
+    # float64. Same probes and state, float32 solves at cg_tol 1e-4: the
+    # value (a sum of 150 log terms and a quadratic form, each O(1)) to
+    # atol 2e-3, the gradients to rtol 1e-3 of the float64 step.
+    x, y = _data()
+    r = np.random.RandomState(15)
+    u = r.randn(N, 6)
+    U, lam = tit.eig_precond_state(kf_t, pt(), T(x), 40, torch.Generator().manual_seed(0))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        p_t = {k: torch.tensor(v, dtype=dtype, requires_grad=True) for k, v in PARAMS.items()}
+        val, h = tnlml._nlml(p_t, T(y).to(dtype), 0.1, T(x).to(dtype), T(u).to(dtype), None,
+                             (U.to(dtype), lam.to(dtype)), kf_t, 1e-4, 200, 40, 40, "eig",
+                             block=BLOCK)
+        grads = torch.autograd.grad(val, list(p_t.values()))
+        assert h["cg_converged"] and all(g.dtype == dtype for g in grads)
+        out[dtype] = (float(val.detach()), [float(g) for g in grads])
+    np.testing.assert_allclose(out[torch.float32][0], out[torch.float64][0], atol=2e-3)
+    np.testing.assert_allclose(out[torch.float32][1], out[torch.float64][1], rtol=1e-3)
