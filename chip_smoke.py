@@ -35,10 +35,16 @@ import time
 
 import torch
 
-# Peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth, and the
-# non-tensor-core FP32 / FP64 rates (the kernels use no tensor cores).
+# Peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth, the
+# non-tensor-core FP32 / FP64 rates, and the dense TF32 tensor-core rate
+# (K3's tensor-core route). The special-function unit does 16 exps per
+# clock per SM; its rate takes the card's maximum SM clock from
+# nvidia-smi (``sfu_exps_per_s``).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+TF32_TC_FLOPS = 495e12
+SM_COUNT = 132
+EXPS_PER_CLOCK_PER_SM = 16
 
 KERNELS = {
     "gram": {
@@ -49,8 +55,10 @@ KERNELS = {
         "source": "stheno_torch/ops/csrc/chol_tile.cu",
         "replaces": "stheno_tpu/ops/pallas_chol.py:112",
     },
+    # The kernels line takes K3 at p = 17, which runs the tensor-core
+    # route; p <= 16 and float64 run csrc/gram_matvec.cu.
     "gram_matvec": {
-        "source": "stheno_torch/ops/csrc/gram_matvec.cu",
+        "source": "stheno_torch/ops/csrc/gram_matvec_mma.cu",
         "replaces": "stheno_tpu/ops/gram_matvec.py:53",
     },
 }
@@ -121,6 +129,31 @@ def bound(bytes_moved, flops, dtype):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sfu_exps_per_s():
+    """The special-function unit's exp rate: 16 per clock per SM at the
+    card's maximum SM clock (nvidia-smi ``clocks.max.sm``, MHz)."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    return EXPS_PER_CLOCK_PER_SM * SM_COUNT * float(mhz) * 1e6, float(mhz)
+
+
+def mma_bound(bytes_moved, n, m, d, p, exps_per_s):
+    """The least time of K3's tensor-core design, in ms, and what binds
+    it: the three TF32 products (6 n m p flops at the dense TF32 rate),
+    the distance and epilogue (2d + 4 flops per entry at the FP32 rate),
+    the exps (one per entry at the special-function rate), the bytes."""
+    times = {
+        "tf32_products": 6 * n * m * p / TF32_TC_FLOPS * 1e3,
+        "fp32_distance_epilogue": n * m * (2 * d + 4) / PEAK_FLOPS[torch.float32] * 1e3,
+        "exps": n * m / exps_per_s * 1e3,
+        "bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
+    }
+    by = max(times, key=times.get)
+    return times[by], by
 
 
 # ---------------------------------------------------------------------------
@@ -418,6 +451,23 @@ def phase_times(errs, counts):
             "shape": [n, n, d],
         }
     )
+    # K1 at the matrix-free path's surrogate tile: 4096 rows of the
+    # N=262,144 inputs against all of them, float64 (the backward's 260
+    # launches), with the same library call at that shape.
+    xi = _path_inputs(torch.float64)[0][:, None]
+    xr = xi[:4096]
+    nr, nc = xr.shape[0], xi.shape[0]
+    f_ms, f_by = bound((nr + nc + nr * nc) * 8, nr * nc * 6 + 4 * (nr + nc), torch.float64)
+    kernels[-1]["n262144_f64"] = {
+        "shape": [nr, nc, 1],
+        "ms": time_ms(lambda: K1.gram("eq", xr, xi), reps=5),
+        "plain_ms": time_ms(lambda: K1.gram_plain("eq", xr, xi), reps=3, warmup=1),
+        "library_ms": time_ms(lambda: torch.exp(-0.5 * torch.cdist(xr, xi).square()),
+                              reps=3, warmup=1),
+        "bound_ms": f_ms,
+        "bound_by": f_by,
+    }
+    del xi, xr
 
     # K2 at the tiles of the N=2000 factorisation: 1024 and 976.
     tiles = {}
@@ -503,7 +553,8 @@ def _path_inputs(dtype=torch.float32):
 
 def phase_gram_matvec():
     """K3 against its plain version on the card: every kind at a ragged
-    shape in float32 and float64, and the matrix-free path's shapes (an
+    shape in float32 and float64, at p = 5 (the FFMA route) and p = 17 and
+    64 (the tensor-core route in float32), and the matrix-free path's shapes (an
     8192-row slice of the N=262,144 inputs against all columns for p in
     1, 17, 64, 256, and the 4096-point mean query), each within
     ``_gmv_rtol`` of ``|G| @ |v|``. Returns the largest absolute error at
@@ -522,15 +573,18 @@ def phase_gram_matvec():
         rtol = _gmv_rtol(y.shape[0], x.dtype)
         rel = float(((out - ref).abs() / _gmv_atol_scale(kind, x, y, v).clamp_min(1e-30)).max())
         check(rel <= rtol, f"gram_matvec {kind} {tag}: error {rel} of |G||v| > {rtol}")
-        results.append({"kind": kind, "case": tag, "max_rel_err": rel, "rtol": rtol})
+        route = K3.route(x.shape[0], y.shape[0], v.shape[1], x.dtype)[0]
+        results.append({"kind": kind, "case": tag, "route": route, "max_rel_err": rel,
+                        "rtol": rtol})
         return max_err(out, ref)
 
     for dtype in (torch.float32, torch.float64):
         x = torch.randn(3000, 2, generator=gen, device="cuda", dtype=dtype)
         y = torch.randn(2500, 2, generator=gen, device="cuda", dtype=dtype)
-        v = torch.randn(2500, 5, generator=gen, device="cuda", dtype=dtype)
-        for kind in KINDS:
-            hold(kind, x, y, v, f"3000x2 by 2500x2 p=5 {dtype}")
+        for p in (5, 17, 64):
+            v = torch.randn(2500, p, generator=gen, device="cuda", dtype=dtype)
+            for kind in KINDS:
+                hold(kind, x, y, v, f"3000x2 by 2500x2 p={p} {dtype}")
     # x is y: the Matérn diagonal must be exactly g(0) = 1.
     xs = torch.randn(4000, 1, generator=gen, device="cuda")
     eye = torch.eye(4000, device="cuda")[:, :64]
@@ -717,6 +771,10 @@ def phase_iterative_gates(state32):
     report[f"n{N_IT}_f32_vs_f64"] = big
     emit(report)
     check(big["nlml_rel"] <= 1e-3, f"N={N_IT} f32 NLML {big}")
+    # With the FFMA K3 this solve took 4 iterations in float32 (2 in
+    # float64); the tensor-core product may add at most one: it must leave
+    # the operator CG sees intact.
+    check(big["cg_iters_f32"] <= 4 + 1, f"N={N_IT} f32 CG took {big['cg_iters_f32']} iterations")
     check(all(r <= 5e-2 for r in big["grad_rel"].values()), f"N={N_IT} f32 gradients {big}")
 
 
@@ -724,14 +782,20 @@ def _k3_times():
     """K3 per call at the matrix-free path's shapes (CUDA events, one
     warm-up, median of 3): the full N=262,144 square sweep at p = 17 (the
     CG solve), 64 (the preconditioner), 256 (the variance basis) and 1
-    (the weights), and the 4096-point mean query; beside each its device
-    time (``device_ms``: the kernel and the column split's sum, no host
-    time), its bound,
-    its plain version, and the sweep a PyTorch user would write over the
-    same row blocks, ``exp(-0.5 cdist(xb, y)^2) @ v`` (the library call;
-    the port never makes it). The kernels line takes p = 17."""
+    (the weights), and the 4096-point mean query; beside each its route
+    and launch shape, its device time (``device_ms``: the kernel and the
+    column split's sum, no host time), two bounds, its plain version, and
+    the sweep a PyTorch user would write over the same row blocks,
+    ``exp(-0.5 cdist(xb, y)^2) @ v`` (the library call; the port never
+    makes it). ``fp32_bound_ms`` is the bound by operations at the FP32
+    rate alone (the exp charged as four flops), the bound of the FFMA
+    kernel, kept so that times against it stay comparable; ``bound_ms``
+    is the bound of the
+    design on the card's units (``mma_bound``), with the unit that binds.
+    The kernels line takes p = 17."""
     from stheno_torch.ops import gram_matvec as K3
 
+    exps_per_s, mhz = sfu_exps_per_s()
     gen = torch.Generator(device="cuda").manual_seed(5)
     x = _path_inputs()[0][:, None]
     xq = torch.linspace(0.0, 10.0, 4096, device="cuda")[:, None]
@@ -747,21 +811,25 @@ def _k3_times():
 
         byts = (n * d + m * d + m * p + n * p) * 4
         flops = n * m * (2 * d + 4 + 2 * p) + 2 * (n + m) * d
-        b_ms, b_by = bound(byts, flops, torch.float32)
+        f_ms, f_by = bound(byts, flops, torch.float32)
+        b_ms, b_unit = mma_bound(byts, n, m, d, p, exps_per_s)
         slow = n * p > 8192 * 64
         call = lambda rows=rows, v=v: K3.gram_matvec("eq", rows, x, v)  # noqa: E731
         shapes[tag] = {
             "shape": [n, m, d, p],
+            "route": K3.route(n, m, p, torch.float32),
             "ms": time_ms(call, reps=3, warmup=1),
             "device_ms": device_ms(call, reps=1 if slow else 3),
             "plain_ms": time_ms(lambda: K3.gram_matvec_plain("eq", rows, x, v),
                                 reps=1 if slow else 3, warmup=1),
             "library_ms": time_ms(library, reps=1 if slow else 3, warmup=1),
             "bound_ms": b_ms,
-            "bound_by": b_by,
-            "launch_shape": K3.launch_shape(n, m, p, 4),
+            "bound_unit": b_unit,
+            "bound_by": "bytes" if b_unit == "bytes" else "operations",
+            "fp32_bound_ms": f_ms,
+            "fp32_bound_by": f_by,
         }
-    return {"name": "gram_matvec", **shapes["p17"], "shapes": shapes}
+    return {"name": "gram_matvec", **shapes["p17"], "sm_clock_mhz": mhz, "shapes": shapes}
 
 
 def phase_path_times(state, cache, build_s):
@@ -830,6 +898,11 @@ def _profile(label, fn):
     torch.cuda.synchronize()
     before = _counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # The tracer can drop a session's first device records: give it a
+        # kernel and a synchronise before the step, and count only what
+        # starts after the step does.
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
         with record_function(label):
             fn()
             torch.cuda.synchronize()
@@ -842,6 +915,7 @@ def _profile(label, fn):
         e
         for e in events
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation and e.name != label
+        and e.time_range.start >= step.time_range.start
     ]
     check(device, "the profiler recorded no device activity")
     intervals = [(e.time_range.start, e.time_range.end) for e in device]
@@ -871,13 +945,18 @@ def phase_profile():
     span_us, busy_us, by_name, launches = _profile(
         "n2000_value_grad", lambda: E.nlml_n2000(xb, yb, ell, grad=True))
     k1_n, k1_us = by_name.get("gram_kernel", (0, 0.0))
-    k2_names = ("diag_factor", "panel", "trailing")
-    k2_us = sum(by_name.get(k, (0, 0.0))[1] for k in k2_names)
     tiles = launches["chol_tile"]
+    # K2 per tile of n = 1024 (both tiles pad to it): 8 factor_panel, 7
+    # trailing, 1 finalize and 6 join_product (two per level of the
+    # inverse's join tree).
+    k2_want = {"factor_panel": 8, "trailing": 7, "finalize": 1, "join_product": 6}
+    k2_us = sum(by_name.get(k, (0, 0.0))[1] for k in k2_want)
     check(k1_n == launches["gram"] >= 1,
           f"profiled gram_kernel launches {k1_n} != wrapper count {launches['gram']}")
-    check(by_name.get("diag_factor", (0, 0.0))[0] == 8 * tiles == 16,
-          f"profiled diag_factor launches {by_name.get('diag_factor')} for {tiles} tiles")
+    check(tiles == 2, f"the N=2000 value+grad ran {tiles} tiles, not 2")
+    for name, per_tile in k2_want.items():
+        got = by_name.get(name, (0, 0.0))[0]
+        check(got == per_tile * tiles, f"profiled {name} launches {got} for {tiles} tiles")
     emit(
         {
             "phase": "profile",
@@ -887,6 +966,7 @@ def phase_profile():
             "device_busy_share": busy_us / span_us,
             "gram_device_ms_per_launch": k1_us / k1_n / 1e3,
             "chol_tile_device_ms_per_tile": k2_us / tiles / 1e3,
+            "chol_tile_share_of_busy": k2_us / busy_us,
             "kernels": _top(by_name),
         }
     )
@@ -907,11 +987,17 @@ def phase_profile_iterative(state):
         "n262144_amortised_value_grad",
         lambda: E.iterative_step(x, y, params, gen, precond_state=state))
     _set_counts(saved)
-    k3_n, k3_us = by_name.get("gmv_kernel", (0, 0.0))
+    ffma_n, ffma_us = by_name.get("gmv_kernel", (0, 0.0))
+    mma_n, mma_us = by_name.get("gmv_mma_kernel", (0, 0.0))
+    k3_n, k3_us = ffma_n + mma_n, ffma_us + mma_us
     red_n, red_us = by_name.get("gmv_reduce", (0, 0.0))
+    split_n, split_us = by_name.get("gmv_split_v", (0, 0.0))
     k1_n, k1_us = by_name.get("gram_kernel", (0, 0.0))
+    check(split_n == mma_n, f"profiled gmv_split_v launches {split_n} != gmv_mma_kernel {mma_n}")
     check(k3_n == launches["gram_matvec"] >= 1,
-          f"profiled gmv_kernel launches {k3_n} != wrapper count {launches['gram_matvec']}")
+          f"profiled K3 launches {ffma_n} (gmv_kernel) + {mma_n} (gmv_mma_kernel) != "
+          f"wrapper count {launches['gram_matvec']}")
+    check(mma_n >= 1, "the amortised step's CG sweep did not take the tensor-core K3")
     check(k1_n == launches["gram"] >= 1,
           f"profiled gram_kernel launches {k1_n} != wrapper count {launches['gram']}")
     emit(
@@ -922,8 +1008,10 @@ def phase_profile_iterative(state):
             "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / span_us,
             "gram_matvec_launches": k3_n,
-            "gram_matvec_device_ms_per_launch": (k3_us + red_us) / k3_n / 1e3,
+            "gram_matvec_mma_launches": mma_n,
+            "gram_matvec_device_ms_per_launch": (k3_us + red_us + split_us) / k3_n / 1e3,
             "gram_matvec_reduce_device_ms": red_us / 1e3,
+            "gram_matvec_split_v_device_ms": split_us / 1e3,
             "gram_launches": k1_n,
             "gram_device_ms_per_launch": k1_us / k1_n / 1e3,
             "kernels": _top(by_name, 16),

@@ -94,10 +94,12 @@ def _declare(lib):
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.stheno_gram.argtypes = [i, i, p, p, p, i, i, i, d, p]
     lib.stheno_gram.restype = i
-    lib.stheno_chol_tile.argtypes = [p, p, i, p]
+    lib.stheno_chol_tile.argtypes = [p, p, p, p, p, i, p]
     lib.stheno_chol_tile.restype = i
     lib.stheno_gram_matvec.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, i, i, d, p]
     lib.stheno_gram_matvec.restype = i
+    lib.stheno_gram_matvec_mma.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, d, p]
+    lib.stheno_gram_matvec_mma.restype = i
     return lib
 
 

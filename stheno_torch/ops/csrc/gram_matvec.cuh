@@ -1,7 +1,8 @@
 // The fused Gram x V kernel (K3) and its launcher, templated on the
 // element type: gram_matvec.cu instantiates float, gram_matvec_f64.cu
-// double, so that nvcc builds the two at once. See gram_matvec.cu for
-// what the kernel computes and how.
+// double, so that nvcc builds the two at once; the tensor-core kernel of
+// gram_matvec_mma.cu shares the column-split reduction. See
+// gram_matvec.cu for what the kernel computes and how.
 
 #pragma once
 

@@ -3,6 +3,7 @@ wrapper) with the JAX package's Pallas kernel in interpret mode, at the
 shapes of ``tests/test_gram_matvec.py``; the wrapper's guards; the launch
 shape chosen for the card; and the kernel build's source digest."""
 
+import math
 import shutil
 
 import jax.numpy as jnp
@@ -128,3 +129,63 @@ def test_build_digest_follows_sources_and_headers(tmp_path):
     source = csrc / "gram_matvec.cu"
     source.write_text(source.read_text() + "\n// edited\n")
     assert _build._digest(csrc) not in (base, edited)
+
+
+@pytest.mark.parametrize(
+    "p, dtype, kernel, width",
+    [
+        (1, torch.float32, "ffma", 1),
+        (16, torch.float32, "ffma", 16),
+        (17, torch.float32, "mma", 24),
+        (64, torch.float32, "mma", 64),
+        (256, torch.float32, "mma", 128),
+        (1, torch.float64, "ffma", 1),
+        (16, torch.float64, "ffma", 16),
+        (17, torch.float64, "ffma", 32),
+        (64, torch.float64, "ffma", 32),
+        (256, torch.float64, "ffma", 32),
+    ],
+)
+def test_route_by_width_and_dtype(p, dtype, kernel, width):
+    # float32 from p = 17 on takes the tensor cores with p padded to 24
+    # (not 32) and wider p in blocks of up to 128; float32 p <= 16 and
+    # float64 stay on the FFMA kernel.
+    got, w, span, splits = tgmv.route(262_144, 262_144, p, dtype)
+    assert (got, w) == (kernel, width)
+    assert span % 64 == 0 and span * splits >= 262_144 and span * (splits - 1) < 262_144
+
+
+@pytest.mark.parametrize("n, m, p", [(262_144, 262_144, 17), (8192, 262_144, 64), (3000, 2500, 17)])
+def test_mma_launch_shape_covers_every_column_once(n, m, p):
+    nb, span, splits = tgmv.mma_launch_shape(n, m, p)
+    assert nb in (24, 32, 64, 128) and (nb >= p or nb == 128) and nb % 8 == 0
+    assert span % 64 == 0 and 1 <= splits <= 65535
+    assert span * splits >= m and span * (splits - 1) < m
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    z = torch.tensor([1.0, 1 + 2**-11, -(1 + 2**-11), 1 + 2**-12, 1 + 3 * 2**-12, 0.0])
+    assert tgmv._tf32(z).tolist() == [1.0, 1 + 2**-10, -(1 + 2**-10), 1.0, 1 + 2**-10, 0.0]
+    # The low part keeps the next 10 bits, truncated: hi + lo is pi to
+    # 2^-20.
+    hi, lo = tgmv._split(torch.tensor([math.pi], dtype=torch.float32))
+    assert float(hi) == 3.140625 and abs(float(hi + lo) - math.pi) <= 2**-20 * math.pi
+
+
+@pytest.mark.parametrize("p", [17, 64])
+@pytest.mark.parametrize("kind", KINDS)
+def test_split_product_emulation_within_card_tolerance(kind, p):
+    """The tensor-core kernel's arithmetic (3xTF32 split product, passes of
+    64 columns) against the float64 product, within the tolerance
+    chip_smoke.py holds the card's K3 to: 8 sqrt(m) eps of |G| @ |v|."""
+    r = np.random.RandomState(p)
+    x = torch.tensor(r.randn(512, 1).astype(np.float32))
+    y = torch.tensor(r.randn(2048, 1).astype(np.float32))
+    v = torch.tensor(r.randn(2048, p).astype(np.float32))
+    out = tgmv.gram_matvec_split_plain(kind, x, y, v, 1.3, block=256)
+    G64 = gram_plain(kind, x.double(), y.double(), 1.3)
+    ref = G64 @ v.double()
+    scale = G64.abs() @ v.double().abs()
+    tol = 8 * math.sqrt(2048) * torch.finfo(torch.float32).eps
+    assert out.dtype == torch.float32 and out.shape == (512, p)
+    assert float(((out.double() - ref).abs() / scale).max()) <= tol
