@@ -16,6 +16,10 @@ on the card, and drives the port's two paths through their entry points:
   float64 against the dense exact GP and at N=262,144 against the same
   step in float64 on the card.
 
+The training step's surrogate gradient takes the fused Gram-gradient
+kernel (``csrc/gram_matvec_vjp.cu``), checked at N=262,144 against the
+same gradient by the blocked sweep with accurate distances.
+
 It then times each kernel beside its bound, its plain version and the
 nearest PyTorch library call, times the matrix-free path's steps, and
 profiles one N=2000 and one N=262,144 training step (device time by
@@ -36,13 +40,15 @@ import time
 import torch
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth, the
-# non-tensor-core FP32 / FP64 rates, and the dense TF32 tensor-core rate
-# (K3's tensor-core route). The special-function unit does 16 exps per
+# non-tensor-core FP32 / FP64 rates, and the dense TF32 and FP64
+# tensor-core rates (K3's tensor-core route, the float64 Gram-gradient
+# kernel's dots). The special-function unit does 16 exps per
 # clock per SM; its rate takes the card's maximum SM clock from
 # nvidia-smi (``sfu_exps_per_s``).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 TF32_TC_FLOPS = 495e12
+FP64_TC_FLOPS = 67e12
 SM_COUNT = 132
 EXPS_PER_CLOCK_PER_SM = 16
 
@@ -60,6 +66,12 @@ KERNELS = {
     "gram_matvec": {
         "source": "stheno_torch/ops/csrc/gram_matvec_mma.cu",
         "replaces": "stheno_tpu/ops/gram_matvec.py:53",
+    },
+    # The backward of K3 on the surrogate gradient: it replaces the K1
+    # tiles (and their W-trick VJP) that the JAX package differentiates.
+    "gram_matvec_vjp": {
+        "source": "stheno_torch/ops/csrc/gram_matvec_vjp.cu",
+        "replaces": "stheno_tpu/ops/gram.py:92",
     },
 }
 
@@ -315,21 +327,25 @@ def phase_chol_tile():
     return path_err
 
 
-def _counts():
+def _kernel_modules():
     from stheno_torch.ops import chol_tile as K2
     from stheno_torch.ops import gram as K1
     from stheno_torch.ops import gram_matvec as K3
+    from stheno_torch.ops import gram_matvec_vjp as K3V
 
-    return {"gram": K1.launches, "chol_tile": K2.launches, "gram_matvec": K3.launches}
+    return {"gram": K1, "chol_tile": K2, "gram_matvec": K3, "gram_matvec_vjp": K3V}
+
+
+def _counts():
+    return {k: mod.launches for k, mod in _kernel_modules().items()}
 
 
 def _set_counts(counts):
-    from stheno_torch.ops import chol_tile as K2
-    from stheno_torch.ops import gram as K1
-    from stheno_torch.ops import gram_matvec as K3
+    for k, mod in _kernel_modules().items():
+        mod.launches = counts[k]
 
-    K1.launches, K2.launches, K3.launches = (
-        counts["gram"], counts["chol_tile"], counts["gram_matvec"])
+
+ZERO_COUNTS = {k: 0 for k in KERNELS}
 
 
 def _rel(a, b):
@@ -358,7 +374,7 @@ def phase_main_path():
             noise = torch.full((), 0.1, dtype=x.dtype, device=x.device)
             return (f | (f(x, noise), y))(x_new).marginals()
 
-    _set_counts({"gram": 0, "chol_tile": 0, "gram_matvec": 0})
+    _set_counts(ZERO_COUNTS)
     out_entry = fn(x, y, x_new, params)
     after_entry = _counts()
     val = E.nlml_n2000(xb, yb, ell)
@@ -451,23 +467,6 @@ def phase_times(errs, counts):
             "shape": [n, n, d],
         }
     )
-    # K1 at the matrix-free path's surrogate tile: 4096 rows of the
-    # N=262,144 inputs against all of them, float64 (the backward's 260
-    # launches), with the same library call at that shape.
-    xi = _path_inputs(torch.float64)[0][:, None]
-    xr = xi[:4096]
-    nr, nc = xr.shape[0], xi.shape[0]
-    f_ms, f_by = bound((nr + nc + nr * nc) * 8, nr * nc * 6 + 4 * (nr + nc), torch.float64)
-    kernels[-1]["n262144_f64"] = {
-        "shape": [nr, nc, 1],
-        "ms": time_ms(lambda: K1.gram("eq", xr, xi), reps=5),
-        "plain_ms": time_ms(lambda: K1.gram_plain("eq", xr, xi), reps=3, warmup=1),
-        "library_ms": time_ms(lambda: torch.exp(-0.5 * torch.cdist(xr, xi).square()),
-                              reps=3, warmup=1),
-        "bound_ms": f_ms,
-        "bound_by": f_by,
-    }
-    del xi, xr
 
     # K2 at the tiles of the N=2000 factorisation: 1024 and 976.
     tiles = {}
@@ -499,6 +498,7 @@ def phase_times(errs, counts):
         "entry_step_ms": time_ms(lambda: fn(*args)),
     }
     kernels.append(_k3_times())
+    kernels.append(_vjp_times())
     # Launches made by the timing runs do not count: restore the paths'
     # counts.
     _set_counts(saved)
@@ -513,7 +513,7 @@ def phase_times(errs, counts):
                 "source": KERNELS[k["name"]]["source"],
                 "replaces": KERNELS[k["name"]]["replaces"],
                 "launches": counts[k["name"]],
-                "max_abs_err": errs[k["name"]],
+                "max_abs_err": max(errs[k["name"]], k.get("full_shape_max_abs_err", 0.0)),
                 "ms": k["ms"],
                 "plain_ms": k["plain_ms"],
                 "bound_ms": k["bound_ms"],
@@ -556,7 +556,8 @@ def phase_gram_matvec():
     shape in float32 and float64, at p = 5 (the FFMA route) and p = 17 and
     64 (the tensor-core route in float32), and the matrix-free path's shapes (an
     8192-row slice of the N=262,144 inputs against all columns for p in
-    1, 17, 64, 256, and the 4096-point mean query), each within
+    1, 17, 64, 256, the same at p = 17 in float64 as the surrogate's
+    forward runs it, and the 4096-point mean query), each within
     ``_gmv_rtol`` of ``|G| @ |v|``. Returns the largest absolute error at
     the path's shapes."""
     from stheno_torch.ops import gram_matvec as K3
@@ -597,10 +598,97 @@ def phase_gram_matvec():
     for p in (1, 17, 64, 256):
         v = torch.randn(N_IT, p, generator=gen, device="cuda")
         path_err = max(path_err, hold("eq", rows, x, v, f"8192x1 by {N_IT}x1 p={p}"))
+    # The surrogate's forward: the FFMA route in float64 at p = 17.
+    x64 = _path_inputs(torch.float64)[0][:, None]
+    v = torch.randn(N_IT, 17, generator=gen, device="cuda", dtype=torch.float64)
+    path_err = max(path_err, hold("eq", x64[:8192], x64, v,
+                                  f"8192x1 by {N_IT}x1 p=17 float64"))
+    del x64
     xq = torch.linspace(0.0, 10.0, 4096, device="cuda")[:, None]
     v = torch.randn(N_IT, 1, generator=gen, device="cuda")
     path_err = max(path_err, hold("eq", xq, x, v, f"4096x1 by {N_IT}x1 p=1"))
     emit({"phase": "gram_matvec_vs_plain", "cases": results})
+    return path_err
+
+
+# ---------------------------------------------------------------------------
+# The fused Gram-gradient x V kernel: the backward of K3.
+
+
+def _vjp_scale(kind, x, y, A, V, alpha, block=1024):
+    """The scale of the Gram-gradient kernel's sums, per gradient entry:
+    ``2 sum_j (|A| |V|^T)_ij |g'_ij| |x_ik - y_jk|`` (linear: ``|A| (|V|^T
+    |y|)``), and for rq ``sum_ij (|A| |V|^T)_ij |dK/d alpha|_ij``."""
+    from stheno_torch.ops.gram import _apply_kind, _g_prime
+    from stheno_torch.ops.gram_matvec_vjp import _alpha_factor
+
+    Aa, Va = A.abs(), V.abs()
+    if kind == "linear":
+        return Aa @ (Va.T @ y.abs()), None
+    rows, total = [], 0.0
+    for xb, Ab in zip(torch.split(x, block), torch.split(Aa, block)):
+        diff = xb[:, None, :] - y[None, :, :]
+        d2 = torch.sum(diff * diff, dim=-1)
+        K = _apply_kind(kind, d2, None, alpha)
+        S = Ab @ Va.T
+        rows.append(2 * torch.einsum("ij,ijk->ik", S * _g_prime(kind, d2, K, alpha).abs(),
+                                     diff.abs()))
+        if kind == "rq":
+            total += float(torch.sum(S * _alpha_factor(d2, K, alpha).abs()))
+    return torch.cat(rows), (total if kind == "rq" else None)
+
+
+def phase_gram_matvec_vjp():
+    """The fused Gram-gradient kernel against its plain version on the
+    card: every kind (linear through its torch product) in float32 and
+    float64 at 3000x2 by 2500x2 with q = 18 (cross) and at 3000x2 with x
+    is y and both roles in one launch (q = 2 x 18, as the autograd
+    Function runs the square Gram), rq's alpha included; then the path's
+    shape, an 8192-row slice of the N=262,144 inputs against all of them
+    with both roles (q = 2 x 17), float64. Each within ``_gmv_rtol`` of
+    ``_vjp_scale``: kernel and plain version sum the same terms in other
+    orders, as K3 and its plain version do. Returns the largest absolute
+    error at the path's shape."""
+    from stheno_torch.ops import gram_matvec_vjp as K3V
+    from stheno_torch.ops.gram import KINDS
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    results = []
+
+    def hold(kind, x, y, A, V, tag):
+        got, dal = K3V.gram_matvec_vjp(kind, x, y, A, V, 1.3, alpha_grad=True)
+        ref, dal_ref = K3V.gram_matvec_vjp_plain(kind, x, y, A, V, 1.3, alpha_grad=True)
+        torch.cuda.synchronize()
+        check(got.shape == x.shape and bool(torch.isfinite(got).all()),
+              f"gram_matvec_vjp {kind} {tag}: shape or not finite")
+        scale, ascale = _vjp_scale(kind, x, y, A, V, 1.3)
+        rtol = _gmv_rtol(y.shape[0], x.dtype)
+        rel = float(((got - ref).abs() / scale.clamp_min(1e-30)).max())
+        check(rel <= rtol, f"gram_matvec_vjp {kind} {tag}: error {rel} of its scale > {rtol}")
+        case = {"kind": kind, "case": tag, "max_rel_err": rel, "rtol": rtol}
+        if kind == "rq":
+            case["alpha_rel_err"] = abs(float(dal) - float(dal_ref)) / max(ascale, 1e-30)
+            check(case["alpha_rel_err"] <= rtol, f"gram_matvec_vjp rq {tag} alpha: {case}")
+        results.append(case)
+        return max_err(got, ref)
+
+    def randn(*shape, dtype=torch.float64):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    for dtype in (torch.float32, torch.float64):
+        x, y = randn(3000, 2, dtype=dtype), randn(2500, 2, dtype=dtype)
+        A, Vx = randn(3000, 18, dtype=dtype), randn(3000, 18, dtype=dtype)
+        V = randn(2500, 18, dtype=dtype)
+        for kind in KINDS:
+            hold(kind, x, y, A, V, f"3000x2 by 2500x2 q=18 {dtype}")
+            hold(kind, x, x, torch.cat([A, Vx], 1), torch.cat([Vx, A], 1),
+                 f"3000x2 square, both roles (q=36) {dtype}")
+    x = _path_inputs(torch.float64)[0][:, None]
+    A, V = randn(8192, 17), randn(N_IT, 17)
+    Vx, Ax = randn(8192, 17), randn(N_IT, 17)
+    path_err = hold("eq", x[:8192], x, torch.cat([A, Vx], 1), torch.cat([V, Ax], 1),
+                    f"8192x1 by {N_IT}x1 q=34 float64")
+    emit({"phase": "gram_matvec_vjp_vs_plain", "cases": results})
     return path_err
 
 
@@ -629,8 +717,9 @@ def phase_iterative():
     fresh and the amortised training step, the weights, the cached mean at
     4096 points, the variance cache and the cached variance at 2048
     points, and the serving bundle. Every CG must converge and every
-    output be finite; K3 must launch in each forward sweep and K1 in each
-    step's backward. The variance-cache build is timed here (one run).
+    output be finite; K3 must launch in each forward sweep and the fused
+    Gram-gradient kernel (not K1) in each step's backward. The
+    variance-cache build is timed here (one run).
     Returns the path's launch counts, its preconditioner state and
     variance cache, and that time."""
     from stheno_torch import entry as E
@@ -650,12 +739,14 @@ def phase_iterative():
         check(deltas[name]["gram_matvec"] >= 1, f"{name}: K3 did not launch")
         return out
 
-    _set_counts({"gram": 0, "chol_tile": 0, "gram_matvec": 0})
+    _set_counts(ZERO_COUNTS)
     state = leg("precond_build", lambda: E.iterative_precond_state(x, params, gen))
     steps = {}
     for name, kw in (("step", {}), ("amortised_step", {"precond_state": state})):
         val, grads, info = leg(name, lambda kw=kw: E.iterative_step(x, y, params, gen, **kw))
-        check(deltas[name]["gram"] >= 1, f"{name}: K1 did not launch in the surrogate backward")
+        check(deltas[name]["gram_matvec_vjp"] >= 1,
+              f"{name}: the fused Gram-gradient kernel did not launch in the surrogate backward")
+        check(deltas[name]["gram"] == 0, f"{name}: K1 launched {deltas[name]['gram']} times")
         check(info["cg_converged"], f"{name}: CG did not converge ({info})")
         check(all(bool(torch.isfinite(t)) for t in (val, *grads.values())), f"{name} not finite")
         steps[name] = {"nlml": float(val), "cg_iters": info["cg_iters"],
@@ -699,6 +790,60 @@ def _rel_grads(grads, ref):
     return {k: _rel(grads[k], ref[k]) for k in grads}
 
 
+def _surrogate_gate(x, y, params, state, gen):
+    """The amortised step's surrogate gradient, float64 (as the step sweeps
+    it), through the fused route (K3 forward, the fused Gram-gradient
+    kernel backward) against the same gradient by the blocked sweep under
+    ``config.accurate_dists()`` (plain torch tiles of direct differences,
+    1024 rows at a time, checkpointed): one forward solve of the path's
+    float32 step at N=262,144 gives both the same ``(U, w, alpha)``, so
+    only the sweep differs. Gate: each leaf's gradient within rel 1e-6."""
+    from stheno_torch import config
+    from stheno_torch import entry as E
+    from stheno_torch.iterative import nlml as NL
+
+    names = list(params)
+    u = torch.randn(N_IT, 16, generator=gen, device="cuda")
+    noise = torch.tensor(E.ITERATIVE_NOISE, device="cuda")
+
+    def cfg(block):
+        return NL._Config(names, E.iterative_kernel, block, 1e-2, 200, 30, 64, "eig", 1)
+
+    with torch.no_grad():
+        _, health, alpha, U, w = NL._nlml_forward(cfg(8192), params, y, noise, x[:, None], u,
+                                                  None, state)
+    check(health["cg_converged"], f"surrogate gate: CG did not converge ({health})")
+    leaves = [t.double() for t in params.values()]
+    need = [True] * len(leaves) + [False, False]
+    grads, launches, secs = {}, {}, {}
+    for route, block, accurate in (("fused", 8192, False), ("blocked_accurate_dists", 1024, True)):
+        before, t0 = _counts(), time.perf_counter()
+        with config.accurate_dists(accurate):
+            g = NL._surrogate_grads(cfg(block), leaves, noise.double(), x.double()[:, None], U, w,
+                                    alpha, need)
+        torch.cuda.synchronize()
+        secs[route] = time.perf_counter() - t0
+        after = _counts()
+        launches[route] = {k: after[k] - before[k] for k in after}
+        grads[route] = dict(zip(names, g))
+    return {
+        "grad_fused": {k: float(t) for k, t in grads["fused"].items()},
+        "grad_blocked": {k: float(t) for k, t in grads["blocked_accurate_dists"].items()},
+        "grad_rel": _rel_grads(grads["fused"], grads["blocked_accurate_dists"]),
+        "launches": launches,
+        "seconds": secs,
+    }
+
+
+def _check_surrogate_gate(gate):
+    launches = gate["launches"]
+    check(launches["fused"]["gram_matvec_vjp"] == 1 and launches["fused"]["gram"] == 0,
+          f"surrogate gate: the fused route's launches {launches['fused']}")
+    check(launches["blocked_accurate_dists"]["gram_matvec_vjp"] == 0,
+          f"surrogate gate: the blocked route launched the fused kernel {launches}")
+    check(all(r <= 1e-6 for r in gate["grad_rel"].values()), f"surrogate gate {gate}")
+
+
 def phase_iterative_gates(state32):
     """Correctness gates of the matrix-free path, on the card:
 
@@ -718,7 +863,9 @@ def phase_iterative_gates(state32):
       1e-4.
 
     NLML rel <= 1e-3 and gradients rel <= 5e-2, as the main path's
-    gates; the mean and variance within 1e-4 of the largest dense value."""
+    gates; the mean and variance within 1e-4 of the largest dense value.
+    Then ``_surrogate_gate``: the fused surrogate gradient against the
+    blocked sweep's, rel <= 1e-6."""
     from stheno_torch import entry as E
     from stheno_torch.iterative import nlml as NL
 
@@ -769,7 +916,10 @@ def phase_iterative_gates(state32):
         "cg_rel_residual_f64": float(h64["cg_rel_residual"]),
     }
     report[f"n{N_IT}_f32_vs_f64"] = big
+    gate = report[f"n{N_IT}_surrogate_fused_vs_blocked"] = _surrogate_gate(
+        x32, y32, p32, state32, gen)
     emit(report)
+    _check_surrogate_gate(gate)
     check(big["nlml_rel"] <= 1e-3, f"N={N_IT} f32 NLML {big}")
     # With the FFMA K3 this solve took 4 iterations in float32 (2 in
     # float64); the tensor-core product may add at most one: it must leave
@@ -832,6 +982,106 @@ def _k3_times():
     return {"name": "gram_matvec", **shapes["p17"], "sm_clock_mhz": mhz, "shapes": shapes}
 
 
+def vjp_bound(n, m, d, q, symmetric=False):
+    """The least time of the float64 fused Gram-gradient work, in ms, and
+    what binds it, in ``mma_bound``'s style: per Gram entry the q-wide dot
+    A_i . V_j (2q flops) at the FP64 tensor-core rate; the difference and
+    d2 (3d flops), one exp (charged 4 flops, as K3's FP32 bound charges it;
+    float64 has no special-function unit, so its exp runs on the FP64
+    units), W = s g' (1) and the gradient's FMAs (2d) at the FP64 rate; the
+    bytes of x, y, A and V read once and xbar written once. Also the bound
+    with every flop at the FP64 (DFMA) rate, the bound of a kernel without
+    tensor cores. With ``symmetric`` (x is y, A = [A0, V0] and V = [V0,
+    A0]: both roles of the square Gram in one call) the work is that of
+    the n (n + 1) / 2 unordered pairs: A_i . V_j = A_j . V_i, and one exp
+    and one difference serve both entries of a pair, whose term adds to
+    both rows (3d flops for the gradient). Returns ``(ms, unit, dfma_ms,
+    bytes)``."""
+    entries = n * (n + 1) / 2 if symmetric else n * m
+    rest = 3 * d + (3 * d if symmetric else 2 * d) + 1 + 4  # the exp charged 4 flops
+    byts = (2 * n * d + m * d + n * q + m * q) * 8
+    times = {
+        "fp64_tc_dot": entries * 2 * q / FP64_TC_FLOPS * 1e3,
+        "fp64_elementwise": entries * rest / PEAK_FLOPS[torch.float64] * 1e3,
+        "bytes": byts / HBM_BYTES_PER_S * 1e3,
+    }
+    unit = max(times, key=times.get)
+    dfma_ms = entries * (2 * q + rest) / PEAK_FLOPS[torch.float64] * 1e3
+    return times[unit], unit, max(dfma_ms, times["bytes"]), byts
+
+
+def _vjp_times():
+    """The fused Gram-gradient kernel per call at the surrogate's shape:
+    both roles of the N=262,144 square Gram in one launch (x is y, A' = [A,
+    V], V' = [V, A] with q = 17 each, so 34 panel columns), d = 1, float64.
+    CUDA events (one warm-up, median of 3) and ``device_ms``; beside them
+    its bounds (``vjp_bound``: ``bound_ms`` of the symmetric work, which
+    the function needs, and ``ordered_bound_ms`` of all N^2 ordered
+    entries, which the kernel sweeps), its plain version (one run, whose
+    result the kernel's is held to within ``_gmv_rtol`` of ``_vjp_scale``:
+    the path's own launch shape, entry by entry) and the library route a
+    PyTorch user would take for the same gradient, one run:
+    ``torch.autograd.grad`` of ``sum(A_b * (exp(-0.5 cdist(x_b, x)^2) @
+    V))`` over row blocks of 2048 with x a leaf (both roles), which the
+    port never calls."""
+    from stheno_torch.ops import gram_matvec_vjp as K3V
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x = _path_inputs(torch.float64)[0][:, None]
+    q = 17
+    A, V = (torch.randn(N_IT, q, generator=gen, device="cuda", dtype=torch.float64)
+            for _ in range(2))
+    A2, V2 = torch.cat([A, V], 1), torch.cat([V, A], 1)
+    call = lambda: K3V.gram_matvec_vjp("eq", x, x, A2, V2)  # noqa: E731
+
+    def library():
+        xl = x.detach().requires_grad_(True)
+        total = torch.zeros_like(x)
+        for s in range(0, N_IT, 2048):
+            out = torch.exp(-0.5 * torch.cdist(xl[s:s + 2048], xl).square()) @ V
+            (g,) = torch.autograd.grad(torch.sum(A[s:s + 2048] * out), xl)
+            total += g
+        return total
+
+    plain = {}
+
+    def run_plain():
+        plain["xbar"] = K3V.gram_matvec_vjp_plain("eq", x, x, A2, V2)[0]
+
+    plain_ms = time_ms(run_plain, reps=1, warmup=0)
+    got = call()[0]
+    scale, _ = _vjp_scale("eq", x, x, A2, V2, 1.0)
+    rtol = _gmv_rtol(N_IT, torch.float64)
+    rel = float(((got - plain["xbar"]).abs() / scale.clamp_min(1e-30)).max())
+    check(got.shape == x.shape and bool(torch.isfinite(got).all()),
+          "gram_matvec_vjp at the path's shape: shape or not finite")
+    check(rel <= rtol, f"gram_matvec_vjp at the path's shape: error {rel} of its scale > {rtol}")
+    err = max_err(got, plain["xbar"])
+    del plain, got, scale
+    b_ms, b_unit, dfma_ms, byts = vjp_bound(N_IT, N_IT, 1, 2 * q, symmetric=True)
+    o_ms, o_unit, o_dfma_ms, _ = vjp_bound(N_IT, N_IT, 1, 2 * q)
+    return {
+        "name": "gram_matvec_vjp",
+        "shape": [N_IT, N_IT, 1, 2 * q],
+        "launch_shape": K3V.launch_shape(N_IT, N_IT, 2 * q, 1, 8),
+        "ms": time_ms(call, reps=3, warmup=1),
+        "device_ms": device_ms(call),
+        "plain_ms": plain_ms,
+        "library_ms": time_ms(library, reps=1, warmup=0),
+        "full_shape_max_abs_err": err,
+        "full_shape_max_rel_err": rel,
+        "full_shape_rtol": rtol,
+        "bound_ms": b_ms,
+        "bound_unit": b_unit,
+        "bound_by": "bytes" if b_unit == "bytes" else "operations",
+        "dfma_bound_ms": dfma_ms,
+        "ordered_bound_ms": o_ms,
+        "ordered_bound_unit": o_unit,
+        "ordered_dfma_bound_ms": o_dfma_ms,
+        "bound_bytes": byts,
+    }
+
+
 def phase_path_times(state, cache, build_s):
     """The matrix-free path's steps under bench.py's suite names: CUDA
     events around each call, one warm-up and the median of 3 (the
@@ -855,9 +1105,12 @@ def phase_path_times(state, cache, build_s):
     }
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = _counts()
     out["iterative_n262144_amortised_step_s"] = secs(
         lambda: E.iterative_step(x, y, params, gen, precond_state=state))
     out["amortised_step_max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    # Four steps ran (a warm-up and three samples): launches per step.
+    out["amortised_step_launches"] = {k: (v - before[k]) / 4 for k, v in _counts().items()}
     out["posterior_weights_n262144_s"] = secs(lambda: E.serving_weights(x, y, params, state))
     out["cached_posterior_mean_n262144_s"] = secs(lambda: E.serving_mean(x, params, alpha, x_mean))
     out["var_cache_build_n262144_s"] = build_s
@@ -974,9 +1227,10 @@ def phase_profile():
 
 def phase_profile_iterative(state):
     """One amortised N=262,144 value+grad step under torch.profiler, after
-    a warm-up: device time by kernel, K3's and K1's device time per
-    launch, and the device busy share. K3's and K1's device launches must
-    match the wrappers' counts."""
+    a warm-up: device time by kernel, K3's and the fused Gram-gradient
+    kernel's device time per launch, and the device busy share. Their
+    device launches must match the wrappers' counts, and K1 must not
+    launch."""
     from stheno_torch import entry as E
 
     saved = _counts()
@@ -992,14 +1246,21 @@ def phase_profile_iterative(state):
     k3_n, k3_us = ffma_n + mma_n, ffma_us + mma_us
     red_n, red_us = by_name.get("gmv_reduce", (0, 0.0))
     split_n, split_us = by_name.get("gmv_split_v", (0, 0.0))
-    k1_n, k1_us = by_name.get("gram_kernel", (0, 0.0))
+    k1_n = by_name.get("gram_kernel", (0, 0.0))[0]
+    # The float64 kernel is the tensor-core one; float32 takes gmv_vjp_kernel.
+    vjp = [by_name.get(k, (0, 0.0)) for k in ("gmv_vjp_kernel", "gmv_vjp_dmma_kernel")]
+    vjp_n, vjp_us = sum(n for n, _ in vjp), sum(us for _, us in vjp)
+    vred_n, vred_us = by_name.get("gmv_vjp_reduce", (0, 0.0))
     check(split_n == mma_n, f"profiled gmv_split_v launches {split_n} != gmv_mma_kernel {mma_n}")
     check(k3_n == launches["gram_matvec"] >= 1,
           f"profiled K3 launches {ffma_n} (gmv_kernel) + {mma_n} (gmv_mma_kernel) != "
           f"wrapper count {launches['gram_matvec']}")
     check(mma_n >= 1, "the amortised step's CG sweep did not take the tensor-core K3")
-    check(k1_n == launches["gram"] >= 1,
-          f"profiled gram_kernel launches {k1_n} != wrapper count {launches['gram']}")
+    check(vjp_n == launches["gram_matvec_vjp"] >= 1,
+          f"profiled gmv_vjp_kernel and gmv_vjp_dmma_kernel launches {vjp_n} != wrapper count "
+          f"{launches['gram_matvec_vjp']}")
+    check(k1_n == launches["gram"] == 0,
+          f"the step launched K1: profiled {k1_n}, wrapper count {launches['gram']}")
     emit(
         {
             "phase": "profile_iterative",
@@ -1013,7 +1274,9 @@ def phase_profile_iterative(state):
             "gram_matvec_reduce_device_ms": red_us / 1e3,
             "gram_matvec_split_v_device_ms": split_us / 1e3,
             "gram_launches": k1_n,
-            "gram_device_ms_per_launch": k1_us / k1_n / 1e3,
+            "gram_matvec_vjp_launches": vjp_n,
+            "gram_matvec_vjp_device_ms_per_launch": (vjp_us + vred_us) / vjp_n / 1e3,
+            "gram_matvec_vjp_reduce_launches": vred_n,
             "kernels": _top(by_name, 16),
         }
     )
@@ -1039,22 +1302,26 @@ def main():
         seconds[name] = time.perf_counter() - t0
         return out
 
-    run("card_and_build", phase_card)
+    smi = run("card_and_build", phase_card)
     errs = {
         "gram": run("gram", phase_gram),
         "chol_tile": run("chol_tile", phase_chol_tile),
         "gram_matvec": run("gram_matvec", phase_gram_matvec),
+        "gram_matvec_vjp": run("gram_matvec_vjp", phase_gram_matvec_vjp),
     }
     counts = run("main_path", phase_main_path)
     it_counts, state, cache, build_s = run("iterative_path", phase_iterative)
     run("iterative_gates", phase_iterative_gates, state)
     # Each kernel's launches are those of the path it serves: K1 and K2
-    # on the main path, K3 on the matrix-free path.
-    kernels = run("times", phase_times, errs, {**counts, "gram_matvec": it_counts["gram_matvec"]})
+    # on the main path, K3 and its backward on the matrix-free path.
+    path = {k: it_counts[k] for k in ("gram_matvec", "gram_matvec_vjp")}
+    kernels = run("times", phase_times, errs, {**counts, **path})
     run("iterative_times", phase_path_times, state, cache, build_s)
     run("profile", phase_profile)
     run("profile_iterative", phase_profile_iterative, state)
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
+    # The card's name and power limit again, beside the kernels' numbers.
+    print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(
         json.dumps(

@@ -7,13 +7,18 @@ an error:
 
 - **Fused (kernel K3).** ``k`` is a chain of ``ScaledKernel``s over input
   wrappers (stretch, shift, select, transform, periodic) over a stationary
-  leaf (EQ, RQ, Matérn) or ``Linear``, and no gradient flows: the inputs
-  are warped once (O(N d)) and :func:`~stheno_torch.ops.gram_matvec.gram_matvec`
-  computes ``g(d2) @ v`` (the CUDA kernel on the card, its plain version on
-  the CPU); the scales multiply the product and the noise term is added.
-- **Blocked sweep.** Everything else (other expressions, a required
-  gradient, ``config.accurate_dists()``, which K3's matmul-identity
-  distances cannot honour): the JAX package's structure, one
+  leaf (EQ, RQ, Matérn) or ``Linear``: the inputs are warped once (O(N d))
+  and :func:`~stheno_torch.ops.gram_matvec.gram_matvec` computes ``g(d2) @
+  v`` (the CUDA kernel on the card, its plain version on the CPU); the
+  scales multiply the product and the noise term is added. When a gradient
+  flows, the product is ``ops/gram_matvec_vjp.py:_GramMatvecFn``: the same
+  K3 forward, and a backward by the fused Gram-gradient kernel for the
+  warped inputs and rq's alpha (K3 again for ``v``), so no Gram tile is
+  built. The scales and the warps stay in autograd: they are O(N d).
+- **Blocked sweep.** Everything else (other expressions,
+  ``config.accurate_dists()``, which the kernels' distances do not honour,
+  inputs of mixed dtypes, and under a gradient warped inputs wider than
+  the gradient kernel's ``MAX_DEPTH``): the JAX package's structure, one
   ``(block, m)`` Gram tile per row block (K1 on the card) times ``v``.
   When a gradient is needed each block runs under
   ``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``: the
@@ -37,6 +42,7 @@ from ..kernels.kernel import Linear, ScaledKernel, _InputWrappedKernel, _Station
 from ..kernels.util import uprank
 from ..matrix import dense
 from ..ops.gram_matvec import gram_matvec
+from ..ops.gram_matvec_vjp import MAX_DEPTH, _GramMatvecFn
 
 __all__ = ["kernel_matvec"]
 
@@ -73,13 +79,17 @@ def _requires_grad(t):
 
 
 def _fused_matvec(form, x, xc, v2):
-    """K3's product for the fused form, or ``None`` when a gradient would
-    flow through it (then the differentiable blocked sweep runs)."""
+    """K3's product for the fused form, through :class:`_GramMatvecFn`
+    when a gradient flows; ``None`` where the blocked sweep must run."""
     scales, wrappers, leaf = form
     xw, yw = x, xc
     for w in wrappers:
         xw, yw = w._warp_pair(xw, yw)
-        xw, yw = uprank(xw), uprank(yw)
+        # Keep the square case's one tensor one: the backward then sweeps
+        # both roles at once.
+        same = xw is yw
+        xw = uprank(xw)
+        yw = xw if same else uprank(yw)
     kind = "linear" if isinstance(leaf, Linear) else leaf.kind
     alpha = leaf._alpha() if kind != "linear" else 1.0
     if xw.dtype != v2.dtype or xw.dtype != yw.dtype:
@@ -87,8 +97,13 @@ def _fused_matvec(form, x, xc, v2):
     if torch.is_grad_enabled() and any(
         _requires_grad(t) for t in (xw, yw, v2, alpha, *scales)
     ):
-        return None
-    out = gram_matvec(kind, xw, yw, v2, alpha)
+        if kind != "linear" and xw.shape[1] > MAX_DEPTH:
+            return None
+        if not isinstance(alpha, torch.Tensor):
+            alpha = torch.as_tensor(alpha, dtype=xw.dtype, device=xw.device)
+        out = _GramMatvecFn.apply(xw, yw, v2, alpha, kind)
+    else:
+        out = gram_matvec(kind, xw, yw, v2, alpha)
     for s in scales:
         out = out * s
     return out

@@ -18,7 +18,10 @@ The JAX ``custom_vjp`` becomes the ``torch.autograd.Function``
 :class:`_NLMLFunction`: its forward runs without autograd, so every sweep
 takes the fused Gram x V kernel K3; its backward rebuilds the kernel from
 the parameter leaves and differentiates the surrogate through
-``kernel_matvec``'s checkpointed blocked sweep (K1 tiles on the card).
+``kernel_matvec``: for a fused-form kernel K3 forward and the fused
+Gram-gradient kernel backward (``ops/gram_matvec_vjp.py``), no Gram tile
+built; for any other expression the checkpointed blocked sweep (K1 tiles
+on the card).
 JAX ``key``s become ``torch.Generator``s. The compensated two-float
 branches are not ported: where the policy resolves to them, the port
 raises ``NotImplementedError``.
@@ -208,16 +211,19 @@ def _surrogate_grads(cfg, leaves, noise, x, U, w, alpha, need):
     """Gradients of the Hutchinson surrogate ``0.5 (mean_i u_i^T A w_i -
     alpha^T A alpha)`` with respect to the parameter leaves, ``noise`` and
     ``x`` (``None`` where ``need`` is false), through one differentiable
-    blocked sweep of ``[w, alpha]``.
+    ``kernel_matvec`` of ``[w, alpha]``.
 
-    Float32 inputs are swept in float64, at half the row block so that a
-    tile takes the same bytes. The gradient sums each term over all N^2
-    Gram entries, whose contributions cancel to a value many orders of
-    magnitude below their sizes; in float32 those sums lose it. Measured
-    on an H100 at N=262,144 (``chip_smoke.py`` phase ``iterative_gates``
-    tests it): a float32 sweep put d/d log_s2 38% away from an all-float64
-    step (4.38 against 7.04), a float64 sweep over the same float32 solves
-    0.5%. The solves and their forward sweeps stay in the input dtype."""
+    Float32 inputs are swept in float64. A fused-form kernel builds no
+    tile (K3 forward, the fused Gram-gradient kernel backward); the row
+    block, halved so that a tile takes the same bytes, only matters for
+    the blocked sweep of other expressions. The gradient sums each term
+    over all N^2 Gram entries, whose contributions cancel to a value many
+    orders of magnitude below their sizes; in float32 those sums lose it.
+    Measured on an H100 at N=262,144 (``chip_smoke.py`` phase
+    ``iterative_gates`` tests it): a float32 sweep put d/d log_s2 38% away
+    from an all-float64 step (4.38 against 7.04), a float64 sweep over the
+    same float32 solves 0.5%. The solves and their forward sweeps stay in
+    the input dtype."""
     p = w.shape[1]
     wide = torch.float64 if x.dtype == torch.float32 else x.dtype
     block = max(1, cfg.block * x.element_size() // (torch.finfo(wide).bits // 8))

@@ -20,9 +20,10 @@ Gram:
   arithmetic for the tests; nothing on the path calls it.
 
 float32 and float64, all six kinds of :data:`~stheno_torch.ops.gram.KINDS`.
-Forward only, as in the JAX package: the iterative NLML differentiates a
-surrogate sweep built from K1 tiles, never this product. A call through
-which a gradient would flow raises; nothing is detached silently.
+Forward only, as in the JAX package: a call through which a gradient would
+flow raises; nothing is detached silently. The differentiable product is
+``ops/gram_matvec_vjp.py:_GramMatvecFn``, whose forward is this function
+and whose backward is the fused Gram-gradient kernel.
 
 The route and launch shape are chosen here, in Python, so that the CPU
 tests reach them: :func:`route` picks the kernel and :func:`launch_shape`
@@ -220,8 +221,8 @@ def gram_matvec(kind, x, y, v, alpha=1.0):
     ):
         raise RuntimeError(
             "gram_matvec is forward-only: a gradient would flow through this call. "
-            "Differentiate the blocked Gram sweep (iterative.kernel_matvec takes it "
-            "when a gradient is needed) or call it under torch.no_grad()."
+            "Differentiate ops.gram_matvec_vjp._GramMatvecFn (iterative.kernel_matvec "
+            "takes it when a gradient is needed) or call it under torch.no_grad()."
         )
     if not x.is_cuda:
         return gram_matvec_plain(kind, x, y, v, alpha)

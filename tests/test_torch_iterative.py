@@ -26,6 +26,7 @@ from stheno_torch import iterative as tit
 from stheno_torch.convert import precond_state_from_jax
 from stheno_torch.iterative import nlml as tnlml
 from stheno_torch.ops import gram_matvec as tgmv
+from stheno_torch.ops import gram_matvec_vjp as tvjp
 from tests.test_torch_helpers import np_, spd, torch_cpu  # noqa: F401
 
 EXACT = 1e-10
@@ -121,48 +122,111 @@ def test_kernel_matvec_cross_matches_jax(name):
     np.testing.assert_allclose(np_(out), np_(ref), rtol=EXACT, atol=1e-12)
 
 
-def test_kernel_matvec_dispatch_by_expression_and_gradient(monkeypatch):
-    calls = []
-    real = tgmv.gram_matvec
+@pytest.fixture
+def route_spies(monkeypatch):
+    """Records of the fused routes: the kinds K3 ran for a product with no
+    gradient (``gram_matvec`` in ``iterative.matvec``), the kinds
+    ``_GramMatvecFn`` ran for a differentiable one, and the calls of the
+    fused Gram-gradient wrapper in its backward."""
     from stheno_torch.iterative import matvec as tmv
 
-    def spy(*a, **kw):
-        calls.append(a[0])
-        return real(*a, **kw)
+    calls = {"k3": [], "fn": [], "vjp": []}
+    real_k3, real_vjp, real_fn = tgmv.gram_matvec, tvjp.gram_matvec_vjp, tvjp._GramMatvecFn
 
-    monkeypatch.setattr(tmv, "gram_matvec", spy)
+    def k3(*a, **kw):
+        calls["k3"].append(a[0])
+        return real_k3(*a, **kw)
+
+    def vjp(*a, **kw):
+        calls["vjp"].append(a[0])
+        return real_vjp(*a, **kw)
+
+    class Fn(real_fn):
+        @staticmethod
+        def forward(ctx, *a):
+            calls["fn"].append(a[-1])
+            return real_fn.forward(ctx, *a)
+
+    monkeypatch.setattr(tmv, "gram_matvec", k3)
+    monkeypatch.setattr(tmv, "_GramMatvecFn", Fn)
+    monkeypatch.setattr(tvjp, "gram_matvec_vjp", vjp)
+    return calls
+
+
+def test_kernel_matvec_dispatch_by_expression_and_gradient(route_spies):
+    calls = route_spies
     x, v = T(_data()[0]), T(np.ones((N, 2)))
     tit.kernel_matvec(KERNELS["scaled_eq"](st), x, v, block=BLOCK)
     tit.kernel_matvec(KERNELS["periodic"](st), x, v, block=BLOCK)
-    assert calls == ["eq", "eq"]
+    assert calls == {"k3": ["eq", "eq"], "fn": [], "vjp": []}
     tit.kernel_matvec(KERNELS["sum"](st), x, v, block=BLOCK)  # Not a fused form.
     with st.config.accurate_dists():
         tit.kernel_matvec(KERNELS["scaled_eq"](st), x, v, block=BLOCK)
+    assert calls == {"k3": ["eq", "eq"], "fn": [], "vjp": []}
+    # A gradient is needed: the fused form takes _GramMatvecFn, whose
+    # backward sweeps both roles of the square Gram in one call.
     ell = torch.tensor(0.8, dtype=torch.float64, requires_grad=True)
-    tit.kernel_matvec(st.EQ().stretch(ell), x, v, block=BLOCK)  # A gradient is needed.
-    assert calls == ["eq", "eq"]
+    out = tit.kernel_matvec(st.EQ().stretch(ell), x, v, block=BLOCK)
+    assert calls == {"k3": ["eq", "eq"], "fn": ["eq"], "vjp": []}
+    torch.autograd.grad(out.sum(), ell)
+    assert calls["vjp"] == ["eq"]
+    # Under a gradient too, a sum and accurate distances take the blocked
+    # sweep, and so do warped inputs wider than the gradient kernel takes.
+    tit.kernel_matvec(st.EQ().stretch(ell) + st.Matern32(), x, v, block=BLOCK)
+    with st.config.accurate_dists():
+        tit.kernel_matvec(st.EQ().stretch(ell), x, v, block=BLOCK)
+    wide = T(np.random.RandomState(3).randn(20, tvjp.MAX_DEPTH + 1))
+    tit.kernel_matvec(st.EQ().stretch(ell), wide, T(np.ones((20, 1))), block=BLOCK)
+    assert calls == {"k3": ["eq", "eq"], "fn": ["eq"], "vjp": ["eq"]}
     with torch.no_grad():
         tit.kernel_matvec(st.EQ().stretch(ell), x, v, block=BLOCK)
-    assert calls == ["eq", "eq", "eq"]
+    assert calls["k3"] == ["eq", "eq", "eq"] and calls["fn"] == ["eq"]
 
 
-def test_kernel_matvec_gradients_match_jax():
-    # The differentiable blocked sweep (checkpointed per block) against
-    # jax.grad through the JAX package's checkpointed scan.
+GRAD_KERNELS = {
+    # The parameter leaves of kf (scale and stretch), then every entry of
+    # KERNELS and an RQ leaf whose alpha is a leaf too; the leaves of kf
+    # once more under accurate distances.
+    "params": lambda M, p: kf_j(p) if M is sj else kf_t(p),
+    **{k: (lambda M, p, k=k: KERNELS[k](M)) for k in sorted(KERNELS)},
+    "rq": lambda M, p: 0.9 * M.RQ(p["log_s2"]).stretch(1.1),
+    "params_accurate_dists": lambda M, p: kf_j(p) if M is sj else kf_t(p),
+}
+# The cases the checkpointed blocked sweep differentiates: a sum (no fused
+# form) and accurate distances.
+BLOCKED = {"sum", "params_accurate_dists"}
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_KERNELS))
+def test_kernel_matvec_gradients_match_jax(name, route_spies):
+    # The differentiable product against jax.grad through the JAX package's
+    # checkpointed scan: parameter leaves, x and noise. Fused forms take
+    # _GramMatvecFn (K3 forward, the fused Gram-gradient plain version
+    # backward); the BLOCKED cases take the checkpointed blocked sweep.
     x, _ = _data()
     r = np.random.RandomState(4)
     v, w = r.randn(N, 2), r.randn(N, 2)
+    accurate = name == "params_accurate_dists"
 
     def loss_j(p, xx, noise):
-        return jnp.sum(J(w) * jit_.kernel_matvec(kf_j(p), xx, J(v), noise=noise, block=BLOCK))
+        k = GRAD_KERNELS[name](sj, p)
+        return jnp.sum(J(w) * jit_.kernel_matvec(k, xx, J(v), noise=noise, block=BLOCK))
 
-    gj = jax.grad(loss_j, argnums=(0, 1, 2))(pj(), J(x), jnp.asarray(0.1))
+    with sj.config.accurate_dists(accurate):
+        gj = jax.grad(loss_j, argnums=(0, 1, 2))(pj(), J(x), jnp.asarray(0.1))
     p_t = pt(grad=True)
     xt = T(x).requires_grad_(True)
     nt = torch.tensor(0.1, dtype=torch.float64, requires_grad=True)
-    loss = torch.sum(T(w) * tit.kernel_matvec(kf_t(p_t), xt, T(v), noise=nt, block=BLOCK))
-    gt = torch.autograd.grad(loss, [*p_t.values(), xt, nt])
+    with st.config.accurate_dists(accurate):
+        out = tit.kernel_matvec(GRAD_KERNELS[name](st, p_t), xt, T(v), noise=nt, block=BLOCK)
+        gt = torch.autograd.grad(torch.sum(T(w) * out), [*p_t.values(), xt, nt],
+                                 allow_unused=True)
+    if name in BLOCKED:
+        assert route_spies == {"k3": [], "fn": [], "vjp": []}
+    else:
+        assert route_spies["fn"] and route_spies["vjp"]
     for a, b in zip(gt, [gj[0][k] for k in p_t] + [gj[1], gj[2]]):
+        a = torch.zeros(()) if a is None else a
         np.testing.assert_allclose(np_(a), np_(b), rtol=EXACT, atol=1e-11)
 
 
@@ -306,7 +370,7 @@ def _core_case(precond, jstate):
 
 
 @pytest.mark.parametrize("precond", ["eig", "state", "pivoted"])
-def test_nlml_core_value_and_gradients_match_jax(precond, jstate):
+def test_nlml_core_value_and_gradients_match_jax(precond, jstate, route_spies):
     x, y, u, om, pstate, method = _core_case(precond, jstate)
     common = (1e-10, 400, 60, 40)  # cg_tol, max_cg_iters, quad_steps, precond_rank
 
@@ -332,7 +396,11 @@ def test_nlml_core_value_and_gradients_match_jax(precond, jstate):
         p_t, yt, nt, xt, T(u), None if om is None else T(om), st_state, kf_t, *common, method, 1,
         block=BLOCK,
     )
+    assert route_spies["fn"] == []  # The forward solves need no gradient.
     gt = torch.autograd.grad(vt, [*p_t.values(), nt, xt, yt])
+    # The surrogate's gradient took the fused route: one differentiable
+    # product, one sweep over both roles of the square Gram.
+    assert route_spies["fn"] == ["eq"] and route_spies["vjp"] == ["eq"]
     # The value and every gradient to the solves' accuracy (rtol 1e-7);
     # the CG ran the same number of steps.
     assert ht["cg_iters"] == int(hj["cg_iters"]) and ht["cg_converged"]
