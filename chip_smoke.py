@@ -16,9 +16,11 @@ on the card, and drives the port's two paths through their entry points:
   float64 against the dense exact GP and at N=262,144 against the same
   step in float64 on the card.
 
-The training step's surrogate gradient takes the fused Gram-gradient
-kernel (``csrc/gram_matvec_vjp.cu``), checked at N=262,144 against the
-same gradient by the blocked sweep with accurate distances.
+The training step's surrogate, its Gram term's value and gradient, is
+one launch of the fused Gram-gradient kernel (``csrc/gram_matvec_vjp.cu``),
+with no K3 sweep: checked at N=262,144 against the same gradient by the
+blocked sweep with accurate distances, and its value against K3's
+float64 product.
 
 It then times each kernel beside its bound, its plain version and the
 nearest PyTorch library call, times the matrix-free path's steps, and
@@ -556,8 +558,8 @@ def phase_gram_matvec():
     shape in float32 and float64, at p = 5 (the FFMA route) and p = 17 and
     64 (the tensor-core route in float32), and the matrix-free path's shapes (an
     8192-row slice of the N=262,144 inputs against all columns for p in
-    1, 17, 64, 256, the same at p = 17 in float64 as the surrogate's
-    forward runs it, and the 4096-point mean query), each within
+    1, 17, 64, 256, the same at p = 17 in float64 (the FFMA route that
+    float64 models take), and the 4096-point mean query), each within
     ``_gmv_rtol`` of ``|G| @ |v|``. Returns the largest absolute error at
     the path's shapes."""
     from stheno_torch.ops import gram_matvec as K3
@@ -598,7 +600,7 @@ def phase_gram_matvec():
     for p in (1, 17, 64, 256):
         v = torch.randn(N_IT, p, generator=gen, device="cuda")
         path_err = max(path_err, hold("eq", rows, x, v, f"8192x1 by {N_IT}x1 p={p}"))
-    # The surrogate's forward: the FFMA route in float64 at p = 17.
+    # The FFMA route in float64 at p = 17.
     x64 = _path_inputs(torch.float64)[0][:, None]
     v = torch.randn(N_IT, 17, generator=gen, device="cuda", dtype=torch.float64)
     path_err = max(path_err, hold("eq", x64[:8192], x64, v,
@@ -616,16 +618,17 @@ def phase_gram_matvec():
 
 
 def _vjp_scale(kind, x, y, A, V, alpha, block=1024):
-    """The scale of the Gram-gradient kernel's sums, per gradient entry:
+    """The scales of the Gram-gradient kernel's sums: per gradient entry
     ``2 sum_j (|A| |V|^T)_ij |g'_ij| |x_ik - y_jk|`` (linear: ``|A| (|V|^T
-    |y|)``), and for rq ``sum_ij (|A| |V|^T)_ij |dK/d alpha|_ij``."""
+    |y|)``); for rq ``sum_ij (|A| |V|^T)_ij |dK/d alpha|_ij`` (else None);
+    and of the value, ``sum_ij (|A| |V|^T)_ij |K_ij|``."""
     from stheno_torch.ops.gram import _apply_kind, _g_prime
     from stheno_torch.ops.gram_matvec_vjp import _alpha_factor
 
     Aa, Va = A.abs(), V.abs()
     if kind == "linear":
-        return Aa @ (Va.T @ y.abs()), None
-    rows, total = [], 0.0
+        return Aa @ (Va.T @ y.abs()), None, float(torch.sum((Aa.T @ x.abs()) * (Va.T @ y.abs())))
+    rows, total, vtotal = [], 0.0, 0.0
     for xb, Ab in zip(torch.split(x, block), torch.split(Aa, block)):
         diff = xb[:, None, :] - y[None, :, :]
         d2 = torch.sum(diff * diff, dim=-1)
@@ -635,7 +638,8 @@ def _vjp_scale(kind, x, y, A, V, alpha, block=1024):
                                      diff.abs()))
         if kind == "rq":
             total += float(torch.sum(S * _alpha_factor(d2, K, alpha).abs()))
-    return torch.cat(rows), (total if kind == "rq" else None)
+        vtotal += float(torch.sum(S * K.abs()))
+    return torch.cat(rows), (total if kind == "rq" else None), vtotal
 
 
 def phase_gram_matvec_vjp():
@@ -645,10 +649,11 @@ def phase_gram_matvec_vjp():
     is y and both roles in one launch (q = 2 x 18, as the autograd
     Function runs the square Gram), rq's alpha included; then the path's
     shape, an 8192-row slice of the N=262,144 inputs against all of them
-    with both roles (q = 2 x 17), float64. Each within ``_gmv_rtol`` of
+    with both roles (q = 2 x 17), float64. The gradient, rq's alpha and the
+    value ``sum_ij (A V^T)_ij K_ij`` each within ``_gmv_rtol`` of its
     ``_vjp_scale``: kernel and plain version sum the same terms in other
     orders, as K3 and its plain version do. Returns the largest absolute
-    error at the path's shape."""
+    error of the gradient at the path's shape."""
     from stheno_torch.ops import gram_matvec_vjp as K3V
     from stheno_torch.ops.gram import KINDS
 
@@ -656,16 +661,20 @@ def phase_gram_matvec_vjp():
     results = []
 
     def hold(kind, x, y, A, V, tag):
-        got, dal = K3V.gram_matvec_vjp(kind, x, y, A, V, 1.3, alpha_grad=True)
-        ref, dal_ref = K3V.gram_matvec_vjp_plain(kind, x, y, A, V, 1.3, alpha_grad=True)
+        got, dal, val = K3V.gram_matvec_vjp(kind, x, y, A, V, 1.3, alpha_grad=True, value=True)
+        ref, dal_ref, val_ref = K3V.gram_matvec_vjp_plain(kind, x, y, A, V, 1.3,
+                                                          alpha_grad=True, value=True)
         torch.cuda.synchronize()
-        check(got.shape == x.shape and bool(torch.isfinite(got).all()),
-              f"gram_matvec_vjp {kind} {tag}: shape or not finite")
-        scale, ascale = _vjp_scale(kind, x, y, A, V, 1.3)
+        check(got.shape == x.shape and bool(torch.isfinite(got).all())
+              and bool(torch.isfinite(val)), f"gram_matvec_vjp {kind} {tag}: shape or not finite")
+        scale, ascale, vscale = _vjp_scale(kind, x, y, A, V, 1.3)
         rtol = _gmv_rtol(y.shape[0], x.dtype)
         rel = float(((got - ref).abs() / scale.clamp_min(1e-30)).max())
         check(rel <= rtol, f"gram_matvec_vjp {kind} {tag}: error {rel} of its scale > {rtol}")
-        case = {"kind": kind, "case": tag, "max_rel_err": rel, "rtol": rtol}
+        vrel = abs(float(val) - float(val_ref)) / max(vscale, 1e-30)
+        check(vrel <= rtol, f"gram_matvec_vjp {kind} {tag} value: error {vrel} of its scale")
+        case = {"kind": kind, "case": tag, "max_rel_err": rel, "value_rel_err": vrel,
+                "rtol": rtol}
         if kind == "rq":
             case["alpha_rel_err"] = abs(float(dal) - float(dal_ref)) / max(ascale, 1e-30)
             check(case["alpha_rel_err"] <= rtol, f"gram_matvec_vjp rq {tag} alpha: {case}")
@@ -718,7 +727,7 @@ def phase_iterative():
     4096 points, the variance cache and the cached variance at 2048
     points, and the serving bundle. Every CG must converge and every
     output be finite; K3 must launch in each forward sweep and the fused
-    Gram-gradient kernel (not K1) in each step's backward. The
+    Gram-gradient kernel, once, (not K1) in each step's backward. The
     variance-cache build is timed here (one run).
     Returns the path's launch counts, its preconditioner state and
     variance cache, and that time."""
@@ -744,8 +753,9 @@ def phase_iterative():
     steps = {}
     for name, kw in (("step", {}), ("amortised_step", {"precond_state": state})):
         val, grads, info = leg(name, lambda kw=kw: E.iterative_step(x, y, params, gen, **kw))
-        check(deltas[name]["gram_matvec_vjp"] >= 1,
-              f"{name}: the fused Gram-gradient kernel did not launch in the surrogate backward")
+        check(deltas[name]["gram_matvec_vjp"] == 1,
+              f"{name}: the fused Gram-gradient kernel launched {deltas[name]['gram_matvec_vjp']} "
+              "times in the surrogate backward, not once")
         check(deltas[name]["gram"] == 0, f"{name}: K1 launched {deltas[name]['gram']} times")
         check(info["cg_converged"], f"{name}: CG did not converge ({info})")
         check(all(bool(torch.isfinite(t)) for t in (val, *grads.values())), f"{name} not finite")
@@ -792,14 +802,20 @@ def _rel_grads(grads, ref):
 
 def _surrogate_gate(x, y, params, state, gen):
     """The amortised step's surrogate gradient, float64 (as the step sweeps
-    it), through the fused route (K3 forward, the fused Gram-gradient
-    kernel backward) against the same gradient by the blocked sweep under
-    ``config.accurate_dists()`` (plain torch tiles of direct differences,
-    1024 rows at a time, checkpointed): one forward solve of the path's
-    float32 step at N=262,144 gives both the same ``(U, w, alpha)``, so
-    only the sweep differs. Gate: each leaf's gradient within rel 1e-6."""
+    it), through the fused route (one launch of the fused Gram-gradient
+    kernel for the Gram term's value and gradients, no K3) against the
+    same gradient by the blocked sweep under ``config.accurate_dists()``
+    (plain torch tiles of direct differences, 1024 rows at a time,
+    checkpointed): one forward solve of the path's float32 step at
+    N=262,144 gives both the same ``(U, w, alpha)``, so only the sweep
+    differs. Gate: each leaf's gradient within rel 1e-6. Beside it the
+    surrogate's Gram term ``sum(A * (K V))``, ``A = 0.5 [U / p, -alpha]``
+    and ``V = [w, alpha]``, by the fused route and by the old route's
+    forward, K3's float64 sweep (``_GramMatvecFn``'s forward): rel <=
+    1e-10."""
     from stheno_torch import config
     from stheno_torch import entry as E
+    from stheno_torch.iterative import matvec as M
     from stheno_torch.iterative import nlml as NL
 
     names = list(params)
@@ -826,10 +842,20 @@ def _surrogate_gate(x, y, params, state, gen):
         after = _counts()
         launches[route] = {k: after[k] - before[k] for k in after}
         grads[route] = dict(zip(names, g))
+    kern = E.iterative_kernel(dict(zip(names, leaves)))
+    p = w.shape[1]
+    A = 0.5 * torch.cat([U / p, -alpha[:, None]], dim=1).double()
+    V = torch.cat([w, alpha[:, None]], dim=1).double()
+    with torch.no_grad():
+        fused = M._kernel_bilinear(kern, x.double()[:, None], A, V)
+        k3 = torch.sum(A * M.kernel_matvec(kern, x.double()[:, None], V))
     return {
         "grad_fused": {k: float(t) for k, t in grads["fused"].items()},
         "grad_blocked": {k: float(t) for k, t in grads["blocked_accurate_dists"].items()},
         "grad_rel": _rel_grads(grads["fused"], grads["blocked_accurate_dists"]),
+        "gram_term_fused": float(fused),
+        "gram_term_k3_f64": float(k3),
+        "gram_term_rel": _rel(fused, k3),
         "launches": launches,
         "seconds": secs,
     }
@@ -837,11 +863,12 @@ def _surrogate_gate(x, y, params, state, gen):
 
 def _check_surrogate_gate(gate):
     launches = gate["launches"]
-    check(launches["fused"]["gram_matvec_vjp"] == 1 and launches["fused"]["gram"] == 0,
+    check(launches["fused"] == {"gram": 0, "chol_tile": 0, "gram_matvec": 0, "gram_matvec_vjp": 1},
           f"surrogate gate: the fused route's launches {launches['fused']}")
     check(launches["blocked_accurate_dists"]["gram_matvec_vjp"] == 0,
           f"surrogate gate: the blocked route launched the fused kernel {launches}")
     check(all(r <= 1e-6 for r in gate["grad_rel"].values()), f"surrogate gate {gate}")
+    check(gate["gram_term_rel"] <= 1e-10, f"surrogate gate: the Gram term {gate}")
 
 
 def phase_iterative_gates(state32):
@@ -942,54 +969,83 @@ def _k3_times():
     kernel, kept so that times against it stay comparable; ``bound_ms``
     is the bound of the
     design on the card's units (``mma_bound``), with the unit that binds.
+    ``p17_f64`` is the FFMA route in float64 at the surrogate forward's
+    old shape (the training step no longer takes it), with its bound by
+    ``k3_f64_bound`` and the library sweep in float64.
     The kernels line takes p = 17."""
     from stheno_torch.ops import gram_matvec as K3
 
     exps_per_s, mhz = sfu_exps_per_s()
     gen = torch.Generator(device="cuda").manual_seed(5)
     x = _path_inputs()[0][:, None]
+    x64 = _path_inputs(torch.float64)[0][:, None]
     xq = torch.linspace(0.0, 10.0, 4096, device="cuda")[:, None]
     shapes = {}
-    for tag, rows, p in (("p17", x, 17), ("p64", x, 64), ("p256", x, 256), ("p1", x, 1),
-                         ("query4096_p1", xq, 1)):
-        v = torch.randn(N_IT, p, generator=gen, device="cuda")
+    for tag, rows, p, cols in (("p17", x, 17, x), ("p64", x, 64, x), ("p256", x, 256, x),
+                               ("p1", x, 1, x), ("query4096_p1", xq, 1, x),
+                               ("p17_f64", x64, 17, x64)):
+        dtype = rows.dtype
+        v = torch.randn(N_IT, p, generator=gen, device="cuda", dtype=dtype)
         n, m, d = rows.shape[0], N_IT, 1
 
-        def library(rows=rows, v=v):
-            return torch.cat([torch.exp(-0.5 * torch.cdist(xb, x).square()) @ v
+        def library(rows=rows, v=v, cols=cols):
+            return torch.cat([torch.exp(-0.5 * torch.cdist(xb, cols).square()) @ v
                               for xb in torch.split(rows, 8192)])
 
-        byts = (n * d + m * d + m * p + n * p) * 4
-        flops = n * m * (2 * d + 4 + 2 * p) + 2 * (n + m) * d
-        f_ms, f_by = bound(byts, flops, torch.float32)
-        b_ms, b_unit = mma_bound(byts, n, m, d, p, exps_per_s)
+        byts = (n * d + m * d + m * p + n * p) * rows.element_size()
+        if dtype == torch.float64:
+            b_ms, b_unit, dfma_ms = k3_f64_bound(byts, n, m, d, p)
+            extra = {"dfma_bound_ms": dfma_ms}
+        else:
+            b_ms, b_unit = mma_bound(byts, n, m, d, p, exps_per_s)
+            f_ms, f_by = bound(byts, n * m * (2 * d + 4 + 2 * p) + 2 * (n + m) * d, dtype)
+            extra = {"fp32_bound_ms": f_ms, "fp32_bound_by": f_by}
         slow = n * p > 8192 * 64
-        call = lambda rows=rows, v=v: K3.gram_matvec("eq", rows, x, v)  # noqa: E731
+        call = lambda rows=rows, v=v, cols=cols: K3.gram_matvec("eq", rows, cols, v)  # noqa: E731
         shapes[tag] = {
             "shape": [n, m, d, p],
-            "route": K3.route(n, m, p, torch.float32),
+            "dtype": str(dtype),
+            "route": K3.route(n, m, p, dtype),
             "ms": time_ms(call, reps=3, warmup=1),
             "device_ms": device_ms(call, reps=1 if slow else 3),
-            "plain_ms": time_ms(lambda: K3.gram_matvec_plain("eq", rows, x, v),
+            "plain_ms": time_ms(lambda: K3.gram_matvec_plain("eq", rows, cols, v),
                                 reps=1 if slow else 3, warmup=1),
             "library_ms": time_ms(library, reps=1 if slow else 3, warmup=1),
             "bound_ms": b_ms,
             "bound_unit": b_unit,
             "bound_by": "bytes" if b_unit == "bytes" else "operations",
-            "fp32_bound_ms": f_ms,
-            "fp32_bound_by": f_by,
+            **extra,
         }
     return {"name": "gram_matvec", **shapes["p17"], "sm_clock_mhz": mhz, "shapes": shapes}
 
 
-def vjp_bound(n, m, d, q, symmetric=False):
+def k3_f64_bound(bytes_moved, n, m, d, p):
+    """The least time of K3's product in float64, in ms, and what binds
+    it, in ``vjp_bound``'s style: per Gram entry the p-wide product (2p
+    flops) at the FP64 tensor-core rate; the distance and epilogue (2d + 4
+    flops, the exp charged 4 as in K3's FP32 bound) at the FP64 rate; the
+    bytes. Also the bound with every flop at the FP64 (DFMA) rate, the
+    bound of the FFMA route as built. Returns ``(ms, unit, dfma_ms)``."""
+    entries = n * m
+    times = {
+        "fp64_tc_products": entries * 2 * p / FP64_TC_FLOPS * 1e3,
+        "fp64_distance_epilogue": entries * (2 * d + 4) / PEAK_FLOPS[torch.float64] * 1e3,
+        "bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
+    }
+    unit = max(times, key=times.get)
+    dfma_ms = entries * (2 * p + 2 * d + 4) / PEAK_FLOPS[torch.float64] * 1e3
+    return times[unit], unit, max(dfma_ms, times["bytes"])
+
+
+def vjp_bound(n, m, d, q, symmetric=False, value=False):
     """The least time of the float64 fused Gram-gradient work, in ms, and
     what binds it, in ``mma_bound``'s style: per Gram entry the q-wide dot
     A_i . V_j (2q flops) at the FP64 tensor-core rate; the difference and
     d2 (3d flops), one exp (charged 4 flops, as K3's FP32 bound charges it;
     float64 has no special-function unit, so its exp runs on the FP64
-    units), W = s g' (1) and the gradient's FMAs (2d) at the FP64 rate; the
-    bytes of x, y, A and V read once and xbar written once. Also the bound
+    units), W = s g' (1), the gradient's FMAs (2d) and with ``value`` the
+    value's one flop at the FP64 rate; the bytes of x, y, A and V read
+    once and xbar (and the value) written once. Also the bound
     with every flop at the FP64 (DFMA) rate, the bound of a kernel without
     tensor cores. With ``symmetric`` (x is y, A = [A0, V0] and V = [V0,
     A0]: both roles of the square Gram in one call) the work is that of
@@ -998,8 +1054,8 @@ def vjp_bound(n, m, d, q, symmetric=False):
     both rows (3d flops for the gradient). Returns ``(ms, unit, dfma_ms,
     bytes)``."""
     entries = n * (n + 1) / 2 if symmetric else n * m
-    rest = 3 * d + (3 * d if symmetric else 2 * d) + 1 + 4  # the exp charged 4 flops
-    byts = (2 * n * d + m * d + n * q + m * q) * 8
+    rest = 3 * d + (3 * d if symmetric else 2 * d) + 1 + 4 + int(value)  # exp charged 4 flops
+    byts = (2 * n * d + m * d + n * q + m * q + int(value)) * 8
     times = {
         "fp64_tc_dot": entries * 2 * q / FP64_TC_FLOPS * 1e3,
         "fp64_elementwise": entries * rest / PEAK_FLOPS[torch.float64] * 1e3,
@@ -1011,19 +1067,20 @@ def vjp_bound(n, m, d, q, symmetric=False):
 
 
 def _vjp_times():
-    """The fused Gram-gradient kernel per call at the surrogate's shape:
-    both roles of the N=262,144 square Gram in one launch (x is y, A' = [A,
-    V], V' = [V, A] with q = 17 each, so 34 panel columns), d = 1, float64.
-    CUDA events (one warm-up, median of 3) and ``device_ms``; beside them
-    its bounds (``vjp_bound``: ``bound_ms`` of the symmetric work, which
-    the function needs, and ``ordered_bound_ms`` of all N^2 ordered
+    """The fused Gram-gradient kernel per call at the surrogate's shape, as
+    the training step launches it: both roles of the N=262,144 square Gram
+    in one launch (x is y, A' = [A, V], V' = [V, A] with q = 17 each, so 34
+    panel columns), d = 1, float64, with the value. CUDA events (one
+    warm-up, median of 3) and ``device_ms``; beside them its bounds
+    (``vjp_bound`` with the value: ``bound_ms`` of the symmetric work,
+    which the function needs, and ``ordered_bound_ms`` of all N^2 ordered
     entries, which the kernel sweeps), its plain version (one run, whose
-    result the kernel's is held to within ``_gmv_rtol`` of ``_vjp_scale``:
-    the path's own launch shape, entry by entry) and the library route a
-    PyTorch user would take for the same gradient, one run:
-    ``torch.autograd.grad`` of ``sum(A_b * (exp(-0.5 cdist(x_b, x)^2) @
-    V))`` over row blocks of 2048 with x a leaf (both roles), which the
-    port never calls."""
+    gradient and value the kernel's are held to within ``_gmv_rtol`` of
+    ``_vjp_scale``: the path's own launch shape, entry by entry) and the
+    library route a PyTorch user would take for the same gradient and
+    value, one run: ``torch.autograd.grad`` of ``sum(A_b * (exp(-0.5
+    cdist(x_b, x)^2) @ V))`` over row blocks of 2048 with x a leaf (both
+    roles), which the port never calls."""
     from stheno_torch.ops import gram_matvec_vjp as K3V
 
     gen = torch.Generator(device="cuda").manual_seed(23)
@@ -1032,34 +1089,39 @@ def _vjp_times():
     A, V = (torch.randn(N_IT, q, generator=gen, device="cuda", dtype=torch.float64)
             for _ in range(2))
     A2, V2 = torch.cat([A, V], 1), torch.cat([V, A], 1)
-    call = lambda: K3V.gram_matvec_vjp("eq", x, x, A2, V2)  # noqa: E731
+    call = lambda: K3V.gram_matvec_vjp("eq", x, x, A2, V2, value=True)  # noqa: E731
 
     def library():
         xl = x.detach().requires_grad_(True)
-        total = torch.zeros_like(x)
+        total, value = torch.zeros_like(x), 0.0
         for s in range(0, N_IT, 2048):
-            out = torch.exp(-0.5 * torch.cdist(xl[s:s + 2048], xl).square()) @ V
-            (g,) = torch.autograd.grad(torch.sum(A[s:s + 2048] * out), xl)
+            out = torch.sum(A[s:s + 2048] * (
+                torch.exp(-0.5 * torch.cdist(xl[s:s + 2048], xl).square()) @ V))
+            (g,) = torch.autograd.grad(out, xl)
             total += g
-        return total
+            value += out.detach()
+        return total, value
 
     plain = {}
 
     def run_plain():
-        plain["xbar"] = K3V.gram_matvec_vjp_plain("eq", x, x, A2, V2)[0]
+        plain["xbar"], _, plain["value"] = K3V.gram_matvec_vjp_plain("eq", x, x, A2, V2,
+                                                                      value=True)
 
     plain_ms = time_ms(run_plain, reps=1, warmup=0)
-    got = call()[0]
-    scale, _ = _vjp_scale("eq", x, x, A2, V2, 1.0)
+    got, _, value = call()
+    scale, _, vscale = _vjp_scale("eq", x, x, A2, V2, 1.0)
     rtol = _gmv_rtol(N_IT, torch.float64)
     rel = float(((got - plain["xbar"]).abs() / scale.clamp_min(1e-30)).max())
-    check(got.shape == x.shape and bool(torch.isfinite(got).all()),
-          "gram_matvec_vjp at the path's shape: shape or not finite")
+    vrel = abs(float(value) - float(plain["value"])) / vscale
+    check(got.shape == x.shape and bool(torch.isfinite(got).all())
+          and bool(torch.isfinite(value)), "gram_matvec_vjp at the path's shape: shape or not finite")
     check(rel <= rtol, f"gram_matvec_vjp at the path's shape: error {rel} of its scale > {rtol}")
+    check(vrel <= rtol, f"gram_matvec_vjp value at the path's shape: error {vrel} of its scale")
     err = max_err(got, plain["xbar"])
     del plain, got, scale
-    b_ms, b_unit, dfma_ms, byts = vjp_bound(N_IT, N_IT, 1, 2 * q, symmetric=True)
-    o_ms, o_unit, o_dfma_ms, _ = vjp_bound(N_IT, N_IT, 1, 2 * q)
+    b_ms, b_unit, dfma_ms, byts = vjp_bound(N_IT, N_IT, 1, 2 * q, symmetric=True, value=True)
+    o_ms, o_unit, o_dfma_ms, _ = vjp_bound(N_IT, N_IT, 1, 2 * q, value=True)
     return {
         "name": "gram_matvec_vjp",
         "shape": [N_IT, N_IT, 1, 2 * q],
@@ -1070,6 +1132,7 @@ def _vjp_times():
         "library_ms": time_ms(library, reps=1, warmup=0),
         "full_shape_max_abs_err": err,
         "full_shape_max_rel_err": rel,
+        "full_shape_value_rel_err": vrel,
         "full_shape_rtol": rtol,
         "bound_ms": b_ms,
         "bound_unit": b_unit,
@@ -1110,7 +1173,10 @@ def phase_path_times(state, cache, build_s):
         lambda: E.iterative_step(x, y, params, gen, precond_state=state))
     out["amortised_step_max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     # Four steps ran (a warm-up and three samples): launches per step.
-    out["amortised_step_launches"] = {k: (v - before[k]) / 4 for k, v in _counts().items()}
+    per_step = {k: (v - before[k]) / 4 for k, v in _counts().items()}
+    out["amortised_step_launches"] = per_step
+    check(per_step["gram_matvec_vjp"] == 1 and per_step["gram"] == 0,
+          f"the amortised step's launches {per_step}")
     out["posterior_weights_n262144_s"] = secs(lambda: E.serving_weights(x, y, params, state))
     out["cached_posterior_mean_n262144_s"] = secs(lambda: E.serving_mean(x, params, alpha, x_mean))
     out["var_cache_build_n262144_s"] = build_s
@@ -1229,8 +1295,10 @@ def phase_profile_iterative(state):
     """One amortised N=262,144 value+grad step under torch.profiler, after
     a warm-up: device time by kernel, K3's and the fused Gram-gradient
     kernel's device time per launch, and the device busy share. Their
-    device launches must match the wrappers' counts, and K1 must not
-    launch."""
+    device launches must match the wrappers' counts; every K3 launch must
+    be the CG's tensor-core one (no FFMA ``gmv_kernel``, the only route
+    float64 takes), the fused kernel must launch once and K1 not at
+    all."""
     from stheno_torch import entry as E
 
     saved = _counts()
@@ -1256,7 +1324,10 @@ def phase_profile_iterative(state):
           f"profiled K3 launches {ffma_n} (gmv_kernel) + {mma_n} (gmv_mma_kernel) != "
           f"wrapper count {launches['gram_matvec']}")
     check(mma_n >= 1, "the amortised step's CG sweep did not take the tensor-core K3")
-    check(vjp_n == launches["gram_matvec_vjp"] >= 1,
+    check(ffma_n == 0 and launches["gram_matvec"] == mma_n,
+          f"the amortised step launched the FFMA K3 {ffma_n} times; K3's wrapper count "
+          f"{launches['gram_matvec']} against {mma_n} tensor-core launches")
+    check(vjp_n == launches["gram_matvec_vjp"] == 1,
           f"profiled gmv_vjp_kernel and gmv_vjp_dmma_kernel launches {vjp_n} != wrapper count "
           f"{launches['gram_matvec_vjp']}")
     check(k1_n == launches["gram"] == 0,

@@ -15,6 +15,11 @@ an error:
   K3 forward, and a backward by the fused Gram-gradient kernel for the
   warped inputs and rq's alpha (K3 again for ``v``), so no Gram tile is
   built. The scales and the warps stay in autograd: they are O(N d).
+  :func:`_kernel_bilinear`, the scalar ``sum(A * (K + noise I) V)`` that
+  the training step's surrogate differentiates, takes
+  ``ops/gram_matvec_vjp.py:_GramBilinearFn`` for the square Gram instead:
+  one launch of the fused Gram-gradient kernel gives its value and its
+  gradients, and no forward sweep runs.
 - **Blocked sweep.** Everything else (other expressions,
   ``config.accurate_dists()``, which the kernels' distances do not honour,
   inputs of mixed dtypes, and under a gradient warped inputs wider than
@@ -42,7 +47,7 @@ from ..kernels.kernel import Linear, ScaledKernel, _InputWrappedKernel, _Station
 from ..kernels.util import uprank
 from ..matrix import dense
 from ..ops.gram_matvec import gram_matvec
-from ..ops.gram_matvec_vjp import MAX_DEPTH, _GramMatvecFn
+from ..ops.gram_matvec_vjp import MAX_DEPTH, _GramBilinearFn, _GramMatvecFn
 
 __all__ = ["kernel_matvec"]
 
@@ -78,20 +83,32 @@ def _requires_grad(t):
     return isinstance(t, torch.Tensor) and t.requires_grad
 
 
-def _fused_matvec(form, x, xc, v2):
-    """K3's product for the fused form, through :class:`_GramMatvecFn`
-    when a gradient flows; ``None`` where the blocked sweep must run."""
-    scales, wrappers, leaf = form
+def _warped(form, x, xc):
+    """``(xw, yw, kind, alpha)``: the fused form's leaf kind and alpha and
+    the inputs through its wrappers, the square case's one tensor kept
+    one (the backward then sweeps both roles at once)."""
+    _, wrappers, leaf = form
     xw, yw = x, xc
     for w in wrappers:
         xw, yw = w._warp_pair(xw, yw)
-        # Keep the square case's one tensor one: the backward then sweeps
-        # both roles at once.
         same = xw is yw
         xw = uprank(xw)
         yw = xw if same else uprank(yw)
     kind = "linear" if isinstance(leaf, Linear) else leaf.kind
-    alpha = leaf._alpha() if kind != "linear" else 1.0
+    return xw, yw, kind, (leaf._alpha() if kind != "linear" else 1.0)
+
+
+def _alpha_tensor(alpha, like):
+    if isinstance(alpha, torch.Tensor):
+        return alpha
+    return torch.as_tensor(alpha, dtype=like.dtype, device=like.device)
+
+
+def _fused_matvec(form, x, xc, v2):
+    """K3's product for the fused form, through :class:`_GramMatvecFn`
+    when a gradient flows; ``None`` where the blocked sweep must run."""
+    scales = form[0]
+    xw, yw, kind, alpha = _warped(form, x, xc)
     if xw.dtype != v2.dtype or xw.dtype != yw.dtype:
         return None
     if torch.is_grad_enabled() and any(
@@ -99,13 +116,51 @@ def _fused_matvec(form, x, xc, v2):
     ):
         if kind != "linear" and xw.shape[1] > MAX_DEPTH:
             return None
-        if not isinstance(alpha, torch.Tensor):
-            alpha = torch.as_tensor(alpha, dtype=xw.dtype, device=xw.device)
-        out = _GramMatvecFn.apply(xw, yw, v2, alpha, kind)
+        out = _GramMatvecFn.apply(xw, yw, v2, _alpha_tensor(alpha, xw), kind)
     else:
         out = gram_matvec(kind, xw, yw, v2, alpha)
     for s in scales:
         out = out * s
+    return out
+
+
+def _fused_bilinear(form, x, A, V):
+    """``sum(A * (G(xw, xw) @ V))`` times the scales, through
+    :class:`_GramBilinearFn`; ``None`` where the definition must run: a
+    wrapper that warps the two sides apart, mixed dtypes, inputs wider
+    than the kernel takes, or a gradient for ``A`` or ``V``."""
+    scales = form[0]
+    xw, yw, kind, alpha = _warped(form, x, x)
+    if (
+        xw is not yw or len({xw.dtype, A.dtype, V.dtype}) != 1
+        or (kind != "linear" and xw.shape[1] > MAX_DEPTH)
+        or (torch.is_grad_enabled() and (_requires_grad(A) or _requires_grad(V)))
+    ):
+        return None
+    out = _GramBilinearFn.apply(xw, A, V, _alpha_tensor(alpha, xw), kind)
+    for s in scales:
+        out = out * s
+    return out
+
+
+def _kernel_bilinear(k, x, A, V, noise=None, block=4096):
+    """``sum(A * kernel_matvec(k, x, V, noise=noise, block=block))`` for
+    ``A`` and ``V`` of shape ``(n, q)``, its definition. A fused form under
+    full-precision distances takes :func:`_fused_bilinear`: one launch of
+    the fused Gram-gradient kernel for the value and the gradients of the
+    warped inputs and rq's alpha, the warps, scales and noise term
+    (``noise sum(A V)``, per row for vector noise) in autograd. Every other
+    case computes the definition."""
+    x = uprank(x)
+    form = fused_form(k)
+    out = None
+    if form is not None and not config.accurate_dists_enabled():
+        out = _fused_bilinear(form, x, A, V)
+    if out is None:
+        return torch.sum(A * kernel_matvec(k, x, V, noise=noise, block=block))
+    if noise is not None:
+        noise = torch.as_tensor(noise, dtype=V.dtype, device=V.device)
+        out = out + torch.sum((noise[:, None] if noise.ndim == 1 else noise) * (A * V))
     return out
 
 

@@ -11,17 +11,19 @@ estimators
     d (y^T A^{-1} y)    =  - alpha^T (dA/dtheta) alpha,  alpha = A^{-1} y,
 
 realised by differentiating the surrogate ``0.5 (mean_i u_i^T A w_i -
-alpha^T A alpha)`` with the solves held constant, in one differentiable
-blocked sweep over ``[w, alpha]``.
+alpha^T A alpha)`` with the solves held constant: one differentiable
+bilinear form ``sum(A' * (A [w, alpha]))`` with ``A' = 0.5 [U / p,
+-alpha]``.
 
 The JAX ``custom_vjp`` becomes the ``torch.autograd.Function``
 :class:`_NLMLFunction`: its forward runs without autograd, so every sweep
 takes the fused Gram x V kernel K3; its backward rebuilds the kernel from
 the parameter leaves and differentiates the surrogate through
-``kernel_matvec``: for a fused-form kernel K3 forward and the fused
-Gram-gradient kernel backward (``ops/gram_matvec_vjp.py``), no Gram tile
-built; for any other expression the checkpointed blocked sweep (K1 tiles
-on the card).
+``matvec._kernel_bilinear``: for a fused-form kernel one launch of the
+fused Gram-gradient kernel (``ops/gram_matvec_vjp.py:_GramBilinearFn``)
+gives the surrogate's Gram term and its gradients together, with no K3
+sweep and no Gram tile; for any other expression the checkpointed
+blocked sweep (K1 tiles on the card).
 JAX ``key``s become ``torch.Generator``s. The compensated two-float
 branches are not ported: where the policy resolves to them, the port
 raises ``NotImplementedError``.
@@ -37,7 +39,7 @@ from ..kernels.util import uprank
 from ..matrix import dense
 from .cg import batched_cg
 from .compensated import resolve_compensated
-from .matvec import kernel_matvec, not_ported
+from .matvec import _kernel_bilinear, kernel_matvec, not_ported
 from .pchol import (
     eig_preconditioner_factors,
     eig_preconditioner_ops,
@@ -211,12 +213,15 @@ def _surrogate_grads(cfg, leaves, noise, x, U, w, alpha, need):
     """Gradients of the Hutchinson surrogate ``0.5 (mean_i u_i^T A w_i -
     alpha^T A alpha)`` with respect to the parameter leaves, ``noise`` and
     ``x`` (``None`` where ``need`` is false), through one differentiable
-    ``kernel_matvec`` of ``[w, alpha]``.
+    bilinear form, ``sum(0.5 [U / p, -alpha] * (A [w, alpha]))``
+    (``matvec._kernel_bilinear``): the same function, summed in another
+    order.
 
     Float32 inputs are swept in float64. A fused-form kernel builds no
-    tile (K3 forward, the fused Gram-gradient kernel backward); the row
-    block, halved so that a tile takes the same bytes, only matters for
-    the blocked sweep of other expressions. The gradient sums each term
+    tile and runs no forward sweep (one launch of the fused Gram-gradient
+    kernel for the value and the gradients); the row block, halved so that
+    a tile takes the same bytes, only matters for the blocked sweep of
+    other expressions. The gradient sums each term
     over all N^2 Gram entries, whose contributions cancel to a value many
     orders of magnitude below their sizes; in float32 those sums lose it.
     Measured on an H100 at N=262,144 (``chip_smoke.py`` phase
@@ -235,11 +240,9 @@ def _surrogate_grads(cfg, leaves, noise, x, U, w, alpha, need):
     U, w, alpha = U.to(wide), w.to(wide), alpha.to(wide)
     with torch.enable_grad():
         k = cfg.kernel_fn(dict(zip(cfg.names, leaves_d)))
-        KV = kernel_matvec(
-            k, x_d, torch.cat([w, alpha[:, None]], dim=1), noise=noise_d, block=block
-        )
-        trace_est = torch.mean(torch.sum(U * KV[:, :p], dim=0))
-        surrogate = 0.5 * (trace_est - torch.sum(alpha * KV[:, p]))
+        A = 0.5 * torch.cat([U / p, -alpha[:, None]], dim=1)
+        V = torch.cat([w, alpha[:, None]], dim=1)
+        surrogate = _kernel_bilinear(k, x_d, A, V, noise=noise_d, block=block)
         targets = [t for t in inputs if t.requires_grad]
         grads = iter(torch.autograd.grad(surrogate, targets, allow_unused=True))
     out = []

@@ -101,7 +101,7 @@ def _declare(lib):
     lib.stheno_gram_matvec_mma.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, d, p]
     lib.stheno_gram_matvec_mma.restype = i
     lib.stheno_gram_matvec_vjp.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, d, i, i,
-                                           p]
+                                           i, p]
     lib.stheno_gram_matvec_vjp.restype = i
     return lib
 

@@ -61,38 +61,62 @@ __device__ __forceinline__ void vjp_stage(T* ys, T* vs, const T* y, const T* vq,
 }
 
 // dK/d(d2) of the five distance kinds at d2 >= 0, the arithmetic of
-// ops/gram.py:_g_prime. For rq, *h also receives K (d2 / (2 alpha base) -
-// log base), the entry's factor of dK/d(alpha); `hia` is 1 / (2 alpha).
+// ops/gram.py:_g_prime. *k receives the entry K itself (gram_kind.cuh's
+// epilogue), from the same exp: for eq K = -2 g', the other kinds add
+// their polynomial factor. For rq, *h also receives K (d2 / (2 alpha base)
+// - log base), the entry's factor of dK/d(alpha); `hia` is 1 / (2 alpha).
 template <int KIND, typename T>
-__device__ __forceinline__ T g_prime(T d2, T alpha, T hia, T* h) {
-  if (KIND == kEq) return T(-0.5) * dev_exp(T(-0.5) * d2);
+__device__ __forceinline__ T g_prime(T d2, T alpha, T hia, T* k, T* h) {
+  if (KIND == kEq) {
+    *k = dev_exp(T(-0.5) * d2);
+    return T(-0.5) * *k;
+  }
   if (KIND == kRq) {
     const T base = T(1) + d2 * hia;
     const T lb = vjp_log(base);
-    const T k = dev_exp(-alpha * lb);
+    *k = dev_exp(-alpha * lb);
     const T ib = T(1) / base;
-    *h = k * (d2 * hia * ib - lb);
-    return T(-0.5) * k * ib;
+    *h = *k * (d2 * hia * ib - lb);
+    return T(-0.5) * *k * ib;
   }
   const T d = dev_sqrt(d2 + T(1e-36));
-  if (KIND == kMatern12) return T(-0.5) * dev_exp(-d) / d;
-  if (KIND == kMatern32) return T(-1.5) * dev_exp(T(-1.7320508075688772) * d);
+  if (KIND == kMatern12) {
+    *k = dev_exp(-d);
+    return T(-0.5) * *k / d;
+  }
+  if (KIND == kMatern32) {
+    const T r = T(1.7320508075688772) * d;
+    const T e = dev_exp(-r);
+    *k = (T(1) + r) * e;
+    return T(-1.5) * e;
+  }
   const T r = T(2.23606797749979) * d;  // matern52
-  return T(-5.0 / 6.0) * (T(1) + r) * dev_exp(-r);
+  const T e = dev_exp(-r);
+  *k = (T(1) + r + r * r / T(3)) * e;
+  return T(-5.0 / 6.0) * (T(1) + r) * e;
+}
+
+// The entries of one (column split, q-split) slice of the output: the
+// gradient (n, D), then n alpha partials when want_alpha, then n value
+// partials when want_value.
+__host__ __device__ __forceinline__ size_t vjp_slice(int n, int d, int want_alpha,
+                                                     int want_value) {
+  return (size_t)n * d + (want_alpha ? (size_t)n : 0) + (want_value ? (size_t)n : 0);
 }
 
 // The float32 kernel. One block: TM = 128 R rows of x (padded to depth D)
 // and QC columns of the q-split blockIdx.y, over the columns [blockIdx.z
 // span, + span) of the padded panel. y is (m_pad, D), v (qsplits, m_pad,
 // QC) with zero padding; dst holds, per (column split, q-split), 2 sum_j
-// W_ij (x_i - y_j) as (n, D) and, when want_alpha, the rows' alpha
-// partials after it.
+// W_ij (x_i - y_j) as (n, D), then, when want_alpha, the rows' alpha
+// partials and, when want_value, the rows' partials of the value
+// sum_j (A V^T)_ij K_ij (vjp_slice).
 template <int KIND, int D, int QC>
 __global__ void __launch_bounds__(kVjpThreads)
 gmv_vjp_kernel(const float* __restrict__ x, const float* __restrict__ y,
                const float* __restrict__ a, const float* __restrict__ v,
                float* __restrict__ dst, int n, int m_pad, int q, int span, float alpha,
-               int want_alpha) {
+               int want_alpha, int want_value) {
   using T = float;
   constexpr int kPer = 4;  // floats per 16 bytes
   constexpr int R = vjp_rows<QC, D>();
@@ -112,7 +136,7 @@ gmv_vjp_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const T hia = T(0.5) / alpha;
 
   int rows[R];
-  T xr[R][D], ar[R][QC], acc[R][D], acc_a[R];
+  T xr[R][D], ar[R][QC], acc[R][D], acc_a[R], acc_v[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     rows[r] = blockIdx.x * TM + r * kVjpThreads + tid;
@@ -125,7 +149,7 @@ gmv_vjp_kernel(const float* __restrict__ x, const float* __restrict__ y,
 #pragma unroll
     for (int c = 0; c < QC; ++c)
       ar[r][c] = (live && c0 + c < q) ? a[(size_t)rows[r] * q + c0 + c] : T(0);
-    acc_a[r] = T(0);
+    acc_a[r] = acc_v[r] = T(0);
   }
 
   if (passes > 0) vjp_stage<T, D, QC>(ys[0], vs[0], y, vq, col_begin, tid);
@@ -141,10 +165,10 @@ gmv_vjp_kernel(const float* __restrict__ x, const float* __restrict__ y,
 
     // Two-level sum, as in gram_matvec.cu: the pass's terms are summed from
     // zero, then added to the running total.
-    T part[R][D], part_a[R];
+    T part[R][D], part_a[R], part_v[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      part_a[r] = T(0);
+      part_a[r] = part_v[r] = T(0);
 #pragma unroll
       for (int k = 0; k < D; ++k) part[r][k] = T(0);
     }
@@ -179,30 +203,34 @@ gmv_vjp_kernel(const float* __restrict__ x, const float* __restrict__ y,
           diff[k] = xr[r][k] - yj[k];
           d2 = fma(diff[k], diff[k], d2);
         }
-        T h = T(0);
-        const T w = sr * g_prime<KIND, T>(d2, alpha, hia, &h);
+        T kv, h = T(0);
+        const T w = sr * g_prime<KIND, T>(d2, alpha, hia, &kv, &h);
 #pragma unroll
         for (int k = 0; k < D; ++k) part[r][k] = fma(w, diff[k], part[r][k]);
         if (KIND == kRq) part_a[r] = fma(sr, h, part_a[r]);
+        part_v[r] = fma(sr, kv, part_v[r]);
       }
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       acc_a[r] += part_a[r];
+      acc_v[r] += part_v[r];
 #pragma unroll
       for (int k = 0; k < D; ++k) acc[r][k] += part[r][k];
     }
     __syncthreads();  // all reads of `buf` are done before pass p + 2 refills it
   }
 
-  const size_t slice = (size_t)n * D + (want_alpha ? (size_t)n : 0);
+  const size_t slice = vjp_slice(n, D, want_alpha, want_value);
   T* out = dst + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * slice;
+  T* out_v = out + (size_t)n * D + (want_alpha ? (size_t)n : 0);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (rows[r] >= n) continue;
 #pragma unroll
     for (int k = 0; k < D; ++k) out[(size_t)rows[r] * D + k] = T(2) * acc[r][k];
     if (want_alpha) out[(size_t)n * D + rows[r]] = acc_a[r];
+    if (want_value) out_v[rows[r]] = acc_v[r];
   }
 }
 
@@ -229,20 +257,29 @@ __host__ __device__ constexpr int dmma_groups() {
 // per pass, each 8-column tile of the panel is one B fragment per k-step
 // (one shared-memory load, reused by the MR groups), and the 8x8 tile of
 // dots lands in the C fragments: each lane then owns two entries of each
-// group's tile, builds their g' and adds their terms to its row's sums.
-// The four lanes of a row add their sums by two shuffles at the end, in
-// a fixed order.
+// group's tile, builds their K and g' and adds their terms to its row's
+// sums. The value's terms are summed from zero in each pass, and the pass
+// totals added into a compensated (Kahan) sum that each lane keeps in
+// shared memory (its registers are spent: 160 at the path's shape, three
+// blocks per SM): the value is a total over N^2 signed terms that cancel
+// far below their sizes, and a running sum of 65,536 terms per lane put
+// the surrogate's value 1.4e-10 away from K3's two-level sums on the
+// H100. The four lanes of a row add their sums by two shuffles at the
+// end, in a fixed order.
 template <int KIND, int D, int QC>
 __global__ void __launch_bounds__(kVjpThreads)
 gmv_vjp_dmma_kernel(const double* __restrict__ x, const double* __restrict__ y,
                     const double* __restrict__ a, const double* __restrict__ v,
                     double* __restrict__ dst, int n, int m_pad, int q, int span, double alpha,
-                    int want_alpha) {
+                    int want_alpha, int want_value) {
   constexpr int MR = dmma_groups<D>();
   constexpr int KS = QC / 4;  // k-steps of the dot
   constexpr int TM = 4 * 8 * MR;
   __shared__ __align__(16) double ys[2][kVjpTN * D];
   __shared__ __align__(16) double vs[2][kVjpTN * QC];
+  // The value's compensated sums: [0] the sum, [1] its compensation, one
+  // slot per (warp, group, lane), each touched by its own thread only.
+  __shared__ double sum_v[2][kVjpThreads * MR];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -258,6 +295,7 @@ gmv_vjp_dmma_kernel(const double* __restrict__ x, const double* __restrict__ y,
 #pragma unroll
   for (int g = 0; g < MR; ++g) {
     rows[g] = blockIdx.x * TM + (warp * MR + g) * 8 + gid;
+    sum_v[0][(warp * MR + g) * 32 + lane] = sum_v[1][(warp * MR + g) * 32 + lane] = 0.0;
     const bool live = rows[g] < n;
 #pragma unroll
     for (int k = 0; k < D; ++k) {
@@ -283,6 +321,9 @@ gmv_vjp_dmma_kernel(const double* __restrict__ x, const double* __restrict__ y,
     vjp_cp_async_wait_one();  // pass p's group has landed
     __syncthreads();
 
+    double part_v[MR];
+#pragma unroll
+    for (int g = 0; g < MR; ++g) part_v[g] = 0.0;
 #pragma unroll 1
     for (int t = 0; t < kVjpTN / 8; ++t) {
       double c[MR][2];
@@ -308,19 +349,29 @@ gmv_vjp_dmma_kernel(const double* __restrict__ x, const double* __restrict__ y,
             diff[k] = xr[g][k] - yj[k];
             d2 = fma(diff[k], diff[k], d2);
           }
-          double h = 0.0;
-          const double w = c[g][i] * g_prime<KIND, double>(d2, alpha, hia, &h);
+          double kv, h = 0.0;
+          const double w = c[g][i] * g_prime<KIND, double>(d2, alpha, hia, &kv, &h);
 #pragma unroll
           for (int k = 0; k < D; ++k) acc[g][k] = fma(w, diff[k], acc[g][k]);
           if (KIND == kRq) acc_a[g] = fma(c[g][i], h, acc_a[g]);
+          part_v[g] = fma(c[g][i], kv, part_v[g]);
         }
       }
+    }
+#pragma unroll
+    for (int g = 0; g < MR; ++g) {
+      const int slot = (warp * MR + g) * 32 + lane;
+      const double sum = sum_v[0][slot], yv = part_v[g] - sum_v[1][slot];
+      const double t = sum + yv;
+      sum_v[1][slot] = (t - sum) - yv;
+      sum_v[0][slot] = t;
     }
     __syncthreads();  // all reads of `buf` are done before pass p + 2 refills it
   }
 
-  const size_t slice = (size_t)n * D + (want_alpha ? (size_t)n : 0);
+  const size_t slice = vjp_slice(n, D, want_alpha, want_value);
   double* out = dst + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * slice;
+  double* out_v = out + (size_t)n * D + (want_alpha ? (size_t)n : 0);
 #pragma unroll
   for (int g = 0; g < MR; ++g) {
 #pragma unroll
@@ -330,10 +381,15 @@ gmv_vjp_dmma_kernel(const double* __restrict__ x, const double* __restrict__ y,
     }
     acc_a[g] += __shfl_xor_sync(0xffffffffu, acc_a[g], 1);
     acc_a[g] += __shfl_xor_sync(0xffffffffu, acc_a[g], 2);
+    const int slot = (warp * MR + g) * 32 + lane;
+    double acc_v = sum_v[0][slot] - sum_v[1][slot];
+    acc_v += __shfl_xor_sync(0xffffffffu, acc_v, 1);
+    acc_v += __shfl_xor_sync(0xffffffffu, acc_v, 2);
     if (tig != 0 || rows[g] >= n) continue;
 #pragma unroll
     for (int k = 0; k < D; ++k) out[(size_t)rows[g] * D + k] = 2.0 * acc[g][k];
     if (want_alpha) out[(size_t)n * D + rows[g]] = acc_a[g];
+    if (want_value) out_v[rows[g]] = acc_v;
   }
 }
 
@@ -352,7 +408,7 @@ __global__ void gmv_vjp_reduce(const T* __restrict__ part, T* __restrict__ out, 
 
 // tm: the rows per block the wrapper sized the launch for.
 struct VjpArgs {
-  int n, m_pad, q, span, splits, qsplits, want_alpha, tm;
+  int n, m_pad, q, span, splits, qsplits, want_alpha, want_value, tm;
 };
 
 // float64 takes the tensor-core kernel, float32 the FFMA kernel. A launch
@@ -366,13 +422,13 @@ cudaError_t vjp_launch_main(const T* x, const T* y, const T* a, const T* v, T* d
     if (g.tm != TM) return cudaErrorInvalidValue;
     const dim3 grid((g.n + TM - 1) / TM, g.qsplits, g.splits);
     gmv_vjp_dmma_kernel<KIND, D, QC><<<grid, kVjpThreads, 0, s>>>(
-        x, y, a, v, dst, g.n, g.m_pad, g.q, g.span, alpha, g.want_alpha);
+        x, y, a, v, dst, g.n, g.m_pad, g.q, g.span, alpha, g.want_alpha, g.want_value);
   } else {
     constexpr int TM = kVjpThreads * vjp_rows<QC, D>();
     if (g.tm != TM) return cudaErrorInvalidValue;
     const dim3 grid((g.n + TM - 1) / TM, g.qsplits, g.splits);
     gmv_vjp_kernel<KIND, D, QC><<<grid, kVjpThreads, 0, s>>>(
-        x, y, a, v, dst, g.n, g.m_pad, g.q, g.span, alpha, g.want_alpha);
+        x, y, a, v, dst, g.n, g.m_pad, g.q, g.span, alpha, g.want_alpha, g.want_value);
   }
   return cudaGetLastError();
 }
@@ -418,7 +474,7 @@ cudaError_t vjp_launch(int kind, int d, int qc, const T* x, const T* y, const T*
     default: return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || parts == 1) return err;
-  const size_t count = (size_t)g.n * d + (g.want_alpha ? (size_t)g.n : 0);
+  const size_t count = vjp_slice(g.n, d, g.want_alpha, g.want_value);
   const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
   gmv_vjp_reduce<T><<<blocks, 256, 0, s>>>(work, out, count, parts);
   return cudaGetLastError();

@@ -1,8 +1,10 @@
 """Parity of the port's fused Gram-gradient x V (the plain version of the
-kernel in ``csrc/gram_matvec_vjp.cu``, and the ``autograd.Function`` that
-differentiates K3 with it) with the JAX package's Gram VJP, ``_gram_bwd``
-in ``stheno_tpu/ops/gram.py``, reached by ``jax.grad`` of
-``sum(A * (gram(kind, x, y, alpha) @ V))`` in interpret mode.
+kernel in ``csrc/gram_matvec_vjp.cu``, the ``autograd.Function`` that
+differentiates K3 with it, and the one that takes the square Gram's
+bilinear form from it) with the JAX package's Gram VJP, ``_gram_bwd`` in
+``stheno_tpu/ops/gram.py``, reached by ``jax.grad`` of ``sum(A *
+(gram(kind, x, y, alpha) @ V))`` in interpret mode, and with that sum's
+value.
 
 Float64, inputs from numpy seeds, rtol 1e-10 (``EXACT``, as
 ``tests/test_torch_iterative.py``): the two run the same float64 formulas
@@ -82,6 +84,18 @@ def _jax_grads(kind, x, y, A, V, square):
     return jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(y), jnp.asarray(ALPHA))
 
 
+def _jax_value(kind, x, y, A, V, square):
+    """``sum(A * (gram @ V))`` over the JAX package's Gram. Matérn-1/2 at
+    coincident points (x is y) takes its exact diagonal g(0) = 1: the JAX
+    Gram's d2 there is the rounding of |x|^2 + |y|^2 - 2 x.y, about 1e-16,
+    whose square root puts K_ii some 1e-8 below 1; the port's difference
+    form has d2 = 0 exactly."""
+    G = jgram.gram(kind, jnp.asarray(x), jnp.asarray(y), ALPHA)
+    if square and kind == "matern12":
+        G = G.at[jnp.diag_indices(len(x))].set(1.0)
+    return jnp.sum(jnp.asarray(A @ V.T) * G)
+
+
 def _close(a, b, rtol=EXACT, scale=1.0):
     np.testing.assert_allclose(np_(a), np_(b), rtol=rtol, atol=rtol * scale)
 
@@ -126,6 +140,67 @@ def test_vjp_plain_matches_jax_gram_bwd(kind, case, jax_interpret_f64):
         _close(grads[-1], ga)
     else:
         assert grads[-1] is None
+
+
+@pytest.mark.parametrize("case", ["square", "cross"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_vjp_plain_value_matches_jax_gram(kind, case, jax_interpret_f64):
+    # The value the sweep adds up beside the gradient, sum_ij (A V^T)_ij
+    # K_ij, against the same sum over the JAX package's Gram; the gradient
+    # it comes with is the plain call's own.
+    x, y, A, V = _case(case)
+    ref = _jax_value(kind, x, y, A, V, case == "square")
+    T = torch.tensor
+    xbar, abar, value = tvjp.gram_matvec_vjp_plain(kind, T(x), T(y), T(A), T(V), ALPHA,
+                                                   alpha_grad=True, value=True, block=BLOCK)
+    _close(value, ref)
+    ref_xbar, ref_abar = tvjp.gram_matvec_vjp_plain(kind, T(x), T(y), T(A), T(V), ALPHA,
+                                                    alpha_grad=True, block=BLOCK)
+    assert torch.equal(xbar, ref_xbar)
+    assert (abar is None) == (ref_abar is None) == (kind != "rq")
+    # The wrapper hands back the same three on the CPU.
+    _close(tvjp.gram_matvec_vjp(kind, T(x), T(y), T(A), T(V), ALPHA, value=True)[2], ref)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_bilinear_fn_matches_matvec_fn_and_jax(kind, jax_interpret_f64):
+    # sum(A * (G(x, x) @ V)) through _GramBilinearFn (one sweep for the
+    # value and the gradients of x and rq's alpha) against autograd through
+    # _GramMatvecFn and against jax.grad of the same sum, float64.
+    x, _, A, V = _case("square")
+    gx, gy, ga = _jax_grads(kind, x, x, A, V, True)
+    ref_value = _jax_value(kind, x, x, A, V, True)
+    scale = float(np.abs(np_(gx) + np_(gy)).max())
+    T = torch.tensor
+    results = []
+    for fn in ("bilinear", "matvec"):
+        xt = T(x).requires_grad_(True)
+        at = T(ALPHA, dtype=torch.float64).requires_grad_(True)
+        if fn == "bilinear":
+            out = tvjp._GramBilinearFn.apply(xt, T(A), T(V), at, kind)
+        else:
+            out = torch.sum(T(A) * tvjp._GramMatvecFn.apply(xt, xt, T(V), at, kind))
+        grads = torch.autograd.grad(out, [xt, at], allow_unused=True)
+        results.append((out.detach(), *grads))
+    (value, xbar, abar), (mv_value, mv_xbar, mv_abar) = results
+    if kind != "matern12":
+        # K3's plain version forms d2 by the norms identity: Matérn-1/2's
+        # diagonal is then some 1e-8 below g(0) = 1 (see _jax_value).
+        _close(value, mv_value)
+    _close(value, ref_value)
+    _close(xbar, mv_xbar, scale=scale)
+    _close(xbar, np_(gx) + np_(gy), scale=scale)
+    if kind == "rq":
+        _close(abar, mv_abar)
+        _close(abar, ga)
+    else:
+        assert abar is None and mv_abar is None
+    # No gradient for A or V: asking for one raises.
+    for i in (1, 2):
+        args = [T(x), T(A), T(V), T(ALPHA, dtype=torch.float64), kind]
+        args[i] = args[i].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no gradient for A or V"):
+            torch.autograd.grad(tvjp._GramBilinearFn.apply(*args), args[i])
 
 
 @pytest.mark.parametrize("kind", KINDS)

@@ -126,12 +126,14 @@ def test_kernel_matvec_cross_matches_jax(name):
 def route_spies(monkeypatch):
     """Records of the fused routes: the kinds K3 ran for a product with no
     gradient (``gram_matvec`` in ``iterative.matvec``), the kinds
-    ``_GramMatvecFn`` ran for a differentiable one, and the calls of the
-    fused Gram-gradient wrapper in its backward."""
+    ``_GramMatvecFn`` ran for a differentiable one, the kinds
+    ``_GramBilinearFn`` ran for a bilinear form, and the calls of the
+    fused Gram-gradient wrapper in their backward or forward."""
     from stheno_torch.iterative import matvec as tmv
 
-    calls = {"k3": [], "fn": [], "vjp": []}
+    calls = {"k3": [], "fn": [], "vjp": [], "bil": []}
     real_k3, real_vjp, real_fn = tgmv.gram_matvec, tvjp.gram_matvec_vjp, tvjp._GramMatvecFn
+    real_bil = tvjp._GramBilinearFn
 
     def k3(*a, **kw):
         calls["k3"].append(a[0])
@@ -147,8 +149,15 @@ def route_spies(monkeypatch):
             calls["fn"].append(a[-1])
             return real_fn.forward(ctx, *a)
 
+    class Bil(real_bil):
+        @staticmethod
+        def forward(ctx, *a):
+            calls["bil"].append(a[-1])
+            return real_bil.forward(ctx, *a)
+
     monkeypatch.setattr(tmv, "gram_matvec", k3)
     monkeypatch.setattr(tmv, "_GramMatvecFn", Fn)
+    monkeypatch.setattr(tmv, "_GramBilinearFn", Bil)
     monkeypatch.setattr(tvjp, "gram_matvec_vjp", vjp)
     return calls
 
@@ -158,16 +167,16 @@ def test_kernel_matvec_dispatch_by_expression_and_gradient(route_spies):
     x, v = T(_data()[0]), T(np.ones((N, 2)))
     tit.kernel_matvec(KERNELS["scaled_eq"](st), x, v, block=BLOCK)
     tit.kernel_matvec(KERNELS["periodic"](st), x, v, block=BLOCK)
-    assert calls == {"k3": ["eq", "eq"], "fn": [], "vjp": []}
+    assert calls == {"k3": ["eq", "eq"], "fn": [], "vjp": [], "bil": []}
     tit.kernel_matvec(KERNELS["sum"](st), x, v, block=BLOCK)  # Not a fused form.
     with st.config.accurate_dists():
         tit.kernel_matvec(KERNELS["scaled_eq"](st), x, v, block=BLOCK)
-    assert calls == {"k3": ["eq", "eq"], "fn": [], "vjp": []}
+    assert calls == {"k3": ["eq", "eq"], "fn": [], "vjp": [], "bil": []}
     # A gradient is needed: the fused form takes _GramMatvecFn, whose
     # backward sweeps both roles of the square Gram in one call.
     ell = torch.tensor(0.8, dtype=torch.float64, requires_grad=True)
     out = tit.kernel_matvec(st.EQ().stretch(ell), x, v, block=BLOCK)
-    assert calls == {"k3": ["eq", "eq"], "fn": ["eq"], "vjp": []}
+    assert calls == {"k3": ["eq", "eq"], "fn": ["eq"], "vjp": [], "bil": []}
     torch.autograd.grad(out.sum(), ell)
     assert calls["vjp"] == ["eq"]
     # Under a gradient too, a sum and accurate distances take the blocked
@@ -177,7 +186,7 @@ def test_kernel_matvec_dispatch_by_expression_and_gradient(route_spies):
         tit.kernel_matvec(st.EQ().stretch(ell), x, v, block=BLOCK)
     wide = T(np.random.RandomState(3).randn(20, tvjp.MAX_DEPTH + 1))
     tit.kernel_matvec(st.EQ().stretch(ell), wide, T(np.ones((20, 1))), block=BLOCK)
-    assert calls == {"k3": ["eq", "eq"], "fn": ["eq"], "vjp": ["eq"]}
+    assert calls == {"k3": ["eq", "eq"], "fn": ["eq"], "vjp": ["eq"], "bil": []}
     with torch.no_grad():
         tit.kernel_matvec(st.EQ().stretch(ell), x, v, block=BLOCK)
     assert calls["k3"] == ["eq", "eq", "eq"] and calls["fn"] == ["eq"]
@@ -222,9 +231,48 @@ def test_kernel_matvec_gradients_match_jax(name, route_spies):
         gt = torch.autograd.grad(torch.sum(T(w) * out), [*p_t.values(), xt, nt],
                                  allow_unused=True)
     if name in BLOCKED:
-        assert route_spies == {"k3": [], "fn": [], "vjp": []}
+        assert route_spies == {"k3": [], "fn": [], "vjp": [], "bil": []}
     else:
         assert route_spies["fn"] and route_spies["vjp"]
+    for a, b in zip(gt, [gj[0][k] for k in p_t] + [gj[1], gj[2]]):
+        a = torch.zeros(()) if a is None else a
+        np.testing.assert_allclose(np_(a), np_(b), rtol=EXACT, atol=1e-11)
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_KERNELS))
+def test_kernel_bilinear_value_and_gradients_match_jax(name, route_spies):
+    # sum(A * ((K + noise I) V)), the form the surrogate differentiates,
+    # against jax.value_and_grad of the same sum through the JAX package's
+    # checkpointed scan: the value, the parameter leaves, x and noise.
+    # Fused forms take _GramBilinearFn (one sweep of the fused
+    # Gram-gradient plain version gives value and gradients, no K3
+    # product); the BLOCKED cases take the checkpointed blocked sweep.
+    from stheno_torch.iterative import matvec as tmv
+
+    x, _ = _data()
+    r = np.random.RandomState(16)
+    A, V = r.randn(N, 3), r.randn(N, 3)
+    accurate = name == "params_accurate_dists"
+
+    def loss_j(p, xx, noise):
+        k = GRAD_KERNELS[name](sj, p)
+        return jnp.sum(J(A) * jit_.kernel_matvec(k, xx, J(V), noise=noise, block=BLOCK))
+
+    with sj.config.accurate_dists(accurate):
+        vj, gj = jax.value_and_grad(loss_j, argnums=(0, 1, 2))(pj(), J(x), jnp.asarray(0.1))
+    p_t = pt(grad=True)
+    xt = T(x).requires_grad_(True)
+    nt = torch.tensor(0.1, dtype=torch.float64, requires_grad=True)
+    with st.config.accurate_dists(accurate):
+        out = tmv._kernel_bilinear(GRAD_KERNELS[name](st, p_t), xt, T(A), T(V), noise=nt,
+                                   block=BLOCK)
+        gt = torch.autograd.grad(out, [*p_t.values(), xt, nt], allow_unused=True)
+    if name in BLOCKED:
+        assert route_spies == {"k3": [], "fn": [], "vjp": [], "bil": []}
+    else:
+        kind = "matern32" if name == "matern32" else "rq" if name == "rq" else "eq"
+        assert route_spies == {"k3": [], "fn": [], "vjp": [kind], "bil": [kind]}
+    np.testing.assert_allclose(float(out.detach()), float(vj), rtol=EXACT)
     for a, b in zip(gt, [gj[0][k] for k in p_t] + [gj[1], gj[2]]):
         a = torch.zeros(()) if a is None else a
         np.testing.assert_allclose(np_(a), np_(b), rtol=EXACT, atol=1e-11)
@@ -397,10 +445,13 @@ def test_nlml_core_value_and_gradients_match_jax(precond, jstate, route_spies):
         block=BLOCK,
     )
     assert route_spies["fn"] == []  # The forward solves need no gradient.
+    k3_forward = len(route_spies["k3"])
     gt = torch.autograd.grad(vt, [*p_t.values(), nt, xt, yt])
-    # The surrogate's gradient took the fused route: one differentiable
-    # product, one sweep over both roles of the square Gram.
-    assert route_spies["fn"] == ["eq"] and route_spies["vjp"] == ["eq"]
+    # The surrogate took the fused route: one bilinear form, one sweep over
+    # both roles of the square Gram for its value and its gradients, and
+    # no K3 product (neither a plain one nor _GramMatvecFn's forward).
+    assert route_spies["bil"] == ["eq"] and route_spies["vjp"] == ["eq"]
+    assert route_spies["fn"] == [] and len(route_spies["k3"]) == k3_forward
     # The value and every gradient to the solves' accuracy (rtol 1e-7);
     # the CG ran the same number of steps.
     assert ht["cg_iters"] == int(hj["cg_iters"]) and ht["cg_converged"]
