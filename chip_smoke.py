@@ -20,7 +20,11 @@ The training step's surrogate, its Gram term's value and gradient, is
 one launch of the fused Gram-gradient kernel (``csrc/gram_matvec_vjp.cu``),
 with no K3 sweep: checked at N=262,144 against the same gradient by the
 blocked sweep with accurate distances, and its value against K3's
-float64 product.
+float64 product. K3 has three routes (``ops/gram_matvec.py:route``), each
+held against the plain version and timed on its own: float32 p >= 17 on
+the tensor cores (the CG), float32 p <= 16 on FFMA and the exp unit (the
+serving weights and mean), float64 on the FP64 tensor cores (float64
+models, driven by the N=262,144 float64 step of the gates).
 
 It then times each kernel beside its bound, its plain version and the
 nearest PyTorch library call, times the matrix-free path's steps, and
@@ -63,10 +67,18 @@ KERNELS = {
         "source": "stheno_torch/ops/csrc/chol_tile.cu",
         "replaces": "stheno_tpu/ops/pallas_chol.py:112",
     },
-    # The kernels line takes K3 at p = 17, which runs the tensor-core
-    # route; p <= 16 and float64 run csrc/gram_matvec.cu.
-    "gram_matvec": {
+    # K3's three routes (ops/gram_matvec.py:route), each with its own
+    # launch count: float32 p >= 17, float32 p <= 16, float64.
+    "gram_matvec_mma": {
         "source": "stheno_torch/ops/csrc/gram_matvec_mma.cu",
+        "replaces": "stheno_tpu/ops/gram_matvec.py:53",
+    },
+    "gram_matvec_ffma": {
+        "source": "stheno_torch/ops/csrc/gram_matvec.cu",
+        "replaces": "stheno_tpu/ops/gram_matvec.py:53",
+    },
+    "gram_matvec_dmma": {
+        "source": "stheno_torch/ops/csrc/gram_matvec_f64.cu",
         "replaces": "stheno_tpu/ops/gram_matvec.py:53",
     },
     # The backward of K3 on the surrogate gradient: it replaces the K1
@@ -339,15 +351,24 @@ def _kernel_modules():
 
 
 def _counts():
-    return {k: mod.launches for k, mod in _kernel_modules().items()}
+    """The wrappers' launch counts: one per kernel module (``gram_matvec``
+    all of K3's routes) and one per K3 route (``gram_matvec_<route>``)."""
+    mods = _kernel_modules()
+    counts = {k: mod.launches for k, mod in mods.items()}
+    counts.update({f"gram_matvec_{r}": n for r, n in mods["gram_matvec"].route_launches.items()})
+    return counts
 
 
 def _set_counts(counts):
-    for k, mod in _kernel_modules().items():
+    mods = _kernel_modules()
+    for k, mod in mods.items():
         mod.launches = counts[k]
+    for r in mods["gram_matvec"].route_launches:
+        mods["gram_matvec"].route_launches[r] = counts[f"gram_matvec_{r}"]
 
 
-ZERO_COUNTS = {k: 0 for k in KERNELS}
+ZERO_COUNTS = {k: 0 for k in ("gram", "chol_tile", "gram_matvec", "gram_matvec_vjp",
+                              "gram_matvec_mma", "gram_matvec_ffma", "gram_matvec_dmma")}
 
 
 def _rel(a, b):
@@ -499,12 +520,14 @@ def phase_times(errs, counts):
         "n2000_value_grad_ms": time_ms(lambda: E.nlml_n2000(xb, yb, ell, grad=True)),
         "entry_step_ms": time_ms(lambda: fn(*args)),
     }
-    kernels.append(_k3_times())
+    k3, k3_shapes = _k3_times()
+    kernels.extend(k3)
     kernels.append(_vjp_times())
     # Launches made by the timing runs do not count: restore the paths'
     # counts.
     _set_counts(saved)
-    emit({"phase": "times", "kernels": kernels, "flagship": step})
+    emit({"phase": "times", "kernels": kernels, "gram_matvec_shapes": k3_shapes,
+          "flagship": step})
 
     line = []
     for k in kernels:
@@ -554,19 +577,22 @@ def _path_inputs(dtype=torch.float32):
 
 
 def phase_gram_matvec():
-    """K3 against its plain version on the card: every kind at a ragged
-    shape in float32 and float64, at p = 5 (the FFMA route) and p = 17 and
-    64 (the tensor-core route in float32), and the matrix-free path's shapes (an
-    8192-row slice of the N=262,144 inputs against all columns for p in
-    1, 17, 64, 256, the same at p = 17 in float64 (the FFMA route that
-    float64 models take), and the 4096-point mean query), each within
-    ``_gmv_rtol`` of ``|G| @ |v|``. Returns the largest absolute error at
-    the path's shapes."""
+    """K3 against its plain version on the card, each case within
+    ``_gmv_rtol`` of ``|G| @ |v|`` and reported with its route: every kind
+    at a ragged shape in float32 and float64 at p = 5, 17 and 64 (float32:
+    the FFMA route, then the tensor-core route; float64: the FP64
+    tensor-core route); the matrix-free path's shapes (an 8192-row slice of
+    the N=262,144 inputs against all columns for p in 1, 17, 64, 256, the
+    same at p = 17 and 1 in float64, the CG and weights of float64 models,
+    and the 4096-point mean query). Then, where x is y, the diagonal of
+    every exp kind exactly g(0) = 1 in both dtypes; and the float64
+    route's exp against ``torch.exp`` (``_exp_f64_ulps``). Returns the
+    largest absolute error at the path's shapes, by route."""
     from stheno_torch.ops import gram_matvec as K3
     from stheno_torch.ops.gram import KINDS
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    results, path_err = [], 0.0
+    results, path_err = [], {f"gram_matvec_{r}": 0.0 for r in K3.route_launches}
 
     def hold(kind, x, y, v, tag, alpha=1.3):
         out = K3.gram_matvec(kind, x, y, v, alpha)
@@ -575,11 +601,15 @@ def phase_gram_matvec():
         check(out.shape == ref.shape and bool(torch.isfinite(out).all()), f"gram_matvec {kind} {tag}")
         rtol = _gmv_rtol(y.shape[0], x.dtype)
         rel = float(((out - ref).abs() / _gmv_atol_scale(kind, x, y, v).clamp_min(1e-30)).max())
-        check(rel <= rtol, f"gram_matvec {kind} {tag}: error {rel} of |G||v| > {rtol}")
         route = K3.route(x.shape[0], y.shape[0], v.shape[1], x.dtype)[0]
+        check(rel <= rtol, f"gram_matvec {kind} {tag} ({route}): error {rel} of |G||v| > {rtol}")
         results.append({"kind": kind, "case": tag, "route": route, "max_rel_err": rel,
                         "rtol": rtol})
-        return max_err(out, ref)
+        return f"gram_matvec_{route}", max_err(out, ref)
+
+    def hold_path(*args):
+        name, err = hold(*args)
+        path_err[name] = max(path_err[name], err)
 
     for dtype in (torch.float32, torch.float64):
         x = torch.randn(3000, 2, generator=gen, device="cuda", dtype=dtype)
@@ -588,29 +618,54 @@ def phase_gram_matvec():
             v = torch.randn(2500, p, generator=gen, device="cuda", dtype=dtype)
             for kind in KINDS:
                 hold(kind, x, y, v, f"3000x2 by 2500x2 p={p} {dtype}")
-    # x is y: the Matérn diagonal must be exactly g(0) = 1.
-    xs = torch.randn(4000, 1, generator=gen, device="cuda")
-    eye = torch.eye(4000, device="cuda")[:, :64]
-    diag = K3.gram_matvec("matern12", xs, xs, eye).diagonal()
-    check(bool((diag == 1).all()), "gram_matvec: the Matérn diagonal is not exactly 1")
 
     x, _, _ = _path_inputs()
     x = x[:, None]
     rows = x[:8192]
     for p in (1, 17, 64, 256):
         v = torch.randn(N_IT, p, generator=gen, device="cuda")
-        path_err = max(path_err, hold("eq", rows, x, v, f"8192x1 by {N_IT}x1 p={p}"))
-    # The FFMA route in float64 at p = 17.
+        hold_path("eq", rows, x, v, f"8192x1 by {N_IT}x1 p={p}")
     x64 = _path_inputs(torch.float64)[0][:, None]
-    v = torch.randn(N_IT, 17, generator=gen, device="cuda", dtype=torch.float64)
-    path_err = max(path_err, hold("eq", x64[:8192], x64, v,
-                                  f"8192x1 by {N_IT}x1 p=17 float64"))
+    for p in (17, 1):
+        v = torch.randn(N_IT, p, generator=gen, device="cuda", dtype=torch.float64)
+        hold_path("eq", x64[:8192], x64, v, f"8192x1 by {N_IT}x1 p={p} float64")
     del x64
     xq = torch.linspace(0.0, 10.0, 4096, device="cuda")[:, None]
     v = torch.randn(N_IT, 1, generator=gen, device="cuda")
-    path_err = max(path_err, hold("eq", xq, x, v, f"4096x1 by {N_IT}x1 p=1"))
-    emit({"phase": "gram_matvec_vs_plain", "cases": results})
+    hold_path("eq", xq, x, v, f"4096x1 by {N_IT}x1 p=1")
+
+    # x is y: d2 is exactly 0 on the diagonal, so g(0) = 1 exactly.
+    diag = {}
+    for dtype in (torch.float32, torch.float64):
+        xs = torch.randn(4000, 1, generator=gen, device="cuda", dtype=dtype)
+        eye = torch.eye(4000, device="cuda", dtype=dtype)[:, :64]
+        for kind in ("eq", "matern12", "matern32", "matern52"):
+            d = K3.gram_matvec(kind, xs, xs, eye)[:64].diagonal()
+            diag[f"{kind} {dtype}"] = float((d - 1).abs().max())
+    check(all(e == 0 for e in diag.values()), f"gram_matvec: a diagonal is not exactly 1: {diag}")
+    exp_ulps = _exp_f64_ulps()
+    check(exp_ulps <= 2, f"the float64 route's exp is {exp_ulps} ulp from torch.exp (> 2)")
+    emit({"phase": "gram_matvec_vs_plain", "cases": results, "diagonal_max_abs_err": diag,
+          "exp_f64_max_ulps": exp_ulps})
     return path_err
+
+
+def _exp_f64_ulps(points=1 << 20):
+    """The float64 route's exp (``csrc/gram_matvec_f64.cu:exp_neg_half``)
+    against ``torch.exp`` on the card, in units in the last place of
+    ``torch.exp``, at ``points`` arguments evenly over [-745, 0]: K3 of eq
+    with x = sqrt(-2 a) against the single column y = 0 and v = 1 gives
+    each row exactly exp(-0.5 fl(x^2)) (d2 = fl(x^2), one product by 1),
+    the argument that torch.exp is given."""
+    from stheno_torch.ops import gram_matvec as K3
+
+    a = torch.linspace(-745.0, 0.0, points, dtype=torch.float64, device="cuda")
+    x = torch.sqrt(-2 * a)[:, None]
+    one = torch.ones((1, 1), dtype=torch.float64, device="cuda")
+    got = K3.gram_matvec("eq", x, torch.zeros_like(one), one)[:, 0]
+    ref = torch.exp(-0.5 * (x[:, 0] * x[:, 0]))
+    ulp = torch.nextafter(ref, torch.full_like(ref, math.inf)) - ref
+    return float(((got - ref).abs() / ulp).max())
 
 
 # ---------------------------------------------------------------------------
@@ -764,6 +819,9 @@ def phase_iterative():
                        **{f"grad_{k}": float(g) for k, g in grads.items()}}
     alpha, winfo = leg("weights", lambda: E.serving_weights(x, y, params, state))
     check(float(winfo["rel_residual"]) <= 1e-4, f"weights: CG did not converge ({winfo})")
+    # With libdevice's expf in K3's FFMA route this solve took 5
+    # iterations; its base-2 exps may add at most one.
+    check(winfo["iters"] <= 5 + 1, f"weights: CG took {winfo['iters']} iterations")
     mean = leg("cached_mean", lambda: E.serving_mean(x, params, alpha, x_mean))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -863,7 +921,7 @@ def _surrogate_gate(x, y, params, state, gen):
 
 def _check_surrogate_gate(gate):
     launches = gate["launches"]
-    check(launches["fused"] == {"gram": 0, "chol_tile": 0, "gram_matvec": 0, "gram_matvec_vjp": 1},
+    check(launches["fused"] == {**ZERO_COUNTS, "gram_matvec_vjp": 1},
           f"surrogate gate: the fused route's launches {launches['fused']}")
     check(launches["blocked_accurate_dists"]["gram_matvec_vjp"] == 0,
           f"surrogate gate: the blocked route launched the fused kernel {launches}")
@@ -892,7 +950,10 @@ def phase_iterative_gates(state32):
     NLML rel <= 1e-3 and gradients rel <= 5e-2, as the main path's
     gates; the mean and variance within 1e-4 of the largest dense value.
     Then ``_surrogate_gate``: the fused surrogate gradient against the
-    blocked sweep's, rel <= 1e-6."""
+    blocked sweep's, rel <= 1e-6. The N=262,144 float64 step is the
+    float64 path: its wall seconds are reported, and it runs with every
+    count at 0, so that K3's float64 route is read from it (and no other
+    route may launch there). Returns those counts."""
     from stheno_torch import entry as E
     from stheno_torch.iterative import nlml as NL
 
@@ -911,6 +972,7 @@ def phase_iterative_gates(state32):
     g8 = {
         "nlml": float(val), "nlml_exact": float(ref_v), "nlml_rel": _rel(val, ref_v),
         "grad_rel": _rel_grads(grads, ref_g), "cg_iters": info["cg_iters"],
+        "weights_cg_iters": winfo["iters"],
         "mean_max_abs_err": max_err(mean, ref_mean), "var_max_abs_err": max_err(var, ref_var),
     }
     report["n8192_f64"] = g8
@@ -922,16 +984,28 @@ def phase_iterative_gates(state32):
 
     x32, y32, p32 = _path_inputs()
     u32 = torch.randn(N_IT, 16, generator=gen, device="cuda")
-    out = {}
+    out, secs = {}, {}
     for dtype, block in ((torch.float32, 8192), (torch.float64, 2048)):
         leaves = {k: v.to(dtype).requires_grad_(True) for k, v in p32.items()}
+        args = (y32.to(dtype), E.ITERATIVE_NOISE, x32.to(dtype)[:, None], u32.to(dtype), None,
+                tuple(t.to(dtype) for t in state32))
+        torch.cuda.synchronize()
+        if dtype == torch.float64:
+            # The float64 path: K3's float64 route is read from this step.
+            _set_counts(ZERO_COUNTS)
+        t0 = time.perf_counter()
         with torch.enable_grad():
-            v, h = NL._nlml(leaves, y32.to(dtype), E.ITERATIVE_NOISE, x32.to(dtype)[:, None],
-                            u32.to(dtype), None, tuple(t.to(dtype) for t in state32),
-                            E.iterative_kernel, 1e-3, 200, 30, 64, "eig", block=block)
+            v, h = NL._nlml(leaves, *args, E.iterative_kernel, 1e-3, 200, 30, 64, "eig",
+                            block=block)
             g = dict(zip(leaves, torch.autograd.grad(v, list(leaves.values()))))
+        torch.cuda.synchronize()
+        secs[dtype] = time.perf_counter() - t0
         check(h["cg_converged"], f"N={N_IT} {dtype} step at cg_tol 1e-3: {h}")
         out[dtype] = (v.detach(), g, h)
+    f64_counts = _counts()
+    check(f64_counts["gram_matvec_dmma"] >= 1 and f64_counts["gram_matvec"] ==
+          f64_counts["gram_matvec_dmma"],
+          f"the N={N_IT} float64 step's K3 launches {f64_counts}")
     (v32, g32, h32), (v64, g64, h64) = out[torch.float32], out[torch.float64]
     big = {
         "nlml_f32": float(v32), "nlml_f64": float(v64), "nlml_rel": _rel(v32, v64),
@@ -941,6 +1015,9 @@ def phase_iterative_gates(state32):
         "cg_iters_f32": h32["cg_iters"], "cg_iters_f64": h64["cg_iters"],
         "cg_rel_residual_f32": float(h32["cg_rel_residual"]),
         "cg_rel_residual_f64": float(h64["cg_rel_residual"]),
+        "step_f32_wall_s": secs[torch.float32],
+        "step_f64_wall_s": secs[torch.float64],
+        "step_f64_launches": f64_counts,
     }
     report[f"n{N_IT}_f32_vs_f64"] = big
     gate = report[f"n{N_IT}_surrogate_fused_vs_blocked"] = _surrogate_gate(
@@ -953,26 +1030,28 @@ def phase_iterative_gates(state32):
     # the operator CG sees intact.
     check(big["cg_iters_f32"] <= 4 + 1, f"N={N_IT} f32 CG took {big['cg_iters_f32']} iterations")
     check(all(r <= 5e-2 for r in big["grad_rel"].values()), f"N={N_IT} f32 gradients {big}")
+    return f64_counts
 
 
 def _k3_times():
     """K3 per call at the matrix-free path's shapes (CUDA events, one
     warm-up, median of 3): the full N=262,144 square sweep at p = 17 (the
     CG solve), 64 (the preconditioner), 256 (the variance basis) and 1
-    (the weights), and the 4096-point mean query; beside each its route
-    and launch shape, its device time (``device_ms``: the kernel and the
-    column split's sum, no host time), two bounds, its plain version, and
-    the sweep a PyTorch user would write over the same row blocks,
+    (the weights), and the 4096-point mean query, in float32; at p = 17
+    and 1 in float64 (a float64 model's CG and weights). Beside each its
+    route and launch shape, its device time (``device_ms``: the kernel and
+    the column split's sum, no host time), its bounds, its plain version,
+    and the sweep a PyTorch user would write over the same row blocks,
     ``exp(-0.5 cdist(xb, y)^2) @ v`` (the library call; the port never
-    makes it). ``fp32_bound_ms`` is the bound by operations at the FP32
-    rate alone (the exp charged as four flops), the bound of the FFMA
-    kernel, kept so that times against it stay comparable; ``bound_ms``
-    is the bound of the
-    design on the card's units (``mma_bound``), with the unit that binds.
-    ``p17_f64`` is the FFMA route in float64 at the surrogate forward's
-    old shape (the training step no longer takes it), with its bound by
-    ``k3_f64_bound`` and the library sweep in float64.
-    The kernels line takes p = 17."""
+    makes it). float32: ``bound_ms`` is the bound of the design on the
+    card's units (``mma_bound``: the TF32 products, the FP32 distance, the
+    exps at the special-function rate, the bytes), with the unit that
+    binds; ``fp32_bound_ms`` the bound by operations at the FP32 rate
+    alone (the exp charged as four flops), kept so that times against it
+    stay comparable with earlier runs. float64: ``k3_f64_bound``.
+    Returns the kernels line's three rows (p = 17, the tensor-core route;
+    p = 1, the FFMA route; float64 p = 17, the float64 route) and every
+    shape's numbers."""
     from stheno_torch.ops import gram_matvec as K3
 
     exps_per_s, mhz = sfu_exps_per_s()
@@ -983,7 +1062,7 @@ def _k3_times():
     shapes = {}
     for tag, rows, p, cols in (("p17", x, 17, x), ("p64", x, 64, x), ("p256", x, 256, x),
                                ("p1", x, 1, x), ("query4096_p1", xq, 1, x),
-                               ("p17_f64", x64, 17, x64)):
+                               ("p17_f64", x64, 17, x64), ("p1_f64", x64, 1, x64)):
         dtype = rows.dtype
         v = torch.randn(N_IT, p, generator=gen, device="cuda", dtype=dtype)
         n, m, d = rows.shape[0], N_IT, 1
@@ -1000,7 +1079,7 @@ def _k3_times():
             b_ms, b_unit = mma_bound(byts, n, m, d, p, exps_per_s)
             f_ms, f_by = bound(byts, n * m * (2 * d + 4 + 2 * p) + 2 * (n + m) * d, dtype)
             extra = {"fp32_bound_ms": f_ms, "fp32_bound_by": f_by}
-        slow = n * p > 8192 * 64
+        slow = n * p > 8192 * 64 or dtype == torch.float64
         call = lambda rows=rows, v=v, cols=cols: K3.gram_matvec("eq", rows, cols, v)  # noqa: E731
         shapes[tag] = {
             "shape": [n, m, d, p],
@@ -1016,7 +1095,10 @@ def _k3_times():
             "bound_by": "bytes" if b_unit == "bytes" else "operations",
             **extra,
         }
-    return {"name": "gram_matvec", **shapes["p17"], "sm_clock_mhz": mhz, "shapes": shapes}
+    rows = [{"name": name, **shapes[tag], "sm_clock_mhz": mhz}
+            for name, tag in (("gram_matvec_mma", "p17"), ("gram_matvec_ffma", "p1"),
+                              ("gram_matvec_dmma", "p17_f64"))]
+    return rows, shapes
 
 
 def k3_f64_bound(bytes_moved, n, m, d, p):
@@ -1296,8 +1378,8 @@ def phase_profile_iterative(state):
     a warm-up: device time by kernel, K3's and the fused Gram-gradient
     kernel's device time per launch, and the device busy share. Their
     device launches must match the wrappers' counts; every K3 launch must
-    be the CG's tensor-core one (no FFMA ``gmv_kernel``, the only route
-    float64 takes), the fused kernel must launch once and K1 not at
+    be the CG's tensor-core one (no FFMA ``gmv_kernel`` and no float64
+    ``gmv_dmma_kernel``), the fused kernel must launch once and K1 not at
     all."""
     from stheno_torch import entry as E
 
@@ -1311,7 +1393,8 @@ def phase_profile_iterative(state):
     _set_counts(saved)
     ffma_n, ffma_us = by_name.get("gmv_kernel", (0, 0.0))
     mma_n, mma_us = by_name.get("gmv_mma_kernel", (0, 0.0))
-    k3_n, k3_us = ffma_n + mma_n, ffma_us + mma_us
+    dmma_n, dmma_us = by_name.get("gmv_dmma_kernel", (0, 0.0))
+    k3_n, k3_us = ffma_n + mma_n + dmma_n, ffma_us + mma_us + dmma_us
     red_n, red_us = by_name.get("gmv_reduce", (0, 0.0))
     split_n, split_us = by_name.get("gmv_split_v", (0, 0.0))
     k1_n = by_name.get("gram_kernel", (0, 0.0))[0]
@@ -1321,12 +1404,13 @@ def phase_profile_iterative(state):
     vred_n, vred_us = by_name.get("gmv_vjp_reduce", (0, 0.0))
     check(split_n == mma_n, f"profiled gmv_split_v launches {split_n} != gmv_mma_kernel {mma_n}")
     check(k3_n == launches["gram_matvec"] >= 1,
-          f"profiled K3 launches {ffma_n} (gmv_kernel) + {mma_n} (gmv_mma_kernel) != "
-          f"wrapper count {launches['gram_matvec']}")
+          f"profiled K3 launches {ffma_n} (gmv_kernel) + {mma_n} (gmv_mma_kernel) + {dmma_n} "
+          f"(gmv_dmma_kernel) != wrapper count {launches['gram_matvec']}")
     check(mma_n >= 1, "the amortised step's CG sweep did not take the tensor-core K3")
-    check(ffma_n == 0 and launches["gram_matvec"] == mma_n,
-          f"the amortised step launched the FFMA K3 {ffma_n} times; K3's wrapper count "
-          f"{launches['gram_matvec']} against {mma_n} tensor-core launches")
+    check(ffma_n == 0 and dmma_n == 0 and launches["gram_matvec"] == mma_n,
+          f"the amortised step launched the FFMA K3 {ffma_n} and the float64 K3 {dmma_n} "
+          f"times; K3's wrapper count {launches['gram_matvec']} against {mma_n} tensor-core "
+          "launches")
     check(vjp_n == launches["gram_matvec_vjp"] == 1,
           f"profiled gmv_vjp_kernel and gmv_vjp_dmma_kernel launches {vjp_n} != wrapper count "
           f"{launches['gram_matvec_vjp']}")
@@ -1364,7 +1448,11 @@ def main():
         return 1
     from stheno_torch import config
 
-    config.pin_matmul_precision()
+    with config.matmul_precision_ctx():
+        return _run_phases()
+
+
+def _run_phases():
     seconds = {}
 
     def run(name, fn, *args):
@@ -1377,16 +1465,20 @@ def main():
     errs = {
         "gram": run("gram", phase_gram),
         "chol_tile": run("chol_tile", phase_chol_tile),
-        "gram_matvec": run("gram_matvec", phase_gram_matvec),
+        **run("gram_matvec", phase_gram_matvec),
         "gram_matvec_vjp": run("gram_matvec_vjp", phase_gram_matvec_vjp),
     }
     counts = run("main_path", phase_main_path)
     it_counts, state, cache, build_s = run("iterative_path", phase_iterative)
-    run("iterative_gates", phase_iterative_gates, state)
+    f64_counts = run("iterative_gates", phase_iterative_gates, state)
     # Each kernel's launches are those of the path it serves: K1 and K2
-    # on the main path, K3 and its backward on the matrix-free path.
-    path = {k: it_counts[k] for k in ("gram_matvec", "gram_matvec_vjp")}
+    # on the main path, K3's float32 routes and its backward on the
+    # matrix-free path, K3's float64 route on its float64 step.
+    path = {k: it_counts[k] for k in ("gram_matvec_mma", "gram_matvec_ffma", "gram_matvec_vjp")}
+    path["gram_matvec_dmma"] = f64_counts["gram_matvec_dmma"]
     kernels = run("times", phase_times, errs, {**counts, **path})
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    check(not idle, f"kernels that their path never launched: {idle}")
     run("iterative_times", phase_path_times, state, cache, build_s)
     run("profile", phase_profile)
     run("profile_iterative", phase_profile_iterative, state)

@@ -3,7 +3,9 @@
 Counterpart of ``stheno_tpu/config.py``: the dtype-aware Cholesky jitter,
 the escalating-jitter policy, the dense-Cholesky implementation policy and
 the cancellation-free distance switch, plus what only the PyTorch port
-needs: the default device and the float32 matmul-precision pin.
+needs: the default device and the float32 matmul precision that the
+library's numeric chokepoints set around their own work and restore on
+exit (:func:`pin_matmul_precision`).
 
 The default device is ``"cuda"``. Raw inputs (numpy arrays, Python
 scalars, lists) are placed on it; tensors keep their own device. When the
@@ -13,6 +15,7 @@ instead of running on the CPU: the CPU is used only when asked for
 """
 
 import contextlib
+import functools
 
 import torch
 
@@ -24,6 +27,9 @@ __all__ = [
     "set_cholesky_impl",
     "adaptive_jitter",
     "set_adaptive_jitter",
+    "matmul_precision",
+    "set_matmul_precision",
+    "matmul_precision_ctx",
     "pin_matmul_precision",
     "accurate_dists",
     "accurate_dists_enabled",
@@ -77,17 +83,72 @@ def set_cholesky_impl(value):
     cholesky_impl = value
 
 
-def pin_matmul_precision():
-    """Pin float32 products to full float32 on the card.
+#: Precision of the library's float32 products on the card, set around
+#: each numeric chokepoint and restored after it. TF32 keeps 10 mantissa
+#: bits, the analogue on Hopper of the single-bf16-pass hazard the JAX
+#: package measured on the TPU (an indefinite Gram, NaN NLML and gradients
+#: off by tens of percent; see ``stheno_tpu/config.py`` on
+#: ``matmul_precision``). "highest" (default): full float32, TF32 off in
+#: cuBLAS and cuDNN; "high" or "medium": torch's reduced float32
+#: precisions, TF32 allowed; ``None`` or "default": the caller's settings.
+matmul_precision = "highest"
 
-    TF32 keeps 10 mantissa bits, which is the analogue on Hopper of the
-    single-bf16-pass hazard the JAX package measured on the TPU (an
-    indefinite Gram, NaN NLML and gradients off by tens of percent; see
-    ``stheno_tpu/config.py`` on ``matmul_precision``). The library calls
-    this before it runs on the card; it is idempotent."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+_PRECISIONS = (None, "default", "highest", "high", "medium")
+
+
+def set_matmul_precision(value):
+    """Set the float32 matmul precision of the library's numerics (see
+    :data:`matmul_precision`)."""
+    global matmul_precision
+    if value not in _PRECISIONS:
+        raise ValueError(f"unknown matmul_precision {value!r}; expected one of {_PRECISIONS}")
+    matmul_precision = value
+
+
+def _set_float32_flags(precision, cuda_tf32, cudnn_tf32):
+    torch.set_float32_matmul_precision(precision)
+    # set_float32_matmul_precision already sets cuBLAS's flag; writing it
+    # again only where it differs keeps torch from seeing its legacy and
+    # new precision settings mixed.
+    if torch.backends.cuda.matmul.allow_tf32 != cuda_tf32:
+        torch.backends.cuda.matmul.allow_tf32 = cuda_tf32
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+@contextlib.contextmanager
+def matmul_precision_ctx():
+    """Context manager: :data:`matmul_precision` on entry
+    (``torch.set_float32_matmul_precision`` and the cuBLAS and cuDNN TF32
+    flags), the caller's settings restored on exit."""
+    if matmul_precision in (None, "default"):
+        yield
+        return
+    prev = (
+        torch.get_float32_matmul_precision(),
+        torch.backends.cuda.matmul.allow_tf32,
+        torch.backends.cudnn.allow_tf32,
+    )
+    tf32 = matmul_precision != "highest"
+    _set_float32_flags(matmul_precision, tf32, tf32)
+    try:
+        yield
+    finally:
+        _set_float32_flags(*prev)
+
+
+def pin_matmul_precision(fn):
+    """Decorator: run ``fn`` under :func:`matmul_precision_ctx`. Applied at
+    the library's numeric chokepoints (kernel evaluation, dense
+    factorisations and solves and their backwards, the iterative entry
+    points), so the pin holds there whatever the caller set, and nowhere
+    else."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with matmul_precision_ctx():
+            return fn(*args, **kwargs)
+
+    return wrapper
 
 
 #: When set, ``kernels.pw_dists2`` computes squared distances by direct
@@ -143,7 +204,6 @@ def resolve_device(value=None):
                 "available. Call stheno_torch.config.set_default_device('cpu') "
                 "(or pass device='cpu') to run on the CPU."
             )
-        pin_matmul_precision()
     return dev
 
 

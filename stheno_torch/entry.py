@@ -57,12 +57,12 @@ def _eq_model(params):
     return GP(s2 * EQ().stretch(ell)), noise
 
 
+@config.pin_matmul_precision
 def flagship_step(x, y, x_new, params, device=None):
     """NLML value and gradient + posterior marginals for an EQ GP.
 
     ``params`` holds ``log_ell``, ``log_s2`` and ``log_noise``. Returns
     ``(value, grads, mean, var)`` with ``grads`` a dict like ``params``."""
-    config.pin_matmul_precision()
     x, y, x_new = (config.as_tensor(a, device=device) for a in (x, y, x_new))
     leaves = {
         k: config.as_tensor(v, device=device).detach().requires_grad_(True)
@@ -111,9 +111,9 @@ def n2000_inputs(dtype=torch.float32, device=None):
     return x, y, torch.tensor(2.0, dtype=dtype, device=x.device)
 
 
+@config.pin_matmul_precision
 def nlml_n2000(x, y, ell, grad=False):
     """The headline NLML: its value, or ``(value, d value / d ell)``."""
-    config.pin_matmul_precision()
     if not grad:
         with torch.no_grad():
             return periodic_nlml(x, y, ell)

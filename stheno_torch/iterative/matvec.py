@@ -168,6 +168,7 @@ def _tile_product(k, xb, xc, v2):
     return dense(pairwise(k, xb, xc)) @ v2
 
 
+@config.pin_matmul_precision
 def kernel_matvec(
     k,
     x,

@@ -34,6 +34,7 @@ import warnings
 
 import torch
 
+from .. import config
 from ..kernels.eval import elwise, pairwise
 from ..kernels.util import uprank
 from ..matrix import dense
@@ -74,6 +75,7 @@ def _default_generator(device):
     return torch.Generator(device=device).manual_seed(0)
 
 
+@config.pin_matmul_precision
 def eig_precond_state(
     kernel_fn, params, x, rank, generator=None, *, power_iters=1, block=4096,
     init=None, dtype=None,
@@ -270,6 +272,7 @@ class _NLMLFunction(torch.autograd.Function):
         return nlml
 
     @staticmethod
+    @config.pin_matmul_precision
     def backward(ctx, g):
         noise, x, alpha, U, w, *leaves = ctx.saved_tensors
         need = ctx.needs_input_grad
@@ -306,6 +309,7 @@ def _nlml(params, y, noise, x, u, om, pstate, kernel_fn, cg_tol, max_cg_iters, q
     return val, cfg.health
 
 
+@config.pin_matmul_precision
 def iterative_nlml(
     kernel_fn,
     params,
@@ -366,6 +370,7 @@ def _compensated_matvec_missing(v):
     raise not_ported("The compensated (two-float) matvec")
 
 
+@config.pin_matmul_precision
 def posterior_weights(kernel_fn, params, x, y, noise, *, cg_tol=1e-6, max_cg_iters=1000,
                       precond_rank=64, precond_state=None, block=4096, compensated="auto"):
     """Representer weights ``alpha = (K + noise I)^{-1} y`` by matrix-free
@@ -389,6 +394,7 @@ def posterior_weights(kernel_fn, params, x, y, noise, *, cg_tol=1e-6, max_cg_ite
         return batched_cg(mv, y, tol=cg_tol, max_iters=max_cg_iters)
 
 
+@config.pin_matmul_precision
 def cached_posterior_mean(kernel_fn, params, x, alpha, x_new, *, block=4096):
     """Posterior mean at ``x_new`` from prebuilt representer weights
     ``alpha`` (:func:`posterior_weights`): ``k(x_new, x) @ alpha`` as a
@@ -398,6 +404,7 @@ def cached_posterior_mean(kernel_fn, params, x, alpha, x_new, *, block=4096):
     return kernel_matvec(k, uprank(x_new), alpha, x_cols=uprank(x), block=block)
 
 
+@config.pin_matmul_precision
 def iterative_posterior_mean(kernel_fn, params, x, y, noise, x_new, *, cg_tol=1e-6,
                              max_cg_iters=1000, precond_rank=64, precond_state=None,
                              block=4096):
@@ -410,6 +417,7 @@ def iterative_posterior_mean(kernel_fn, params, x, y, noise, x_new, *, cg_tol=1e
     return cached_posterior_mean(kernel_fn, params, x, alpha, x_new, block=block), info
 
 
+@config.pin_matmul_precision
 def iterative_posterior_var(kernel_fn, params, x, y, noise, x_new, *, cg_tol=1e-6,
                             max_cg_iters=1000, precond_rank=64, precond_state=None,
                             block=4096, chunk=512, mode="scan", compensated="auto"):

@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import config
 from ..kernels.eval import elwise, pairwise
 from ..kernels.util import uprank
 from ..matrix import dense
@@ -53,6 +54,7 @@ class VarianceCache(NamedTuple):
     tau: torch.Tensor
 
 
+@config.pin_matmul_precision
 def variance_cache(
     kernel_fn,
     params,
@@ -173,6 +175,7 @@ def _chunk_terms(U, S, M, Kxc):
     return in_span, out_sq
 
 
+@config.pin_matmul_precision
 def cached_posterior_var(kernel_fn, params, x, cache, x_new, *, chunk=1024, clamp=True):
     """Posterior variance diagonal at ``x_new`` from a
     :class:`VarianceCache`: per chunk of ``c`` test points one ``(n, c)``
@@ -189,6 +192,7 @@ def cached_posterior_var(kernel_fn, params, x, cache, x_new, *, chunk=1024, clam
     return torch.clamp_min(out, 0.0) if clamp else out
 
 
+@config.pin_matmul_precision
 def cached_posterior_mean_var(kernel_fn, params, x, alpha, cache, x_new, *, chunk=1024,
                               clamp=True):
     """Fused ``(mean, var)`` at ``x_new`` from representer weights

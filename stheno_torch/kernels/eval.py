@@ -13,6 +13,7 @@ import numbers
 import numpy as np
 import torch
 
+from .. import config
 from ..matrix import is_structured
 from .kernel import Kernel, SumKernel
 from .mean import Mean
@@ -37,6 +38,7 @@ def _process(x):
     return x
 
 
+@config.pin_matmul_precision
 def pairwise(k: Kernel, x, y=None):
     """Gram matrix of ``k`` between ``x`` and ``y`` (default ``y = x``),
     returned as a structured matrix."""
@@ -45,6 +47,7 @@ def pairwise(k: Kernel, x, y=None):
     return k._pairwise(x, y)
 
 
+@config.pin_matmul_precision
 def elwise(k: Kernel, x, y=None):
     """Elementwise kernel evaluation ``(..., n, 1)``."""
     x = _process(x)

@@ -466,6 +466,7 @@ def _lower_with_inv(pair):
     return tri
 
 
+@config.pin_matmul_precision
 def cholesky(a):
     """Lower Cholesky factor, with the configured jitter for dense
     factorisations. Cached per matrix object; the jitter settings and the
@@ -496,6 +497,7 @@ def _solve_triangular(tri, b, lower):
     return torch.linalg.solve_triangular(tri.mat, b_arr, upper=not lower)
 
 
+@config.pin_matmul_precision
 def solve(a, b):
     """``a^{-1} b``. A 1-D ``b`` is one column and comes back 1-D."""
     _ext = _try_ext("solve", a, b)
@@ -572,6 +574,7 @@ class _LogdetChol(torch.autograd.Function):
         return 2 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
 
     @staticmethod
+    @config.pin_matmul_precision
     def backward(ctx, g):
         L, Linv = ctx.saved_tensors
         return g[..., None, None] * _kinv_from_chol(L, Linv), None, None
@@ -590,6 +593,7 @@ class _IqfDiagChol(torch.autograd.Function):
         return torch.sum(lb * lc, dim=-2)
 
     @staticmethod
+    @config.pin_matmul_precision
     def backward(ctx, g):
         L, Linv, b, c = ctx.saved_tensors
         ab = _chol_apply_inv(L, Linv, b)
@@ -616,6 +620,7 @@ class _IqfChol(torch.autograd.Function):
         return _t(lb) @ lc
 
     @staticmethod
+    @config.pin_matmul_precision
     def backward(ctx, g):
         L, Linv, b, c = ctx.saved_tensors
         ab = _chol_apply_inv(L, Linv, b)
@@ -638,6 +643,7 @@ class _SolveChol(torch.autograd.Function):
         return x
 
     @staticmethod
+    @config.pin_matmul_precision
     def backward(ctx, g):
         L, Linv, x = ctx.saved_tensors
         # x = A^{-1} b: bbar = A^{-1} g; Abar = -sym(bbar x^T).
@@ -657,6 +663,7 @@ def _as_col_operand(b):
 _CLOSED_FORM = (Diagonal, LowerTriangular, UpperTriangular)
 
 
+@config.pin_matmul_precision
 def iqf(a, b, c=None):
     """Inner quadratic form ``b^T a^{-1} c`` (``c`` defaults to ``b``) as a
     :class:`Dense`. 1-D operands are single columns."""
@@ -676,6 +683,7 @@ def iqf(a, b, c=None):
     return Dense(_IqfChol.apply(*_chol_arrays(a), b_arr, c_arr, sym))
 
 
+@config.pin_matmul_precision
 def iqf_diag(a, b, c=None):
     """``diag(b^T a^{-1} c)`` as a vector ``(..., m)``."""
     b = _as_col_operand(b)
@@ -694,6 +702,7 @@ def iqf_diag(a, b, c=None):
     return _IqfDiagChol.apply(*_chol_arrays(a), b_arr, c_arr, sym)
 
 
+@config.pin_matmul_precision
 def logdet(a):
     """Log-determinant."""
     _ext = _try_ext("logdet", a)

@@ -96,8 +96,10 @@ def _declare(lib):
     lib.stheno_gram.restype = i
     lib.stheno_chol_tile.argtypes = [p, p, p, p, p, i, p]
     lib.stheno_chol_tile.restype = i
-    lib.stheno_gram_matvec.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, i, i, d, p]
+    lib.stheno_gram_matvec.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, d, p]
     lib.stheno_gram_matvec.restype = i
+    lib.stheno_gram_matvec_dmma.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, d, p]
+    lib.stheno_gram_matvec_dmma.restype = i
     lib.stheno_gram_matvec_mma.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, d, p]
     lib.stheno_gram_matvec_mma.restype = i
     lib.stheno_gram_matvec_vjp.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, d, i, i,

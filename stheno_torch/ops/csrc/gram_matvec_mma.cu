@@ -421,8 +421,5 @@ extern "C" int stheno_gram_matvec_mma(int kind, const void* x_, const void* y_, 
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const size_t outs = (size_t)n * p;
-  const int blocks = (int)((outs + 255) / 256 < 4096 ? (outs + 255) / 256 : 4096);
-  gmv_reduce<float><<<blocks, 256, 0, s>>>(work, out, outs, splits);
-  return (int)cudaGetLastError();
+  return (int)reduce_splits<float>(work, out, (size_t)n * p, splits, s);
 }

@@ -7,17 +7,27 @@ Gram:
 
 - on CUDA tensors it launches a hand-written kernel, which replaces the
   TPU kernel ``stheno_tpu/ops/gram_matvec.py:_gmv_kernel``. :func:`route`
-  picks it: float32 with ``p >= 17`` takes the tensor-core kernel of
-  ``csrc/gram_matvec_mma.cu`` (a split-precision 3xTF32 product, p padded
-  to 24, 32, 64 or 128 columns per block), everything else (float32 with
-  ``p <= 16``, where the exp per entry and not the product sets the floor,
-  and float64) the FFMA kernel of ``csrc/gram_matvec.cu``. See the
-  sources' headers for what bounds each;
+  picks it from the shapes and the dtype:
+
+  - ``"mma"``, float32 with ``p >= 17``: the tensor-core kernel of
+    ``csrc/gram_matvec_mma.cu`` (a split-precision 3xTF32 product, p
+    padded to 24, 32, 64 or 128 columns per block);
+  - ``"ffma"``, float32 with ``p <= 16``, where the exp per entry and not
+    the product sets the floor: the FFMA kernel of ``csrc/gram_matvec.cu``,
+    whose exp kinds run in base 2 on the special-function unit, their
+    constant folded into x and y;
+  - ``"dmma"``, float64 at every p: ``csrc/gram_matvec_f64.cu``, each entry
+    built in float64 as its own FP64 tensor-core fragment (p padded to a
+    multiple of 8, or one column of p = 8 k + 1 on DFMA), with an exp
+    written for the epilogue's arguments.
+
+  See the sources' headers for what bounds each;
 - on CPU tensors it runs :func:`gram_matvec_plain`, blocked
   ``gram_plain(kind, x_b, y) @ v`` in plain torch, which is also what the
-  tests and ``chip_smoke.py`` compare the kernel with.
-  :func:`gram_matvec_split_plain` emulates the tensor-core kernel's
-  arithmetic for the tests; nothing on the path calls it.
+  tests and ``chip_smoke.py`` compare the kernels with.
+  :func:`gram_matvec_split_plain` and :func:`gram_matvec_ex2_plain` emulate
+  the float32 kernels' arithmetic for the tests; nothing on the path calls
+  them.
 
 float32 and float64, all six kinds of :data:`~stheno_torch.ops.gram.KINDS`.
 Forward only, as in the JAX package: a call through which a gradient would
@@ -26,9 +36,10 @@ flow raises; nothing is detached silently. The differentiable product is
 and whose backward is the fused Gram-gradient kernel.
 
 The route and launch shape are chosen here, in Python, so that the CPU
-tests reach them: :func:`route` picks the kernel and :func:`launch_shape`
-/ :func:`mma_launch_shape` how many output columns a thread or block
-holds and how the column sweep is split across blocks.
+tests reach them: :func:`route` picks the kernel and :func:`launch_shape`,
+:func:`mma_launch_shape` and :func:`dmma_launch_shape` how many output
+columns a thread or block holds and how the column sweep is split across
+blocks.
 """
 
 import math
@@ -39,66 +50,85 @@ from . import _build
 from .gram import KINDS, gram_plain
 
 __all__ = [
+    "dmma_launch_shape",
     "gram_matvec",
+    "gram_matvec_ex2_plain",
     "gram_matvec_plain",
     "gram_matvec_split_plain",
     "launch_shape",
     "launches",
     "mma_launch_shape",
     "route",
+    "route_launches",
 ]
 
-#: Number of launches of either CUDA kernel in this process.
+#: Number of launches of K3's kernels in this process.
 launches = 0
+#: The same by route (:func:`route`): their sum is :data:`launches`.
+route_launches = {"mma": 0, "ffma": 0, "dmma": 0}
 
-_THREADS = 128  # threads per block, as kThreads in csrc/gram_matvec.cu
+_THREADS = 128  # threads per block of the FFMA kernel, as kThreads in csrc/gram_matvec.cu
 _TN = 64  # columns staged per pass, as kTN
 _TARGET_BLOCKS = 8 * 132  # eight blocks for each SM of an H100
 _MIN_SPAN = 1024  # the fewest columns a column split sweeps
 _MMA_MIN_P = 17  # float32 from this width on takes the tensor cores
 _MMA_ROWS = 128  # rows per block of the tensor-core kernel (kWgRows)
-_MMA_TARGET_BLOCKS = 4 * 132  # four of its blocks for each SM of an H100
+_MMA_TARGET_BLOCKS = 4 * 132  # four blocks of either tensor-core kernel for each SM of an H100
+_DMMA_WIDTHS = (8, 16, 24, 32, 64)  # output columns per block of the float64 kernel
+_DMMA_ROWS = 64  # its rows per block (kDmmaRows)
 
 
 def _width(p):
-    """Output columns a thread accumulates (the kernel's ``PC``)."""
-    for pc in (1, 4, 8, 16):
-        if p <= pc:
-            return pc
-    return 32
+    """Output columns a thread of the FFMA kernel accumulates (its
+    ``PC``), for ``p <= 16``."""
+    return next(pc for pc in (1, 4, 8, 16) if p <= pc)
 
 
-def _rows_per_thread(pc, itemsize):
-    """Rows a thread owns (the kernel's ``rows_per_thread``)."""
-    return max(1, min(4, 256 // (pc * itemsize)))
+def _rows_per_thread(pc):
+    """Rows a thread of the FFMA kernel owns (its ``rows_per_thread``)."""
+    return max(1, min(4, 64 // pc))
 
 
-def launch_shape(n, m, p, itemsize):
-    """``(pc, span, splits)`` of a launch: ``pc`` output columns per
-    thread, and the column sweep split into ``splits`` ranges of ``span``
-    columns where the row blocks times the p-splits alone would leave the
-    card short of blocks. Depends on the shapes only, so one shape always
-    sums in the same order."""
-    pc = _width(p)
-    rows = _THREADS * _rows_per_thread(pc, itemsize)
-    blocks = math.ceil(n / rows) * math.ceil(p / pc)
-    want = math.ceil(_TARGET_BLOCKS / blocks)
+def _split_columns(m, blocks, target):
+    """``(span, splits)``: the column sweep split into ``splits`` ranges of
+    ``span`` columns (a multiple of 64) where ``blocks`` alone would leave
+    the card short of ``target`` blocks; a range sweeps at least about
+    1024 columns. Depends on the shapes only, so one shape always sums in
+    the same order."""
+    want = math.ceil(target / blocks)
     splits = max(1, min(want, math.ceil(m / _MIN_SPAN), 65535))
     span = math.ceil(math.ceil(m / splits) / _TN) * _TN
-    return pc, span, math.ceil(m / span)
+    return span, math.ceil(m / span)
+
+
+def launch_shape(n, m, p):
+    """``(pc, span, splits)`` of a float32 FFMA launch (``p <= 16``):
+    ``pc`` output columns per thread and the column split."""
+    pc = _width(p)
+    rows = _THREADS * _rows_per_thread(pc)
+    return (pc, *_split_columns(m, math.ceil(n / rows), _TARGET_BLOCKS))
 
 
 def mma_launch_shape(n, m, p):
     """``(nb, span, splits)`` of a tensor-core launch: ``nb`` output
     columns per block (p padded to 24, 32, 64 or 128; wider p splits over
-    blocks of 128), and the column sweep split as in :func:`launch_shape`.
-    Depends on the shapes only."""
+    blocks of 128), and the column split."""
     nb = next(w for w in (24, 32, 64, 128) if p <= w or w == 128)
     blocks = math.ceil(n / _MMA_ROWS) * math.ceil(p / nb)
-    want = math.ceil(_MMA_TARGET_BLOCKS / blocks)
-    splits = max(1, min(want, math.ceil(m / _MIN_SPAN), 65535))
-    span = math.ceil(math.ceil(m / splits) / _TN) * _TN
-    return nb, span, math.ceil(m / span)
+    return (nb, *_split_columns(m, blocks, _MMA_TARGET_BLOCKS))
+
+
+def dmma_launch_shape(n, m, p):
+    """``(nb, span, splits)`` of a float64 launch: ``nb`` output columns
+    per block (p padded to 8, 16, 24, 32 or 64, wider p split over blocks
+    of 64; but p = 1, 9, 17, 25 or 33 exactly, its last column on DFMA),
+    and the column split."""
+    if p % 8 == 1 and p <= 33:
+        nb = p
+    else:
+        nb = next(w for w in _DMMA_WIDTHS if p <= w or w == _DMMA_WIDTHS[-1])
+    blocks = math.ceil(n / _DMMA_ROWS) * math.ceil(p / nb)
+    return (nb, *_split_columns(m, blocks, _MMA_TARGET_BLOCKS))
 
 
 def _mma_split_floats(m, p, nb):
@@ -108,12 +138,15 @@ def _mma_split_floats(m, p, nb):
 
 
 def route(n, m, p, dtype):
-    """``(kernel, width, span, splits)`` of a launch: ``"mma"`` (the
-    tensor-core kernel, ``width`` columns per block) for float32 with
+    """``(kernel, width, span, splits)`` of a launch: ``"dmma"`` (the
+    float64 kernel, ``width`` columns per block) for float64, ``"mma"``
+    (the tensor-core kernel, ``width`` columns per block) for float32 with
     ``p >= 17``, else ``"ffma"`` (``width`` columns per thread)."""
-    if dtype == torch.float32 and p >= _MMA_MIN_P:
+    if dtype == torch.float64:
+        return ("dmma", *dmma_launch_shape(n, m, p))
+    if p >= _MMA_MIN_P:
         return ("mma", *mma_launch_shape(n, m, p))
-    return ("ffma", *launch_shape(n, m, p, torch.finfo(dtype).bits // 8))
+    return ("ffma", *launch_shape(n, m, p))
 
 
 def _tf32(z):
@@ -151,6 +184,45 @@ def gram_matvec_split_plain(kind, x, y, v, alpha=1.0, block=4096):
     return torch.cat(out, dim=0) if out else v.new_zeros((0, v.shape[1]))
 
 
+#: The factor the float32 FFMA kernel folds into x and y
+#: (``csrc/gram_matvec.cu:prescale``): the scaled d2 (eq) or distance
+#: (the Matérns) is the exponent of 2. rq and linear keep their arithmetic.
+_PRESCALE = {
+    "eq": math.sqrt(0.5 / math.log(2)),
+    "matern12": 1 / math.log(2),
+    "matern32": math.sqrt(3) / math.log(2),
+    "matern52": math.sqrt(5) / math.log(2),
+}
+
+
+def gram_matvec_ex2_plain(kind, x, y, v, alpha=1.0):
+    """Plain emulation of the float32 FFMA kernel's arithmetic: x and y
+    scaled by :data:`_PRESCALE` in float32, the norms and the inner product
+    by one multiply-add chain over the depth (so d2 is exactly 0 where x is
+    y), and the exp kinds in base 2, ``torch.exp2`` standing in for
+    ``ex2.approx``; rq and linear as :func:`gram_plain`. For the tests;
+    nothing on the path calls it."""
+    if kind not in _PRESCALE:
+        return gram_plain(kind, x, y, alpha) @ v
+    c = torch.tensor(_PRESCALE[kind], dtype=x.dtype)
+    xs, ys = x * c, y * c
+    xn = torch.zeros(x.shape[0], dtype=x.dtype)
+    yn = torch.zeros(y.shape[0], dtype=x.dtype)
+    inner = torch.zeros((x.shape[0], y.shape[0]), dtype=x.dtype)
+    for k in range(x.shape[1]):
+        xn = xn + xs[:, k] * xs[:, k]
+        yn = yn + ys[:, k] * ys[:, k]
+        inner = inner + xs[:, k, None] * ys[None, :, k]
+    d2 = torch.clamp_min((xn[:, None] + yn[None, :]) - 2 * inner, 0.0)
+    if kind == "eq":
+        return torch.exp2(-d2) @ v
+    d = torch.sqrt(d2 + 1e-36)
+    e = torch.exp2(-d)
+    r = d * math.log(2)
+    poly = {"matern12": 1.0, "matern32": 1 + r, "matern52": 1 + r + r * r / 3}[kind]
+    return (poly * e) @ v
+
+
 def gram_matvec_plain(kind, x, y, v, alpha=1.0, block=4096):
     """Plain torch version: ``gram_plain(kind, x_b, y) @ v`` over row
     blocks of ``block`` rows, so at most a ``(block, m)`` tile is held."""
@@ -184,11 +256,13 @@ def _launch(kind, x, y, v, alpha):
                                  device=x.device)
             code = lib.stheno_gram_matvec_mma(KINDS.index(kind), *ptrs, vsplit.data_ptr(),
                                               *dims, stream)
+        elif kernel == "dmma":
+            code = lib.stheno_gram_matvec_dmma(KINDS.index(kind), *ptrs, *dims, stream)
         else:
-            code = lib.stheno_gram_matvec(KINDS.index(kind), int(x.dtype == torch.float64),
-                                          *ptrs, *dims, stream)
+            code = lib.stheno_gram_matvec(KINDS.index(kind), *ptrs, *dims, stream)
     _build.check(code, f"gram_matvec ({kernel})")
     launches += 1
+    route_launches[kernel] += 1
     return out
 
 

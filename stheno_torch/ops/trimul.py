@@ -4,7 +4,8 @@ Counterpart of ``stheno_tpu/ops/trimul.py``. A dense product by a
 triangular matrix, or a symmetric product, pays for known zeros or for
 the mirrored half. These helpers recover the factor of two by plain block
 recursion: every leaf is an ordinary ``torch.matmul`` (full float32 on the
-card: ``config.pin_matmul_precision`` keeps TF32 off), the recursion never
+card: the chokepoints that call them run under
+``config.pin_matmul_precision``, which keeps TF32 off), the recursion never
 multiplies into a known-zero block and computes symmetric outputs once.
 
 - :func:`mul_att` / :func:`mul_at` / :func:`mul_ta` — ``A T^T``, ``A T``,

@@ -94,19 +94,19 @@ def test_cpu_call_launches_no_kernel():
 
 
 @pytest.mark.parametrize(
-    "n, m, p, itemsize",
+    "n, m, p, dtype",
     [
-        (262_144, 262_144, 17, 4),
-        (262_144, 262_144, 256, 4),
-        (8192, 262_144, 1, 4),
-        (4096, 262_144, 1, 4),
-        (3000, 2500, 5, 8),
-        (37, 23, 5, 4),
+        (262_144, 262_144, 17, torch.float32),
+        (262_144, 262_144, 256, torch.float32),
+        (8192, 262_144, 1, torch.float32),
+        (4096, 262_144, 1, torch.float32),
+        (3000, 2500, 5, torch.float64),
+        (37, 23, 5, torch.float32),
     ],
 )
-def test_launch_shape_covers_every_column_once(n, m, p, itemsize):
-    pc, span, splits = tgmv.launch_shape(n, m, p, itemsize)
-    assert pc in (1, 4, 8, 16, 32) and (pc >= p or pc == 32)
+def test_launch_shape_covers_every_column_once(n, m, p, dtype):
+    kernel, width, span, splits = tgmv.route(n, m, p, dtype)
+    assert width >= p or kernel != "ffma"
     assert span % 64 == 0 and 1 <= splits <= 65535
     # Every column lies in exactly one split, and no split is empty.
     assert span * splits >= m and span * (splits - 1) < m
@@ -139,20 +139,56 @@ def test_build_digest_follows_sources_and_headers(tmp_path):
         (17, torch.float32, "mma", 24),
         (64, torch.float32, "mma", 64),
         (256, torch.float32, "mma", 128),
-        (1, torch.float64, "ffma", 1),
-        (16, torch.float64, "ffma", 16),
-        (17, torch.float64, "ffma", 32),
-        (64, torch.float64, "ffma", 32),
-        (256, torch.float64, "ffma", 32),
+        (1, torch.float64, "dmma", 1),
+        (16, torch.float64, "dmma", 16),
+        (17, torch.float64, "dmma", 17),
+        (64, torch.float64, "dmma", 64),
+        (256, torch.float64, "dmma", 64),
     ],
 )
 def test_route_by_width_and_dtype(p, dtype, kernel, width):
     # float32 from p = 17 on takes the tensor cores with p padded to 24
-    # (not 32) and wider p in blocks of up to 128; float32 p <= 16 and
-    # float64 stay on the FFMA kernel.
+    # (not 32) and wider p in blocks of up to 128; float32 p <= 16 the FFMA
+    # kernel; float64 the FP64 tensor cores at every p, padded to a
+    # multiple of 8, wider p in blocks of 64, but p = 8 k + 1 up to 33
+    # exactly (its last column on DFMA).
     got, w, span, splits = tgmv.route(262_144, 262_144, p, dtype)
     assert (got, w) == (kernel, width)
     assert span % 64 == 0 and span * splits >= 262_144 and span * (splits - 1) < 262_144
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [1, 5, 16, 17, 24, 33])
+def test_ffma_and_dmma_launch_shapes_are_deterministic(p, dtype):
+    # The float64 route at every p and the float32 one at p <= 16: the
+    # width each block or thread holds, rows per block that tile n, and a
+    # column split that depends on the shapes alone (the same sums in the
+    # same order on every call, as CG needs).
+    for n, m in ((262_144, 262_144), (8192, 262_144), (4096, 262_144), (37, 23)):
+        got = tgmv.route(n, m, p, dtype)
+        assert got == tgmv.route(n, m, p, dtype)
+        kernel, width, span, splits = got
+        if dtype == torch.float64:
+            assert kernel == "dmma" and got[1:] == tgmv.dmma_launch_shape(n, m, p)
+            if p % 8 == 1 and p <= 33:
+                assert width == p
+            else:
+                assert width in (8, 16, 24, 32, 64)
+                assert width == min(64, -(-p // 8) * 8) or (p > 32 and width == 64)
+            rows = tgmv._DMMA_ROWS
+        elif p <= 16:
+            assert kernel == "ffma" and got[1:] == tgmv.launch_shape(n, m, p)
+            assert width in (1, 4, 8, 16) and width >= p
+            rows = tgmv._THREADS * tgmv._rows_per_thread(width)
+            assert rows == 512
+        else:
+            assert kernel == "mma"
+            continue
+        blocks = -(-n // rows) * -(-p // width)
+        assert span % 64 == 0 and span * splits >= m and span * (splits - 1) < m
+        # Split only where the row blocks leave the card short.
+        target = tgmv._MMA_TARGET_BLOCKS if kernel == "dmma" else tgmv._TARGET_BLOCKS
+        assert splits == 1 or blocks * (splits - 1) < target
 
 
 @pytest.mark.parametrize("n, m, p", [(262_144, 262_144, 17), (8192, 262_144, 64), (3000, 2500, 17)])
@@ -189,3 +225,35 @@ def test_split_product_emulation_within_card_tolerance(kind, p):
     tol = 8 * math.sqrt(2048) * torch.finfo(torch.float32).eps
     assert out.dtype == torch.float32 and out.shape == (512, p)
     assert float(((out.double() - ref).abs() / scale).max()) <= tol
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_ex2_emulation_matches_pallas_interpret(kind):
+    """The float32 FFMA kernel's arithmetic (prescaled inputs, base-2 exps
+    with exp2 for ex2.approx) against the Pallas kernel in interpret mode
+    at a small ragged shape, within the tolerance chip_smoke.py holds the
+    card's K3 to: 8 sqrt(m) eps of |G| @ |v| (the float64 Gram)."""
+    r = np.random.RandomState(4)
+    x = r.randn(37, 2).astype(np.float32)
+    y = r.randn(29, 2).astype(np.float32)
+    v = r.randn(29, 3).astype(np.float32)
+    ref = jgram_matvec(kind, jnp.asarray(x), jnp.asarray(y), jnp.asarray(v), alpha=1.3,
+                       interpret=True)
+    out = tgmv.gram_matvec_ex2_plain(kind, torch.tensor(x), torch.tensor(y), torch.tensor(v),
+                                     1.3)
+    G64 = gram_plain(kind, torch.tensor(x).double(), torch.tensor(y).double(), 1.3)
+    scale = np_(G64.abs() @ torch.tensor(v).double().abs())
+    tol = 8 * math.sqrt(29) * np.finfo(np.float32).eps
+    assert out.dtype == torch.float32 and out.shape == (37, 3)
+    assert float((np.abs(np_(out) - np_(ref)) / scale).max()) <= tol
+
+
+@pytest.mark.parametrize("kind", ["eq", "matern12", "matern32", "matern52"])
+def test_ex2_emulation_diagonal_is_exactly_g0(kind):
+    # x is y: the prescaled norms and inner product share one chain, so d2
+    # is exactly 0 and the diagonal exactly g(0) = 1, at depth 1 and 3.
+    r = np.random.RandomState(5)
+    for d in (1, 3):
+        x = torch.tensor(r.randn(40, d).astype(np.float32) * 3)
+        G = tgmv.gram_matvec_ex2_plain(kind, x, x, torch.eye(40))
+        assert bool((torch.diagonal(G) == 1).all())
