@@ -63,6 +63,11 @@ KERNELS = {
         "source": "stheno_torch/ops/csrc/gram.cu",
         "replaces": "stheno_tpu/ops/gram.py:92",
     },
+    # K1's backward: the JAX package's _gram_bwd is XLA (the W-trick).
+    "gram_bwd": {
+        "source": "stheno_torch/ops/csrc/gram_bwd.cu",
+        "replaces": "stheno_tpu/ops/gram.py:198",
+    },
     "chol_tile": {
         "source": "stheno_torch/ops/csrc/chol_tile.cu",
         "replaces": "stheno_tpu/ops/pallas_chol.py:112",
@@ -219,13 +224,18 @@ def _warped(n, ell=2.0):
 
 def _gram_atol(kind, x, y):
     """Tolerance of the kernel against the plain version. Both compute
-    d2 = |x|^2 + |y|^2 - 2 x.y with depth d, whose rounding differs by up
-    to dd2 = 4 d eps (max |x|^2 + max |y|^2). EQ and RQ have |dg/dd2| <=
-    1/2; the Matérn kinds take sqrt(d2), which turns dd2 into up to
-    sqrt(dd2) near d2 = 0 (their |dg/dd| <= 1); linear differs by the
-    inner product's rounding, 2 d eps max|x| max|y|."""
-    eps = torch.finfo(x.dtype).eps
+    d2 = |x|^2 + |y|^2 - 2 x.y with depth d in the arithmetic dtype
+    (float32 for bfloat16), whose rounding differs by up to dd2 = 4 d eps
+    (max |x|^2 + max |y|^2). EQ and RQ have |dg/dd2| <= 1/2; the Matérn
+    kinds take sqrt(d2), which turns dd2 into up to sqrt(dd2) near d2 = 0
+    (their |dg/dd| <= 1); linear differs by the inner product's rounding,
+    2 d eps max|x| max|y|. bfloat16 adds its one rounding of the result
+    (``_bf16_tol``)."""
+    from stheno_torch.ops.gram import arith_dtype
+
+    eps = torch.finfo(arith_dtype(x.dtype)).eps
     d = x.shape[1]
+    x, y = x.double(), y.double()
     xn, yn = (x * x).sum(1).max().item(), (y * y).sum(1).max().item()
     dd2 = 4 * d * eps * (xn + yn)
     if kind == "linear":
@@ -235,60 +245,197 @@ def _gram_atol(kind, x, y):
     return 0.5 * dd2 + 4 * eps
 
 
+def _bf16_tol(tol, ref):
+    """A tolerance in float32 arithmetic widened by one bfloat16 rounding of
+    the result: kernel and plain version each round once, so their results
+    are equal or adjacent, at most 2^-7 of the value apart."""
+    return tol + 2.0**-7 * (ref.double().abs() + tol)
+
+
+def _bwd_tols(kind, x, y, gbar, alpha, block=512):
+    """Per-entry tolerances ``(xbar, ybar, dalpha)`` of K1's backward
+    against its plain version, in float64. The two sum the same terms in
+    other orders (8 sqrt(terms) eps of the terms' absolute sum, as K3's
+    tolerance) from d2 that each rounds within dd2 = 4 d eps (|x_i|^2 +
+    |y_j|^2) of the exact one (``_gram_atol``), so each term's W may differ
+    by |g'(d2 - dd2) - g'(d2 + dd2)| (g' is monotone in d2 for every kind),
+    and rq's alpha factor h by |h(d2 +- dd2) - h(d2)|. Near d2 = 0 that
+    spread is as large as the gradient of Matérn-1/2 is ill-conditioned
+    there, in the JAX package's formula too."""
+    from stheno_torch.ops.gram import _alpha_factor, _apply_kind, _g_prime, arith_dtype
+
+    eps = torch.finfo(arith_dtype(x.dtype)).eps
+    n, d = x.shape
+    m = y.shape[0]
+    xf, yf = x.double(), y.double()
+    a = torch.as_tensor(float(alpha), dtype=torch.float64, device=x.device)
+    rx, ry, ra = (8 * math.sqrt(k) * eps for k in (m, n, n * m))
+    tx, ty, ta = torch.zeros_like(xf), torch.zeros_like(yf), 0.0
+    yn = (yf * yf).sum(1)
+
+    def gp(t):
+        return _g_prime(kind, t, _apply_kind(kind, t, None, a), a)
+
+    def h(t):
+        return _alpha_factor(t, _apply_kind(kind, t, None, a), a)
+
+    for s in range(0, n, block):
+        xb, gb = xf[s:s + block], gbar[s:s + block].double().abs()
+        if kind == "linear":
+            tx[s:s + block] = rx * (gb @ yf.abs())
+            ty += ry * (gb.T @ xb.abs())
+            continue
+        diff = xb[:, None, :] - yf[None, :, :]
+        d2 = (diff * diff).sum(-1)
+        dd2 = 4 * d * eps * ((xb * xb).sum(1)[:, None] + yn[None, :])
+        g0 = gp(d2)
+        spread = (gp(d2 + dd2) - gp(torch.clamp_min(d2 - dd2, 0.0))).abs()
+        tx[s:s + block] = 2 * torch.einsum("ij,ijk->ik", gb * (g0.abs() * rx + spread), diff.abs())
+        ty += 2 * torch.einsum("ij,ijk->jk", gb * (g0.abs() * ry + spread), diff.abs())
+        if kind == "rq":
+            h0 = h(d2)
+            dh = (h(d2 + dd2) - h0).abs() + (h(torch.clamp_min(d2 - dd2, 0.0)) - h0).abs()
+            ta += float((gb * (h0.abs() * ra + dh)).sum())
+    return tx, ty, ta
+
+
+def _hold(got, ref, tol, what):
+    """``got`` within ``tol`` (a tensor or a number) of ``ref``, entry by
+    entry; returns the largest error and the largest error over tol."""
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()), f"{what}: shape or not finite")
+    err = (got.double() - ref.double()).abs()
+    tol = torch.as_tensor(tol, dtype=torch.float64, device=err.device)
+    over = float((err / tol.clamp_min(1e-300)).max())
+    check(over <= 1.0, f"{what}: max |kernel - plain| {float(err.max())} exceeds its tolerance "
+          f"({over} of it)")
+    return float(err.max()), over
+
+
+def _hold_bwd(kind, x, y, gbar, tag, results, same=False, want_y=True):
+    """K1's backward (with rq's alpha) against its plain version, within
+    ``_bwd_tols``; run twice, with equal bits. Returns the largest
+    absolute error of the gradients."""
+    from stheno_torch.ops import gram_bwd as KB
+
+    kw = dict(want_y=want_y, want_alpha=True, same=same)
+    got = KB.gram_bwd(kind, x, y, gbar, 1.3, **kw)
+    again = KB.gram_bwd(kind, x, y, gbar, 1.3, **kw)
+    ref = KB.gram_bwd_plain(kind, x, y, gbar, 1.3, **kw)
+    torch.cuda.synchronize()
+    check(all((a is None and b is None) or (a is not None and b is not None and torch.equal(a, b))
+              for a, b in zip(got, again)), f"gram_bwd {kind} {tag}: two runs differ")
+    check((got[1] is None) == (same or not want_y), f"gram_bwd {kind} {tag}: ybar {got[1]}")
+    tx, ty, ta = _bwd_tols(kind, x, y, gbar, 1.3)
+    if same:
+        tx = tx + ty
+    bf16 = x.dtype == torch.bfloat16
+    case = {"kind": kind, "case": tag}
+    errs = []
+    for name, g, r, t in (("x", got[0], ref[0], tx), ("y", got[1], ref[1], ty)):
+        if g is None:
+            continue
+        err, over = _hold(g, r, _bf16_tol(t, r) if bf16 else t, f"gram_bwd {kind} {tag} d/d{name}")
+        case[f"{name}_max_abs_err"], case[f"{name}_of_tol"] = err, over
+        errs.append(err)
+    if kind == "rq":
+        err, over = _hold(got[2].reshape(1), ref[2].reshape(1), ta, f"gram_bwd rq {tag} d/dalpha")
+        case["alpha_abs_err"], case["alpha_of_tol"] = err, over
+    results.append(case)
+    return max(errs)
+
+
 def phase_gram():
+    """K1 and its backward against their plain versions on the card.
+
+    Forward: all six kinds in float32, float64 and bfloat16 at the main
+    path's shapes (the N=2000 training Gram and posterior cross Gram, the
+    entry() step's cross Gram) and at the ragged 1000xd by 777xd for d in
+    1, 2, 3, 8, 9, 17 (every depth template and the generic loop), within
+    ``_gram_atol`` (bfloat16: ``_bf16_tol``); where x is y, every exp
+    kind's diagonal exactly 1. Backward: every kind, dtype and depth of
+    that list at 1000xd by 777xd (rq's alpha included), at x is y (both
+    roles in one launch) and with only x wanting a gradient, within
+    ``_bwd_tols``, each run twice with equal bits; then the main path's
+    N=2000 Gram (x is y) in float32, the gradient through both kernels
+    against autograd through the plain version there (rtol 1e-3), and one
+    tile of the blocked sweep (8192 rows of the N=262,144 inputs against
+    all of them, eq, float64).
+    Returns the largest absolute errors of the forward and of the
+    backward at the main path's shapes."""
     from stheno_torch.ops import gram as K1
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    xw = _warped(2000)
-    xa = torch.randn(1000, 3, generator=gen, device="cuda")
-    ya = torch.randn(777, 3, generator=gen, device="cuda")
-    x1 = torch.linspace(0.0, 10.0, 1024, device="cuda")[:, None]
-    # The main path's shapes (the N=2000 training Gram and posterior cross
-    # Gram, the entry() step's cross Gram) and a ragged case.
-    cases = [
-        (xw, xw, "2000x2 by 2000x2 f32"),
-        (xw, _warped(500), "2000x2 by 500x2 f32"),
-        (x1, x1[::4].contiguous(), "1024x1 by 256x1 f32"),
-        (xa, ya, "1000x3 by 777x3 f32"),
-    ]
-    results, path_err = [], 0.0
-    for kind in K1.KINDS:
-        for x, y, tag in cases:
-            K = K1.gram(kind, x, y, 1.3)
-            P = K1.gram_plain(kind, x, y, 1.3)
-            torch.cuda.synchronize()
-            err, tol = max_err(K, P), _gram_atol(kind, x, y)
-            check(K.shape == P.shape and bool(torch.isfinite(K).all()), f"gram {kind} {tag}")
-            check(err <= tol, f"gram {kind} {tag}: max |kernel - plain| {err} > {tol}")
-            if kind == "eq" and x is not xa:
-                path_err = max(path_err, err)
-            results.append({"kind": kind, "case": tag, "max_abs_err": err, "atol": tol})
-    x64, y64 = xa.double(), ya.double()
-    err = max_err(K1.gram("matern32", x64, y64), K1.gram_plain("matern32", x64, y64))
-    tol = _gram_atol("matern32", x64, y64)
-    check(err <= tol, f"gram f64: {err} > {tol}")
-    results.append({"kind": "matern32", "case": "1000x3 by 777x3 f64", "max_abs_err": err, "atol": tol})
 
-    # The backward (plain torch W-trick) against autograd through the plain
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    xw, x1 = _warped(2000), torch.linspace(0.0, 10.0, 1024, device="cuda")[:, None]
+    path = [(xw, xw, "2000x2 by 2000x2"), (xw, _warped(500), "2000x2 by 500x2"),
+            (x1, x1[::4].contiguous(), "1024x1 by 256x1")]
+    depths = (1, 2, 3, 8, 9, 17)
+    results, diag, path_err = [], {}, 0.0
+    for dtype in K1.DTYPES:
+        cases = [(x.to(dtype), y.to(dtype), tag, True) for x, y, tag in path]
+        cases += [(randn(1000, d, dtype=dtype), randn(777, d, dtype=dtype),
+                   f"1000x{d} by 777x{d}", False) for d in depths]
+        for kind in K1.KINDS:
+            for x, y, tag, on_path in cases:
+                K = K1.gram(kind, x, y, 1.3)
+                P = K1.gram_plain(kind, x, y, 1.3)
+                tol = _gram_atol(kind, x, y)
+                if dtype == torch.bfloat16:
+                    tol = _bf16_tol(tol, P)
+                err, over = _hold(K, P, tol, f"gram {kind} {tag} {dtype}")
+                check(K.dtype == dtype, f"gram {kind} {tag}: output dtype {K.dtype}")
+                if kind == "eq" and dtype == torch.float32 and on_path:
+                    path_err = max(path_err, err)
+                results.append({"kind": kind, "case": f"{tag} {dtype}", "max_abs_err": err,
+                                "of_tol": over})
+        for d in depths:
+            xs = randn(1000, d, dtype=dtype)
+            for kind in ("eq", "rq", "matern12", "matern32", "matern52"):
+                diag[f"{kind} d={d} {dtype}"] = float(
+                    (K1.gram(kind, xs, xs, 1.3).diagonal().double() - 1).abs().max())
+    check(all(e == 0 for e in diag.values()), f"gram: a diagonal is not exactly 1: {diag}")
+
+    bwd = []
+    for dtype in K1.DTYPES:
+        for d in depths:
+            x, y = randn(1000, d, dtype=dtype), randn(777, d, dtype=dtype)
+            g, gsq = randn(1000, 777, dtype=dtype), randn(1000, 1000, dtype=dtype)
+            for kind in K1.KINDS:
+                tag = f"1000x{d} by 777x{d} {dtype}"
+                _hold_bwd(kind, x, y, g, tag, bwd)
+                _hold_bwd(kind, x, y, g, tag + ", x only", bwd, want_y=False)
+                _hold_bwd(kind, x, x, gsq, f"1000x{d}, x is y, {dtype}", bwd, same=True)
+    gw = randn(2000, 2000, dtype=torch.float32)
+    bwd_err = max(_hold_bwd(kind, xw, xw, gw, "2000x2, x is y (the main path's)", bwd, same=True)
+                  for kind in K1.KINDS)
+    # The gradient through the kernels against autograd through the plain
     # version, at the path's shape. rtol 1e-3 of the largest gradient: the
     # JAX package's tolerance for its float32 W-trick (tests/test_pallas_gram.py).
     grads = []
-    w = torch.randn(2000, 2000, generator=gen, device="cuda")
     for kind in ("eq", "matern32", "rq"):
         out = []
         for fn in (K1.gram, K1.gram_plain):
             x = xw.clone().requires_grad_(True)
             y = (xw.flip(0) * 1.1).requires_grad_(True)
             alpha = torch.tensor(1.3, device="cuda", requires_grad=True)
-            g = torch.autograd.grad((w * fn(kind, x, y, alpha)).sum(), (x, y, alpha), allow_unused=True)
+            g = torch.autograd.grad((gw * fn(kind, x, y, alpha)).sum(), (x, y, alpha),
+                                    allow_unused=True)
             out.append([torch.zeros(()) if t is None else t for t in g])
         for name, a, b in zip(("x", "y", "alpha"), *out):
-            scale = max(float(b.abs().max()), 1e-30)
-            rel = max_err(a.cpu(), b.cpu()) / scale
-            check(rel <= 1e-3, f"gram {kind} d/d{name}: rel err {rel}")
+            rel = max_err(a.cpu(), b.cpu()) / max(float(b.abs().max()), 1e-30)
+            check(rel <= 1e-3, f"gram {kind} d/d{name} through the kernels: rel err {rel}")
             grads.append({"kind": kind, "wrt": name, "rel_err": rel})
-    emit({"phase": "gram_vs_plain", "values": results, "grads": grads, "grad_rtol": 1e-3})
-    return path_err
+    x64 = _path_inputs(torch.float64)[0][:, None]
+    g64 = randn(8192, N_IT, dtype=torch.float64)
+    _hold_bwd("eq", x64[:8192], x64, g64, f"8192x1 by {N_IT}x1 float64 (a blocked-sweep tile)",
+              bwd)
+    del g64, gw
+    emit({"phase": "gram_vs_plain", "values": results, "diagonal_max_abs_err": diag,
+          "backward": bwd, "grads": grads, "grad_rtol": 1e-3})
+    return path_err, bwd_err
 
 
 def _spd(n, seed):
@@ -344,10 +491,12 @@ def phase_chol_tile():
 def _kernel_modules():
     from stheno_torch.ops import chol_tile as K2
     from stheno_torch.ops import gram as K1
+    from stheno_torch.ops import gram_bwd as K1B
     from stheno_torch.ops import gram_matvec as K3
     from stheno_torch.ops import gram_matvec_vjp as K3V
 
-    return {"gram": K1, "chol_tile": K2, "gram_matvec": K3, "gram_matvec_vjp": K3V}
+    return {"gram": K1, "gram_bwd": K1B, "chol_tile": K2, "gram_matvec": K3,
+            "gram_matvec_vjp": K3V}
 
 
 def _counts():
@@ -367,7 +516,7 @@ def _set_counts(counts):
         mods["gram_matvec"].route_launches[r] = counts[f"gram_matvec_{r}"]
 
 
-ZERO_COUNTS = {k: 0 for k in ("gram", "chol_tile", "gram_matvec", "gram_matvec_vjp",
+ZERO_COUNTS = {k: 0 for k in ("gram", "gram_bwd", "chol_tile", "gram_matvec", "gram_matvec_vjp",
                               "gram_matvec_mma", "gram_matvec_ffma", "gram_matvec_dmma")}
 
 
@@ -413,6 +562,8 @@ def phase_main_path():
     check(after_value["chol_tile"] == after_entry["chol_tile"],
           "the value-only NLML ran the tile Cholesky")
     check(after_vg["gram"] - after_value["gram"] >= 1, "value+grad at N=2000 launched no gram")
+    check(after_vg["gram_bwd"] - after_value["gram_bwd"] >= 1,
+          "value+grad at N=2000 launched no gram_bwd")
     check(after_vg["chol_tile"] - after_value["chol_tile"] == 2,
           f"value+grad at N=2000 launched chol_tile {after_vg['chol_tile'] - after_value['chol_tile']} times, not 2")
 
@@ -458,38 +609,97 @@ def phase_main_path():
     return counts
 
 
+def _k1_times():
+    """K1 per call (eq) at the headline's Gram, 2000x2 by 2000x2, and at
+    8192x2 by 8192x2, in float32, float64 and bfloat16; its backward at
+    N=2000 (x is y, eq and matern32, float32: ``autograd.grad`` of a built
+    Gram with a cotangent, as the value+grad step runs it). Each with its
+    CUDA-event time (``time_ms``: 20 calls back to back, 3 warm-ups, median
+    of 20), its device time (``device_ms`` over 20 calls), its bound (each
+    input byte read once, each output byte written once, at 3.35 TB/s: the
+    operations, a few per entry, bind far less), its plain version and the
+    PyTorch call (``exp(-0.5 cdist^2)``; for the backward ``autograd.grad``
+    through it, matern32 through ``(1 + r) exp(-r)`` of ``sqrt(3) cdist``),
+    which the port never makes. Returns the kernels line's two rows (the
+    headline forward in float32 and the backward of eq) and every shape's
+    numbers."""
+    from stheno_torch.ops import gram as K1
+    from stheno_torch.ops import gram_bwd as K1B
+
+    def device_ms_per_call(fn, inner=20):
+        return device_ms(lambda: [fn() for _ in range(inner)]) / inner
+
+    forward = {}
+    for n in (2000, 8192):
+        for dtype in K1.DTYPES:
+            x = _warped(n).to(dtype)
+            byts = (2 * n * 2 + n * n) * x.element_size()
+            flops = n * n * (2 * 2 + 4) + 4 * n * 2
+            b_ms, b_by = bound(byts, flops, K1.arith_dtype(dtype))
+            call = lambda x=x: K1.gram("eq", x, x)  # noqa: E731
+
+            def library(x=x):
+                return torch.exp(-0.5 * torch.cdist(x, x).square())
+
+            try:
+                lib_ms = time_ms(library, inner=5)
+            except RuntimeError:  # no cdist for this dtype on this build
+                lib_ms = None
+            forward[f"{n}x2 {dtype}"] = {
+                "shape": [n, n, 2], "dtype": str(dtype),
+                "launch_shape": K1.launch_shape(n, n, dtype),
+                "ms": time_ms(call, inner=20),
+                "device_ms": device_ms_per_call(call),
+                "plain_ms": time_ms(lambda x=x: K1.gram_plain("eq", x, x), inner=5),
+                "library_ms": lib_ms,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+            }
+
+    backward = {}
+    n, r3 = 2000, math.sqrt(3.0)
+    gbar = torch.randn(n, n, generator=torch.Generator(device="cuda").manual_seed(17),
+                       device="cuda")
+    lib_g = {"eq": lambda r: torch.exp(-0.5 * r.square()),
+             "matern32": lambda r: (1 + r3 * r) * torch.exp(-r3 * r)}
+    for kind in ("eq", "matern32"):
+        x = _warped(n).requires_grad_(True)
+        K = K1.gram(kind, x, x)
+        call = lambda K=K, x=x: torch.autograd.grad(K, x, gbar, retain_graph=True)  # noqa: E731
+        xl = x.detach().requires_grad_(True)
+        KL = lib_g[kind](torch.cdist(xl, xl))
+        xd = x.detach()
+        # x and gbar read once, xbar written once; about 20 flops an entry.
+        b_ms, b_by = bound((2 * n * 2 + n * n) * 4, 20 * n * n, torch.float32)
+        backward[kind] = {
+            "shape": [n, n, 2], "dtype": "torch.float32",
+            "launch_shape": K1B.launch_shape(n, n, 2, torch.float32),
+            "ms": time_ms(call, inner=20),
+            "device_ms": device_ms_per_call(call),
+            "plain_ms": time_ms(lambda xd=xd: K1B.gram_bwd_plain(kind, xd, xd, gbar, same=True),
+                                reps=5, warmup=1),
+            "library_ms": time_ms(lambda KL=KL, xl=xl: torch.autograd.grad(
+                KL, xl, gbar, retain_graph=True), inner=5),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+        }
+    rows = [{"name": "gram", **forward["2000x2 torch.float32"]},
+            {"name": "gram_bwd", **backward["eq"]}]
+    return rows, {"forward": forward, "backward": backward}
+
+
 def phase_times(errs, counts):
     """Times at the main path's shapes (CUDA events, 3 warm-up calls,
     median of 20 samples), beside each kernel's bound, its plain version
     and the nearest PyTorch library call (which the port never calls)."""
     from stheno_torch import entry as E
     from stheno_torch.ops import chol_tile as K2
-    from stheno_torch.ops import gram as K1
 
     saved = _counts()
     kernels = []
 
-    # K1 at the headline's Gram: (2000, 2) x (2000, 2), eq, float32.
-    x = _warped(2000)
-    n, d = x.shape
-    byts = (2 * n * d + n * n) * 4
-    flops = n * n * (2 * d + 4) + 4 * n * d
-    b_ms, b_by = bound(byts, flops, torch.float32)
-
-    def library():
-        return torch.exp(-0.5 * torch.cdist(x, x).square())
-
-    kernels.append(
-        {
-            "name": "gram",
-            "ms": time_ms(lambda: K1.gram("eq", x, x), inner=20),
-            "plain_ms": time_ms(lambda: K1.gram_plain("eq", x, x), inner=20),
-            "library_ms": time_ms(library, inner=20),
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "shape": [n, n, d],
-        }
-    )
+    k1, k1_shapes = _k1_times()
+    kernels.extend(k1)
 
     # K2 at the tiles of the N=2000 factorisation: 1024 and 976.
     tiles = {}
@@ -526,8 +736,8 @@ def phase_times(errs, counts):
     # Launches made by the timing runs do not count: restore the paths'
     # counts.
     _set_counts(saved)
-    emit({"phase": "times", "kernels": kernels, "gram_matvec_shapes": k3_shapes,
-          "flagship": step})
+    emit({"phase": "times", "kernels": kernels, "gram_shapes": k1_shapes,
+          "gram_matvec_shapes": k3_shapes, "flagship": step})
 
     line = []
     for k in kernels:
@@ -677,8 +887,7 @@ def _vjp_scale(kind, x, y, A, V, alpha, block=1024):
     ``2 sum_j (|A| |V|^T)_ij |g'_ij| |x_ik - y_jk|`` (linear: ``|A| (|V|^T
     |y|)``); for rq ``sum_ij (|A| |V|^T)_ij |dK/d alpha|_ij`` (else None);
     and of the value, ``sum_ij (|A| |V|^T)_ij |K_ij|``."""
-    from stheno_torch.ops.gram import _apply_kind, _g_prime
-    from stheno_torch.ops.gram_matvec_vjp import _alpha_factor
+    from stheno_torch.ops.gram import _alpha_factor, _apply_kind, _g_prime
 
     Aa, Va = A.abs(), V.abs()
     if kind == "linear":
@@ -1334,10 +1543,60 @@ def _top(by_name, k=12):
     return [{"name": n, "launches": c, "device_ms": us / 1e3} for n, (c, us) in top]
 
 
+def _attribute(fn, names, depth=4):
+    """For each kernel of ``names``, where the step launched it: one run of
+    ``fn`` under ``torch.profiler`` with input shapes and Python stacks,
+    each device kernel taken from the host op the profiler links it to
+    (its ``kernels``): the op, its input shapes, the names of its first
+    ``depth`` parents (an autograd node names the backward it runs) and
+    the innermost frames of ``stheno_torch`` on its stack or its parents'.
+    Returns ``{kernel: [{"op", "shapes", "parents", "frames",
+    "launches"}]}`` (a separate run: shapes and stacks slow the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    # verbose: the Python frames of each op (with_stack alone records none
+    # on this torch).
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True,
+                 with_stack=True,
+                 experimental_config=torch._C._profiler._ExperimentalConfig(verbose=True)) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        for k in e.kernels:
+            name = _kernel_name(k.name)
+            if name not in names:
+                continue
+            parents, frames, host = [], [], e.cpu_parent
+            while host is not None:
+                if len(parents) < depth:
+                    parents.append(host.name)
+                frames = frames or [f for f in (host.stack or []) if "stheno_torch" in f][:depth]
+                host = host.cpu_parent
+            frames = [f for f in (e.stack or []) if "stheno_torch" in f][:depth] or frames
+            key = (e.name, str(e.input_shapes), tuple(parents), tuple(frames))
+            sites = out.setdefault(name, {})
+            sites[key] = sites.get(key, 0) + 1
+    return {name: [{"op": op, "shapes": shapes, "parents": list(parents), "frames": list(frames),
+                    "launches": c}
+                   for (op, shapes, parents, frames), c in sorted(sites.items(),
+                                                                 key=lambda kv: -kv[1])]
+            for name, sites in out.items()}
+
+
 def phase_profile():
     """One N=2000 value+grad step under torch.profiler, after warm-up: the
-    device time by kernel and the device busy share. The device launches
-    seen must match the wrappers' counts."""
+    device time by kernel, the device launches by kernel and in all, and
+    the device busy share; then, in a second run with Python stacks, where
+    the six kernels of most device time, and ``Kernel2`` and ``enable_if``
+    (library kernels named by their templates), were launched
+    (``_attribute``).
+    The device launches of K1, its backward and K2 must match the
+    wrappers' counts."""
     from stheno_torch import entry as E
 
     xb, yb, ell = E.n2000_inputs()
@@ -1354,6 +1613,9 @@ def phase_profile():
     k2_us = sum(by_name.get(k, (0, 0.0))[1] for k in k2_want)
     check(k1_n == launches["gram"] >= 1,
           f"profiled gram_kernel launches {k1_n} != wrapper count {launches['gram']}")
+    kb_n, kb_us = by_name.get("gram_bwd_kernel", (0, 0.0))
+    check(kb_n == launches["gram_bwd"] >= 1,
+          f"profiled gram_bwd_kernel launches {kb_n} != wrapper count {launches['gram_bwd']}")
     check(tiles == 2, f"the N=2000 value+grad ran {tiles} tiles, not 2")
     for name, per_tile in k2_want.items():
         got = by_name.get(name, (0, 0.0))[0]
@@ -1366,9 +1628,18 @@ def phase_profile():
             "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / span_us,
             "gram_device_ms_per_launch": k1_us / k1_n / 1e3,
+            "gram_bwd_launches": kb_n,
+            "gram_bwd_device_ms_per_launch": kb_us / kb_n / 1e3,
+            "device_launches": sum(c for c, _ in by_name.values()),
             "chol_tile_device_ms_per_tile": k2_us / tiles / 1e3,
             "chol_tile_share_of_busy": k2_us / busy_us,
             "kernels": _top(by_name),
+            "kernels_by_launches": [
+                {"name": k, "launches": c, "device_ms": us / 1e3}
+                for k, (c, us) in sorted(by_name.items(), key=lambda kv: -kv[1][0])],
+            "where_launched": _attribute(
+                lambda: E.nlml_n2000(xb, yb, ell, grad=True),
+                {t["name"] for t in _top(by_name, 6)} | {"Kernel2", "enable_if"}),
         }
     )
 
@@ -1462,8 +1733,10 @@ def _run_phases():
         return out
 
     smi = run("card_and_build", phase_card)
+    gram_err, gram_bwd_err = run("gram", phase_gram)
     errs = {
-        "gram": run("gram", phase_gram),
+        "gram": gram_err,
+        "gram_bwd": gram_bwd_err,
         "chol_tile": run("chol_tile", phase_chol_tile),
         **run("gram_matvec", phase_gram_matvec),
         "gram_matvec_vjp": run("gram_matvec_vjp", phase_gram_matvec_vjp),

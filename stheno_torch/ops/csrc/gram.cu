@@ -3,120 +3,161 @@
 // Replaces the Pallas kernel stheno_tpu/ops/gram.py:_gram_kernel. It
 // computes out[i, j] = g(||x_i - y_j||^2) with d2 = |x_i|^2 + |y_j|^2 -
 // 2 x_i.y_j clamped at 0 (or the plain x_i.y_j for the linear kind), for
-// row-major x (n, d), y (m, d) and out (n, m).
+// row-major x (n, d), y (m, d) and out (n, m), in float32, float64 or
+// bfloat16 storage (bfloat16 computed in float32 and rounded once, as the
+// TPU kernel does).
 //
 // What bounds it: the (n, m) output write. The contraction has depth d (2
-// on the flagship path), so the work per output element is a few FMAs and
-// one transcendental: at N = 2000 in float32 the 16 MB store is the whole
-// cost (about 4.8 us at 3.35 TB/s). The design therefore keeps the inputs
-// in shared memory, never materialises d2, and makes every store a
-// coalesced 128-byte warp transaction: a warp owns 32 consecutive columns
-// of a row. Ragged edges are masked; no padded copies are made. No tensor
-// cores: the depth is tiny and TF32 would round the inputs.
+// on the headline path, 1 on entry()'s), so the work per output element
+// is a few FMAs and one transcendental: at N = 2000 in float32 the 16 MB
+// store is the whole cost (about 4.8 us at 3.35 TB/s). So:
+//   - the depth is a template parameter D in {1, 2, 4, 8} (gram_elem.cuh),
+//     read straight into registers: no shared-memory stage, no barrier, no
+//     FMA on padding beyond the next template; above 8 the same code runs
+//     over passes of 8;
+//   - a thread owns R rows of 16 consecutive bytes each (4 float, 2 double,
+//     8 bfloat16) and stores each as one st.global.v4: a warp writes 512
+//     contiguous bytes of a row. Where the row stride breaks 16-byte
+//     alignment (m not a multiple of the vector) or at the ragged right
+//     edge, the stores are scalar;
+//   - the wrapper launches one block per (TM, TN) tile, four resident on
+//     each SM. The kernel walks the tiles from blockIdx.x in steps of the
+//     grid, so a smaller grid runs it persistent (each block walking
+//     several tiles, one tile's stores draining while the next one's
+//     arithmetic runs): on the H100 that measured slower, 7.60 against
+//     7.57 us at 2000^2 and 92.4 against 85.3 us at 8192^2 in float32
+//     with SMs x 4 blocks (scripts/torch_k1.py times; PERF.md).
+// The exp unit is not the limit (4 M exps are about 1 us at 16 per clock
+// per SM), so the epilogue keeps libdevice's expf / exp (gram_kind.cuh).
 //
 // The inner product and the norms use the same FMA chain, so for x is y
-// the diagonal d2 is exactly 0.
+// the diagonal d2 is exactly 0 (and an exp kind's entry exactly 1) in all
+// three dtypes.
 
-#include <cuda_runtime.h>
-
-#include "gram_kind.cuh"
+#include "gram_elem.cuh"
 
 namespace {
 
-using namespace stheno;
+// Rows per thread: a thread builds R x kVec entries of a tile.
+template <typename S>
+constexpr int kFwdRows = sizeof(S) == 2 ? 2 : 4;
 
-constexpr int kTM = 64;        // rows of out per block
-constexpr int kTN = 128;       // cols of out per block
-constexpr int kDK = 8;         // depth staged in shared memory per pass
-constexpr int kThreadsX = 32;  // a warp spans 32 consecutive columns
-constexpr int kThreadsY = 8;
-constexpr int kRowsPerThread = kTM / kThreadsY;  // 8
-constexpr int kColsPerThread = kTN / kThreadsX;  // 4
+template <typename S>
+__host__ __device__ constexpr int fwd_tm() {
+  return kGramWarps * kFwdRows<S>;
+}
+template <typename S>
+__host__ __device__ constexpr int fwd_tn() {
+  return 32 * kVec<S>;
+}
 
-template <int KIND, typename T>
-__global__ void __launch_bounds__(kThreadsX * kThreadsY)
-gram_kernel(const T* __restrict__ x, const T* __restrict__ y, T* __restrict__ out,
-            int n, int m, int d, T alpha) {
-  __shared__ T xs[kDK][kTM];  // depth-major, so a column of the tile is contiguous
-  __shared__ T ys[kDK][kTN];
+template <int KIND, typename S, int D>
+__global__ void __launch_bounds__(kGramThreads, 4)
+gram_kernel(const S* __restrict__ x, const S* __restrict__ y, S* __restrict__ out, int n, int m,
+            int d, typename Arith<S>::T alpha, int vec_ok) {
+  using T = typename Arith<S>::T;
+  constexpr int V = kVec<S>, R = kFwdRows<S>, TM = fwd_tm<S>(), TN = fwd_tn<S>();
+  constexpr int DC = D == 0 ? 8 : D;  // depth per pass
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int depth = D == 0 ? d : D;
+  const int tiles_n = (m + TN - 1) / TN;  // tiles in row-major order
+  const int tiles = ((n + TM - 1) / TM) * tiles_n;
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kThreadsX + tx;
-  const int row0 = blockIdx.y * kTM, col0 = blockIdx.x * kTN;
-
-  T acc[kRowsPerThread][kColsPerThread];
-  T xn[kRowsPerThread], yn[kColsPerThread];
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int r0 = (t / tiles_n) * TM + warp * R;
+    const int c0 = (t % tiles_n) * TN + lane * V;
+    T acc[R][V], xn[R], yn[V];
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    xn[i] = T(0);
+    for (int i = 0; i < R; ++i) {
+      xn[i] = T(0);
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[i][j] = T(0);
-  }
-#pragma unroll
-  for (int j = 0; j < kColsPerThread; ++j) yn[j] = T(0);
-
-  for (int k0 = 0; k0 < d; k0 += kDK) {
-    // Zero-filled beyond the ragged edges: zeros change no inner product
-    // and no norm.
-    for (int e = tid; e < kTM * kDK; e += kThreadsX * kThreadsY) {
-      const int r = e / kDK, k = e % kDK;
-      const int gr = row0 + r, gk = k0 + k;
-      xs[k][r] = (gr < n && gk < d) ? x[(size_t)gr * d + gk] : T(0);
+      for (int j = 0; j < V; ++j) acc[i][j] = T(0);
     }
-    for (int e = tid; e < kTN * kDK; e += kThreadsX * kThreadsY) {
-      const int c = e / kDK, k = e % kDK;
-      const int gc = col0 + c, gk = k0 + k;
-      ys[k][c] = (gc < m && gk < d) ? y[(size_t)gc * d + gk] : T(0);
-    }
-    __syncthreads();
 #pragma unroll
-    for (int k = 0; k < kDK; ++k) {
-      T xv[kRowsPerThread], yv[kColsPerThread];
+    for (int j = 0; j < V; ++j) yn[j] = T(0);
+
+    // Rows and columns past the edge read the last one: their entries
+    // are not stored. One depth at a time, so that only R + V inputs are
+    // live beside the R x V sums.
+    const S* xr[R];
+    const S* yr[V];
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        xv[i] = xs[k][ty + kThreadsY * i];
-        xn[i] = fma(xv[i], xv[i], xn[i]);
+    for (int i = 0; i < R; ++i) xr[i] = x + (size_t)min(r0 + i, n - 1) * d;
+#pragma unroll
+    for (int j = 0; j < V; ++j) yr[j] = y + (size_t)min(c0 + j, m - 1) * d;
+    for (int k0 = 0; k0 < depth; k0 += DC) {
+#pragma unroll
+      for (int k = 0; k < DC; ++k) {
+        const bool in = k < d - k0;  // zeros past d change no sum
+        T xv[R], yv[V];
+#pragma unroll
+        for (int i = 0; i < R; ++i) xv[i] = in ? to_arith(__ldg(xr[i] + k0 + k)) : T(0);
+#pragma unroll
+        for (int j = 0; j < V; ++j) yv[j] = in ? to_arith(__ldg(yr[j] + k0 + k)) : T(0);
+#pragma unroll
+        for (int i = 0; i < R; ++i) xn[i] = fma(xv[i], xv[i], xn[i]);
+#pragma unroll
+        for (int j = 0; j < V; ++j) yn[j] = fma(yv[j], yv[j], yn[j]);
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < V; ++j) acc[i][j] = fma(xv[i], yv[j], acc[i][j]);
       }
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) {
-        yv[j] = ys[k][tx + kThreadsX * j];
-        yn[j] = fma(yv[j], yv[j], yn[j]);
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j)
-          acc[i][j] = fma(xv[i], yv[j], acc[i][j]);
     }
-    __syncthreads();
-  }
 
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = row0 + ty + kThreadsY * i;
-    if (r >= n) continue;
+    for (int i = 0; i < R; ++i) {
+      const int r = r0 + i;
+      if (r >= n) break;
+      S o[V];
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const int c = col0 + tx + kThreadsX * j;
-      if (c >= m) continue;
-      const T d2 = xn[i] + yn[j] - T(2) * acc[i][j];
-      out[(size_t)r * m + c] = epilogue<KIND, T>(d2, acc[i][j], alpha);
+      for (int j = 0; j < V; ++j)
+        o[j] = to_storage<S>(epilogue<KIND, T>(xn[i] + yn[j] - T(2) * acc[i][j], acc[i][j], alpha));
+      S* dst = out + (size_t)r * m + c0;
+      if (vec_ok && c0 + V <= m) {
+        store16(dst, o);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          if (c0 + j < m) dst[j] = o[j];
+      }
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(int kind, const T* x, const T* y, T* out, int n, int m, int d,
-                   T alpha, cudaStream_t stream) {
-  const dim3 block(kThreadsX, kThreadsY);
-  const dim3 grid((m + kTN - 1) / kTN, (n + kTM - 1) / kTM);
+template <int KIND, typename S>
+void launch_depth(int dt, const S* x, const S* y, S* out, int n, int m, int d,
+                  typename Arith<S>::T alpha, int vec_ok, int grid, cudaStream_t s) {
+  switch (dt) {
+    case 1: gram_kernel<KIND, S, 1><<<grid, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
+    case 2: gram_kernel<KIND, S, 2><<<grid, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
+    case 4: gram_kernel<KIND, S, 4><<<grid, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
+    case 8: gram_kernel<KIND, S, 8><<<grid, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
+    default: gram_kernel<KIND, S, 0><<<grid, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
+  }
+}
+
+// A launch whose tile shape (tm, tn) is not the kernel's is refused: the
+// wrapper's tiling (ops/gram.py:tile_shape) is then not the kernel's.
+template <typename S>
+cudaError_t launch(int kind, const void* xp, const void* yp, void* outp, int n, int m, int d,
+                   double alpha, int grid, int tm, int tn, cudaStream_t s) {
+  if (tm != fwd_tm<S>() || tn != fwd_tn<S>() ||
+      ((n + (long long)tm - 1) / tm) * ((m + tn - 1) / tn) > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  const S* x = static_cast<const S*>(xp);
+  const S* y = static_cast<const S*>(yp);
+  S* out = static_cast<S*>(outp);
+  const int vec_ok = m % kVec<S> == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int dt = depth_template(d);
+  const auto a = static_cast<typename Arith<S>::T>(alpha);
   switch (kind) {
-    case kEq: gram_kernel<kEq, T><<<grid, block, 0, stream>>>(x, y, out, n, m, d, alpha); break;
-    case kRq: gram_kernel<kRq, T><<<grid, block, 0, stream>>>(x, y, out, n, m, d, alpha); break;
-    case kMatern12: gram_kernel<kMatern12, T><<<grid, block, 0, stream>>>(x, y, out, n, m, d, alpha); break;
-    case kMatern32: gram_kernel<kMatern32, T><<<grid, block, 0, stream>>>(x, y, out, n, m, d, alpha); break;
-    case kMatern52: gram_kernel<kMatern52, T><<<grid, block, 0, stream>>>(x, y, out, n, m, d, alpha); break;
-    case kLinear: gram_kernel<kLinear, T><<<grid, block, 0, stream>>>(x, y, out, n, m, d, alpha); break;
+    case kEq: launch_depth<kEq, S>(dt, x, y, out, n, m, d, a, vec_ok, grid, s); break;
+    case kRq: launch_depth<kRq, S>(dt, x, y, out, n, m, d, a, vec_ok, grid, s); break;
+    case kMatern12: launch_depth<kMatern12, S>(dt, x, y, out, n, m, d, a, vec_ok, grid, s); break;
+    case kMatern32: launch_depth<kMatern32, S>(dt, x, y, out, n, m, d, a, vec_ok, grid, s); break;
+    case kMatern52: launch_depth<kMatern52, S>(dt, x, y, out, n, m, d, a, vec_ok, grid, s); break;
+    case kLinear: launch_depth<kLinear, S>(dt, x, y, out, n, m, d, a, vec_ok, grid, s); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -124,17 +165,21 @@ cudaError_t launch(int kind, const T* x, const T* y, T* out, int n, int m, int d
 
 }  // namespace
 
-// Launches K1 on `stream`. `kind` follows the Kind enum above; `is_double`
-// selects float64 (else float32). Returns cudaGetLastError() after the
+// Launches K1 on `stream`: `blocks` blocks of 256 threads walking the
+// (tm, tn) tiles of out (the wrapper: one block per tile). `kind` follows
+// the Kind enum of gram_kind.cuh,
+// `dtype` the DtypeCode of gram_elem.cuh (float32, float64, bfloat16; x,
+// y and out all of it). Returns cudaGetLastError() after the
 // launch; the caller raises if it is not 0.
-extern "C" int stheno_gram(int kind, int is_double, const void* x, const void* y,
-                           void* out, int n, int m, int d, double alpha, void* stream) {
-  if (n <= 0 || m <= 0 || d < 0) return (int)cudaErrorInvalidValue;
+extern "C" int stheno_gram(int kind, int dtype, const void* x, const void* y, void* out, int n,
+                           int m, int d, double alpha, int blocks, int tm, int tn,
+                           void* stream) {
+  if (n <= 0 || m <= 0 || d < 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_double)
-    return (int)launch<double>(kind, static_cast<const double*>(x),
-                               static_cast<const double*>(y), static_cast<double*>(out),
-                               n, m, d, alpha, s);
-  return (int)launch<float>(kind, static_cast<const float*>(x), static_cast<const float*>(y),
-                            static_cast<float*>(out), n, m, d, (float)alpha, s);
+  switch (dtype) {
+    case kF32: return (int)launch<float>(kind, x, y, out, n, m, d, alpha, blocks, tm, tn, s);
+    case kF64: return (int)launch<double>(kind, x, y, out, n, m, d, alpha, blocks, tm, tn, s);
+    case kBf16: return (int)launch<__nv_bfloat16>(kind, x, y, out, n, m, d, alpha, blocks, tm, tn, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -22,9 +22,6 @@ using namespace stheno;
 constexpr int kVjpThreads = 128;
 constexpr int kVjpTN = 64;  // columns staged per pass
 
-__device__ __forceinline__ float vjp_log(float v) { return logf(v); }
-__device__ __forceinline__ double vjp_log(double v) { return log(v); }
-
 // Rows per thread of the float32 kernel: as many as keep R (QC + 3 D)
 // floats (the row of A, x, the gradient and its per-pass part) within 96
 // registers, between 1 and 4. The wrapper sizes the column split by the
@@ -58,42 +55,6 @@ __device__ __forceinline__ void vjp_stage(T* ys, T* vs, const T* y, const T* vq,
   const char* vsrc = reinterpret_cast<const char*>(vq + (size_t)j0 * QC);
   for (int e = tid; e < kVjpTN * QC / kPer; e += kVjpThreads)
     vjp_cp_async16(reinterpret_cast<char*>(vs) + 16 * e, vsrc + 16 * e);
-}
-
-// dK/d(d2) of the five distance kinds at d2 >= 0, the arithmetic of
-// ops/gram.py:_g_prime. *k receives the entry K itself (gram_kind.cuh's
-// epilogue), from the same exp: for eq K = -2 g', the other kinds add
-// their polynomial factor. For rq, *h also receives K (d2 / (2 alpha base)
-// - log base), the entry's factor of dK/d(alpha); `hia` is 1 / (2 alpha).
-template <int KIND, typename T>
-__device__ __forceinline__ T g_prime(T d2, T alpha, T hia, T* k, T* h) {
-  if (KIND == kEq) {
-    *k = dev_exp(T(-0.5) * d2);
-    return T(-0.5) * *k;
-  }
-  if (KIND == kRq) {
-    const T base = T(1) + d2 * hia;
-    const T lb = vjp_log(base);
-    *k = dev_exp(-alpha * lb);
-    const T ib = T(1) / base;
-    *h = *k * (d2 * hia * ib - lb);
-    return T(-0.5) * *k * ib;
-  }
-  const T d = dev_sqrt(d2 + T(1e-36));
-  if (KIND == kMatern12) {
-    *k = dev_exp(-d);
-    return T(-0.5) * *k / d;
-  }
-  if (KIND == kMatern32) {
-    const T r = T(1.7320508075688772) * d;
-    const T e = dev_exp(-r);
-    *k = (T(1) + r) * e;
-    return T(-1.5) * e;
-  }
-  const T r = T(2.23606797749979) * d;  // matern52
-  const T e = dev_exp(-r);
-  *k = (T(1) + r + r * r / T(3)) * e;
-  return T(-5.0 / 6.0) * (T(1) + r) * e;
 }
 
 // The entries of one (column split, q-split) slice of the output: the

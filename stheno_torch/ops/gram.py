@@ -7,33 +7,50 @@ and ``y (m, d)``:
 - on CUDA tensors it launches the hand-written kernel in
   ``csrc/gram.cu``, which replaces the TPU kernel
   ``stheno_tpu/ops/gram.py:_gram_kernel``. It is bound by the ``(n, m)``
-  output write (the contraction depth ``d`` is a few), so it keeps the
-  inputs in shared memory, never writes ``d2``, and stores each row
-  segment as one coalesced warp transaction; see the source's header;
+  output write (the contraction depth ``d`` is a few), so it holds the
+  depth in registers (a template per depth 1, 2, 4 and 8) and stores 16
+  bytes a thread, one block per tile (:func:`launch_shape`); see the
+  source's header;
 - on CPU tensors it runs :func:`gram_plain`, the same arithmetic in plain
   torch, which is also what the tests and ``chip_smoke.py`` compare the
   kernel with.
 
-float32 and float64 only: a bfloat16 kernel is still to be ported.
+float32, float64 and bfloat16, as the TPU kernel takes: bfloat16 inputs
+are computed in float32 (norms, inner product, clamp, epilogue) and the
+result is rounded once to bfloat16.
 
-The gradient is an ``autograd.Function`` whose backward is plain torch,
-the W-trick of ``_gram_bwd`` in the JAX package (which is XLA there too):
-``xbar = 2 (rowsum(W) x - W y)`` with ``W = gbar * g'(d2)``.
+The gradient is an ``autograd.Function`` whose backward is K1's backward
+kernel (``ops/gram_bwd.py``, ``csrc/gram_bwd.cu``) on the card and its
+plain version on the CPU: ``xbar_i = 2 sum_j W_ij (x_i - y_j)`` with ``W =
+gbar * g'(d2)``, the gradient of the JAX package's ``_gram_bwd`` in its
+direct form.
 """
 
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
-__all__ = ["gram", "gram_plain", "KINDS", "launches"]
+__all__ = ["gram", "gram_plain", "launch_shape", "tile_shape", "KINDS", "DTYPES", "launches"]
 
-#: Kernel functions, in the order of the ``Kind`` enum of ``csrc/gram.cu``.
+#: Kernel functions, in the order of the ``Kind`` enum of ``csrc/gram_kind.cuh``.
 KINDS = ("eq", "rq", "matern12", "matern32", "matern52", "linear")
+
+#: Storage dtypes the kernels take, with the codes of ``csrc/gram_elem.cuh``.
+_DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+DTYPES = tuple(_DTYPE_CODES)
 
 #: Number of launches of the CUDA kernel in this process.
 launches = 0
+
+_WARPS = 8  # warps per block, as kGramWarps in csrc/gram_elem.cuh
+
+
+def arith_dtype(dtype):
+    """The dtype the kernels compute in: float32 for bfloat16 storage."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
 def _apply_kind(kind, d2, inner, alpha):
@@ -63,44 +80,8 @@ def _d2(x, y, inner):
     return xn + yn.T - 2.0 * inner
 
 
-def gram_plain(kind, x, y, alpha=1.0):
-    """Plain torch version of the kernel: the matmul identity and the
-    epilogue, materialising ``d2``."""
-    inner = x @ y.T
-    if kind == "linear":
-        return inner
-    return _apply_kind(kind, _d2(x, y, inner), inner, alpha)
-
-
-def _launch(kind, x, y, alpha):
-    global launches
-    lib = _build.library()
-    n, d = x.shape
-    m = y.shape[0]
-    out = torch.empty((n, m), dtype=x.dtype, device=x.device)
-    if n == 0 or m == 0:
-        return out
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.stheno_gram(
-            KINDS.index(kind),
-            int(x.dtype == torch.float64),
-            x.data_ptr(),
-            y.data_ptr(),
-            out.data_ptr(),
-            n,
-            m,
-            d,
-            float(alpha) if kind == "rq" else 1.0,
-            stream,
-        )
-    _build.check(code, "gram")
-    launches += 1
-    return out
-
-
 def _g_prime(kind, d2, K, alpha):
-    """dK/d(d2) as a function of d2 (and the saved forward K)."""
+    """dK/d(d2) as a function of d2 (and the entry K)."""
     if kind == "eq":
         return -0.5 * K
     if kind == "rq":
@@ -116,56 +97,116 @@ def _g_prime(kind, d2, K, alpha):
     raise ValueError(kind)
 
 
+def _alpha_factor(d2, K, alpha):
+    """``K (d2 / (2 alpha base) - log base)``: dK/d(alpha) of rq."""
+    base = 1.0 + d2 / (2.0 * alpha)
+    return K * (d2 / (2.0 * alpha * base) - torch.log(base))
+
+
+def gram_plain(kind, x, y, alpha=1.0):
+    """Plain torch version of the kernel: the matmul identity and the
+    epilogue, materialising ``d2``; bfloat16 inputs computed in float32
+    and the result rounded to bfloat16."""
+    ct = arith_dtype(x.dtype)
+    xf, yf = x.to(ct), y.to(ct)
+    if isinstance(alpha, torch.Tensor):
+        alpha = alpha.to(ct)
+    inner = xf @ yf.T
+    out = inner if kind == "linear" else _apply_kind(kind, _d2(xf, yf, inner), inner, alpha)
+    return out.to(x.dtype)
+
+
+def tile_shape(dtype):
+    """``(tm, tn)`` of the kernel's output tile: a warp covers 16 bytes a
+    lane of a row (``tn = 32 * 16 / itemsize`` columns) and its R rows (R
+    = 2 for bfloat16, else 4), the block's 8 warps ``tm = 8 R`` rows."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    rows = 2 if itemsize == 2 else 4
+    return _WARPS * rows, 32 * (16 // itemsize)
+
+
+def launch_shape(n, m, dtype):
+    """``(tm, tn, tiles)`` of a launch: the tile shape and the number of
+    tiles of the ``(n, m)`` output, one block each. Block ``t`` builds the
+    rows ``[(t // cdiv(m, tn)) tm, + tm)`` and the columns ``[(t % cdiv(m,
+    tn)) tn, + tn)``."""
+    tm, tn = tile_shape(dtype)
+    return tm, tn, -(-n // tm) * -(-m // tn)
+
+
+def _launch(kind, x, y, alpha):
+    global launches
+    lib = _build.library()
+    n, d = x.shape
+    m = y.shape[0]
+    out = torch.empty((n, m), dtype=x.dtype, device=x.device)
+    if n == 0 or m == 0:
+        return out
+    tm, tn, tiles = launch_shape(n, m, x.dtype)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.stheno_gram(
+            KINDS.index(kind), _DTYPE_CODES[x.dtype], x.data_ptr(), y.data_ptr(),
+            out.data_ptr(), n, m, d, float(alpha) if kind == "rq" else 1.0, tiles, tm, tn,
+            stream,
+        )
+    _build.check(code, "gram")
+    launches += 1
+    return out
+
+
 class _Gram(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, y, alpha, kind):
-        K = _launch(kind, x, y, alpha) if x.is_cuda else gram_plain(kind, x, y, alpha)
-        ctx.kind = kind
-        ctx.save_for_backward(x, y, alpha, K)
-        return K
+    """``gram(kind, x, y, alpha)``, differentiable in ``x``, ``y`` and rq's
+    ``alpha`` (a tensor): forward K1, backward K1's backward kernel
+    (``ops/gram_bwd.py``), which recomputes ``d2`` and ``g'`` and does not
+    keep K. Where ``x`` is ``y`` one launch sums both roles. Inputs: ``x, y,
+    alpha, kind``."""
 
     @staticmethod
+    def forward(ctx, x, y, alpha, kind):
+        ctx.kind = kind
+        ctx.same = x is y
+        ctx.save_for_backward(x, y, alpha)
+        return _launch(kind, x, y, alpha) if x.is_cuda else gram_plain(kind, x, y, alpha)
+
+    @staticmethod
+    @once_differentiable
     def backward(ctx, gbar):
-        x, y, alpha, K = ctx.saved_tensors
-        kind = ctx.kind
-        if kind == "linear":
-            return gbar @ y, gbar.T @ x, None, None
-        d2 = None
-        if kind == "eq":
-            # g' = -0.5 K needs no d2: skip the x y^T product and the norms.
-            W = gbar * (-0.5 * K)
-        else:
-            d2 = _d2(x, y, x @ y.T)
-            W = gbar * _g_prime(kind, d2, K, alpha)
-        row = torch.sum(W, dim=1, keepdim=True)
-        col = torch.sum(W, dim=0, keepdim=True).T
-        xbar = 2.0 * (row * x - W @ y)
-        ybar = 2.0 * (col * y - W.T @ x)
-        dalpha = None
-        if kind == "rq" and ctx.needs_input_grad[2]:
-            base = 1.0 + d2 / (2.0 * alpha)
-            dalpha = torch.sum(
-                gbar * K * (-torch.log(base) + d2 / (2.0 * alpha * base))
-            )
+        from .gram_bwd import gram_bwd
+
+        x, y, alpha = ctx.saved_tensors
+        need_x, need_y, need_alpha = ctx.needs_input_grad[:3]
+        want_alpha = ctx.kind == "rq" and need_alpha
+        if ctx.same:
+            # autograd hands the one tensor twice: the first slot takes
+            # the sum of both roles.
+            xbar, _, dalpha = gram_bwd(ctx.kind, x, x, gbar, alpha, want_x=need_x,
+                                       want_y=need_x, want_alpha=want_alpha, same=True)
+            return xbar, None, dalpha, None
+        xbar, ybar, dalpha = gram_bwd(ctx.kind, x, y, gbar, alpha, want_x=need_x,
+                                      want_y=need_y, want_alpha=want_alpha)
         return xbar, ybar, dalpha, None
 
 
 def gram(kind, x, y, alpha=1.0):
     """Gram matrix ``g(||x_i - y_j||^2)`` (or ``x_i . y_j`` for linear) of
-    ``x (n, d)`` and ``y (m, d)``: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. Differentiable in ``x``, ``y`` and, for
-    ``rq``, ``alpha``."""
+    ``x (n, d)`` and ``y (m, d)``, float32, float64 or bfloat16: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors.
+    Differentiable in ``x``, ``y`` and, for ``rq``, ``alpha``."""
     if kind not in KINDS:
         raise ValueError(f"Unknown gram kind {kind!r}.")
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(f"gram: need x (n, d), y (m, d); got {x.shape}, {y.shape}")
-    if x.dtype != y.dtype or x.dtype not in (torch.float32, torch.float64):
+    if x.dtype != y.dtype or x.dtype not in _DTYPE_CODES:
         raise TypeError(
-            f"gram takes float32 or float64 inputs of one dtype; got {x.dtype}, "
-            f"{y.dtype}. A bfloat16 kernel is not ported yet."
+            f"gram takes float32, float64 or bfloat16 inputs of one dtype; got {x.dtype}, "
+            f"{y.dtype}."
         )
     if x.device != y.device:
         raise ValueError(f"gram: x on {x.device}, y on {y.device}")
     if not isinstance(alpha, torch.Tensor):
-        alpha = torch.as_tensor(alpha, dtype=x.dtype, device=x.device)
+        # On the host: a number copied to the card would synchronise the
+        # stream on every call (a pageable copy), and the kernel takes
+        # alpha by value.
+        alpha = torch.as_tensor(alpha, dtype=arith_dtype(x.dtype))
     return _Gram.apply(x.contiguous(), y.contiguous(), alpha, kind)

@@ -47,7 +47,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
-from .gram import KINDS, _apply_kind, _g_prime
+from .gram import KINDS, _alpha_factor, _apply_kind, _g_prime
 from .gram_matvec import gram_matvec
 
 __all__ = ["gram_matvec_vjp", "gram_matvec_vjp_plain", "launch_shape", "launches", "MAX_DEPTH"]
@@ -96,12 +96,6 @@ def launch_shape(n, m, q, d, itemsize):
     splits = max(1, min(want, _cdiv(m, _MIN_SPAN), 65535))
     span = _cdiv(_cdiv(m_pad, splits), _TN) * _TN
     return qc, depth, qsplits, m_pad, span, _cdiv(m_pad, span)
-
-
-def _alpha_factor(d2, K, alpha):
-    """``K (d2 / (2 alpha base) - log base)``: dK/d(alpha) of rq."""
-    base = 1.0 + d2 / (2.0 * alpha)
-    return K * (d2 / (2.0 * alpha * base) - torch.log(base))
 
 
 def _linear_value(x, y, A, V):

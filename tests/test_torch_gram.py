@@ -72,6 +72,90 @@ def test_gram_grads_match_pallas_custom_vjp(kind, jax_interpret):
     np.testing.assert_allclose(dalpha, float(gj[2]), rtol=1e-3, atol=1e-5)
 
 
+def _bf16_xy(seed, n=30, m=17, d=3):
+    """bfloat16 inputs, the same values for both packages."""
+    x, y = _xy(seed, n=n, m=m, d=d)
+    xb, yb = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, y))
+    xt, yt = (torch.tensor(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16) for a in (xb, yb))
+    return xb, yb, xt, yt
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_gram_bf16_matches_pallas_interpret(kind, jax_interpret):
+    # Both compute in float32 from the same bfloat16 inputs and round the
+    # result once to bfloat16 (the TPU kernel's preferred_element_type): the
+    # two float32 values differ only by the orders of their sums, so the
+    # bfloat16 results are equal or one rounding apart, 2^-7 of the value.
+    xb, yb, xt, yt = _bf16_xy(10)
+    ref = jgram.gram(kind, xb, yb, alpha=1.3)
+    out = tgram.gram(kind, xt, yt, alpha=1.3)
+    assert ref.dtype == jnp.bfloat16 and out.dtype == torch.bfloat16
+    np.testing.assert_allclose(np_(out.float()), np_(ref.astype(jnp.float32)), rtol=2.0**-7,
+                               atol=1e-6)
+
+
+def _bf16_grad_tols(kind, x, y, cot, alpha, delta_rel=2.0**-8, rel=2.0**-6):
+    """Tolerances of the port's bfloat16 gradients against the JAX
+    package's. The port computes them in float32 and rounds each once
+    (2^-8 of the value). The JAX package's _gram_bwd runs in bfloat16 at
+    every jnp step: d2's three terms, W, rowsum(W) and both products each
+    round to 2^-8 of their terms, and the W-trick rowsum(W) x - W y then
+    cancels them, so its error is a few (four: ``rel``) such roundings of
+    S_i = 2 sum_j |W_ij| (|x_i| + |y_j|), plus what d2's rounding, delta =
+    2^-8 (|x_i|^2 + |y_j|^2), does to g': |g'(d2 - delta) - g'(d2 + delta)|
+    per term (g' is monotone in d2). rq's alpha likewise, over
+    |cot K h|. Returns (x, y, alpha) tolerances, float64."""
+    X, Y, C = (torch.tensor(a, dtype=torch.float64) for a in (x, y, cot))
+    a = torch.tensor(alpha, dtype=torch.float64)
+    xa, ya = X.abs(), Y.abs()
+    if kind == "linear":
+        return rel * (C.abs() @ ya), rel * (C.abs().T @ xa), 0.0
+    diff = X[:, None, :] - Y[None, :, :]
+    d2 = (diff * diff).sum(-1)
+    delta = delta_rel * ((X * X).sum(1)[:, None] + (Y * Y).sum(1)[None, :])
+
+    def gp(t):
+        return tgram._g_prime(kind, t, tgram._apply_kind(kind, t, None, a), a)
+
+    def h(t):
+        return tgram._alpha_factor(t, tgram._apply_kind(kind, t, None, a), a)
+
+    W = C.abs() * (rel * gp(d2).abs() + (gp(d2 + delta) - gp((d2 - delta).clamp_min(0))).abs())
+    tx = 2 * (W.sum(1, keepdim=True) * xa + W @ ya)
+    ty = 2 * (W.sum(0)[:, None] * ya + W.T @ xa)
+    h0 = h(d2)
+    dh = (h(d2 + delta) - h0).abs() + (h((d2 - delta).clamp_min(0)) - h0).abs()
+    return tx, ty, float((C.abs() * (rel * h0.abs() + dh)).sum())
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_gram_bf16_grads_match_pallas_custom_vjp(kind, jax_interpret):
+    # bfloat16 inputs and cotangent through both packages' custom
+    # gradients: the port's comes back in bfloat16, within
+    # _bf16_grad_tols of jax.grad through _gram_bwd.
+    xb, yb, xt, yt = _bf16_xy(11, n=12, m=9, d=2)
+    cb = jnp.asarray(np.random.RandomState(12).randn(12, 9)).astype(jnp.bfloat16)
+
+    def loss_j(x, y, alpha):
+        return jnp.sum((cb * jgram.gram(kind, x, y, alpha)).astype(jnp.float32))
+
+    gj = jax.grad(loss_j, argnums=(0, 1, 2))(xb, yb, jnp.float32(1.3))
+    xr, yr = xt.clone().requires_grad_(True), yt.clone().requires_grad_(True)
+    at = torch.tensor(1.3, requires_grad=True)
+    ct = torch.tensor(np.asarray(cb.astype(jnp.float32))).to(torch.bfloat16)
+    gt = torch.autograd.grad(tgram.gram(kind, xr, yr, at), (xr, yr, at), ct, allow_unused=True)
+    assert gt[0].dtype == gt[1].dtype == torch.bfloat16
+    tx, ty, ta = _bf16_grad_tols(kind, np_(xt.float()), np_(yt.float()),
+                                 np_(ct.float()), 1.3)
+    for got, ref, tol in ((gt[0], gj[0], tx), (gt[1], gj[1], ty)):
+        err = np.abs(np_(got.double()) - np.asarray(jnp.asarray(ref).astype(jnp.float64)))
+        assert (err <= np_(tol)).all(), float((err / np_(tol)).max())
+    if kind == "rq":
+        assert abs(float(gt[2]) - float(gj[2])) <= ta
+    else:
+        assert gt[2] is None
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_gram_f64_matches_xla_formula(kind):
     # The plain version is the JAX package's XLA formula: in float64 the
@@ -109,9 +193,10 @@ def test_gram_same_input_accumulates_both_gradients():
 
 
 def test_gram_rejects_what_the_kernel_does_not_take():
+    # bfloat16 is taken, as the TPU kernel takes it; float16 is not.
     x = torch.zeros(4, 2)
     with pytest.raises(TypeError):
-        tgram.gram("eq", x.to(torch.bfloat16), x.to(torch.bfloat16))
+        tgram.gram("eq", x.to(torch.float16), x.to(torch.float16))
     with pytest.raises(TypeError):
         tgram.gram("eq", x, x.double())
     with pytest.raises(ValueError):
