@@ -36,6 +36,7 @@ unconverged solve, or a missing card ends it with a non-zero exit code
 and no result line.
 """
 
+import gc
 import json
 import math
 import statistics
@@ -609,80 +610,98 @@ def phase_main_path():
     return counts
 
 
+def device_ms_per_call(fn, inner=20):
+    """``device_ms`` of ``inner`` calls back to back, per call."""
+    return device_ms(lambda: [fn() for _ in range(inner)]) / inner
+
+
+def k1_forward_times(K1, n, dtype):
+    """K1 (``K1``: a checkout's ``stheno_torch.ops.gram``) per call, eq, at
+    ``n x 2`` by ``n x 2`` warped inputs in ``dtype``: its CUDA-event time
+    (``time_ms``: 20 calls back to back, 3 warm-ups, median of 20), its
+    device time (``device_ms_per_call``), its bound (each input byte read
+    once, each output byte written once, at 3.35 TB/s: the operations, a
+    few per entry, bind far less), its plain version and the PyTorch call
+    ``exp(-0.5 cdist^2)``, which the port never makes."""
+    x = _warped(n).to(dtype)
+    byts = (2 * n * 2 + n * n) * x.element_size()
+    flops = n * n * (2 * 2 + 4) + 4 * n * 2
+    b_ms, b_by = bound(byts, flops, torch.float64 if dtype == torch.float64 else torch.float32)
+    call = lambda: K1.gram("eq", x, x)  # noqa: E731
+
+    def library():
+        return torch.exp(-0.5 * torch.cdist(x, x).square())
+
+    try:
+        lib_ms = time_ms(library, inner=5)
+    except RuntimeError:  # no cdist for this dtype on this build
+        lib_ms = None
+    return {
+        "shape": [n, n, 2], "dtype": str(dtype),
+        "ms": time_ms(call, inner=20),
+        "device_ms": device_ms_per_call(call),
+        "plain_ms": time_ms(lambda: K1.gram_plain("eq", x, x), inner=5),
+        "library_ms": lib_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+
+
+def k1_cotangent(n):
+    return torch.randn(n, n, generator=torch.Generator(device="cuda").manual_seed(17),
+                       device="cuda")
+
+
+def k1_backward_call(K1, kind, gbar):
+    """``autograd.grad`` of a built N=2000 Gram (x is y, float32) with the
+    cotangent ``gbar``, as the value+grad step runs it."""
+    x = _warped(gbar.shape[0]).requires_grad_(True)
+    K = K1.gram(kind, x, x)
+    return lambda: torch.autograd.grad(K, x, gbar, retain_graph=True)
+
+
+def k1_backward_times(K1, kind, gbar, plain=None):
+    """K1's backward per call (``k1_backward_call``): its CUDA-event and
+    device times, its bound (x and gbar read once, xbar written once, at
+    3.35 TB/s; about 20 flops an entry), its plain version ``plain`` (the
+    checkout's ``gram_bwd_plain``, None where it has none) and
+    ``autograd.grad`` through ``exp(-0.5 cdist^2)`` (matern32: ``(1 + r)
+    exp(-r)`` of ``sqrt(3) cdist``)."""
+    n, r3 = gbar.shape[0], math.sqrt(3.0)
+    lib_g = {"eq": lambda r: torch.exp(-0.5 * r.square()),
+             "matern32": lambda r: (1 + r3 * r) * torch.exp(-r3 * r)}
+    call = k1_backward_call(K1, kind, gbar)
+    xd = _warped(n)
+    xl = xd.clone().requires_grad_(True)
+    KL = lib_g[kind](torch.cdist(xl, xl))
+    b_ms, b_by = bound((2 * n * 2 + n * n) * 4, 20 * n * n, torch.float32)
+    return {
+        "kind": kind, "shape": [n, n, 2], "dtype": "torch.float32",
+        "ms": time_ms(call, inner=20),
+        "device_ms": device_ms_per_call(call),
+        "plain_ms": None if plain is None else time_ms(
+            lambda: plain(kind, xd, xd, gbar, same=True), reps=5, warmup=1),
+        "library_ms": time_ms(lambda: torch.autograd.grad(KL, xl, gbar, retain_graph=True),
+                              inner=5),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+
+
 def _k1_times():
-    """K1 per call (eq) at the headline's Gram, 2000x2 by 2000x2, and at
-    8192x2 by 8192x2, in float32, float64 and bfloat16; its backward at
-    N=2000 (x is y, eq and matern32, float32: ``autograd.grad`` of a built
-    Gram with a cotangent, as the value+grad step runs it). Each with its
-    CUDA-event time (``time_ms``: 20 calls back to back, 3 warm-ups, median
-    of 20), its device time (``device_ms`` over 20 calls), its bound (each
-    input byte read once, each output byte written once, at 3.35 TB/s: the
-    operations, a few per entry, bind far less), its plain version and the
-    PyTorch call (``exp(-0.5 cdist^2)``; for the backward ``autograd.grad``
-    through it, matern32 through ``(1 + r) exp(-r)`` of ``sqrt(3) cdist``),
-    which the port never makes. Returns the kernels line's two rows (the
-    headline forward in float32 and the backward of eq) and every shape's
-    numbers."""
+    """K1 per call at the headline's Gram, 2000x2 by 2000x2, and at 8192x2
+    by 8192x2, in float32, float64 and bfloat16 (``k1_forward_times``); its
+    backward at N=2000, eq and matern32 (``k1_backward_times``). Returns the
+    kernels line's two rows (the headline forward in float32 and the
+    backward of eq) and every shape's numbers."""
     from stheno_torch.ops import gram as K1
     from stheno_torch.ops import gram_bwd as K1B
 
-    def device_ms_per_call(fn, inner=20):
-        return device_ms(lambda: [fn() for _ in range(inner)]) / inner
-
-    forward = {}
-    for n in (2000, 8192):
-        for dtype in K1.DTYPES:
-            x = _warped(n).to(dtype)
-            byts = (2 * n * 2 + n * n) * x.element_size()
-            flops = n * n * (2 * 2 + 4) + 4 * n * 2
-            b_ms, b_by = bound(byts, flops, K1.arith_dtype(dtype))
-            call = lambda x=x: K1.gram("eq", x, x)  # noqa: E731
-
-            def library(x=x):
-                return torch.exp(-0.5 * torch.cdist(x, x).square())
-
-            try:
-                lib_ms = time_ms(library, inner=5)
-            except RuntimeError:  # no cdist for this dtype on this build
-                lib_ms = None
-            forward[f"{n}x2 {dtype}"] = {
-                "shape": [n, n, 2], "dtype": str(dtype),
-                "launch_shape": K1.launch_shape(n, n, dtype),
-                "ms": time_ms(call, inner=20),
-                "device_ms": device_ms_per_call(call),
-                "plain_ms": time_ms(lambda x=x: K1.gram_plain("eq", x, x), inner=5),
-                "library_ms": lib_ms,
-                "bound_ms": b_ms,
-                "bound_by": b_by,
-            }
-
-    backward = {}
-    n, r3 = 2000, math.sqrt(3.0)
-    gbar = torch.randn(n, n, generator=torch.Generator(device="cuda").manual_seed(17),
-                       device="cuda")
-    lib_g = {"eq": lambda r: torch.exp(-0.5 * r.square()),
-             "matern32": lambda r: (1 + r3 * r) * torch.exp(-r3 * r)}
-    for kind in ("eq", "matern32"):
-        x = _warped(n).requires_grad_(True)
-        K = K1.gram(kind, x, x)
-        call = lambda K=K, x=x: torch.autograd.grad(K, x, gbar, retain_graph=True)  # noqa: E731
-        xl = x.detach().requires_grad_(True)
-        KL = lib_g[kind](torch.cdist(xl, xl))
-        xd = x.detach()
-        # x and gbar read once, xbar written once; about 20 flops an entry.
-        b_ms, b_by = bound((2 * n * 2 + n * n) * 4, 20 * n * n, torch.float32)
-        backward[kind] = {
-            "shape": [n, n, 2], "dtype": "torch.float32",
-            "launch_shape": K1B.launch_shape(n, n, 2, torch.float32),
-            "ms": time_ms(call, inner=20),
-            "device_ms": device_ms_per_call(call),
-            "plain_ms": time_ms(lambda xd=xd: K1B.gram_bwd_plain(kind, xd, xd, gbar, same=True),
-                                reps=5, warmup=1),
-            "library_ms": time_ms(lambda KL=KL, xl=xl: torch.autograd.grad(
-                KL, xl, gbar, retain_graph=True), inner=5),
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-        }
+    forward = {f"{n}x2 {dtype}": k1_forward_times(K1, n, dtype)
+               for n in (2000, 8192) for dtype in K1.DTYPES}
+    gbar = k1_cotangent(2000)
+    backward = {kind: k1_backward_times(K1, kind, gbar, K1B.gram_bwd_plain)
+                for kind in ("eq", "matern32")}
     rows = [{"name": "gram", **forward["2000x2 torch.float32"]},
             {"name": "gram_bwd", **backward["eq"]}]
     return rows, {"forward": forward, "backward": backward}
@@ -1440,7 +1459,8 @@ def phase_path_times(state, cache, build_s):
     """The matrix-free path's steps under bench.py's suite names: CUDA
     events around each call, one warm-up and the median of 3 (the
     variance-cache build: its one timed run in ``phase_iterative``); the
-    peak device memory of the amortised step."""
+    peak device memory of the amortised step, in all and less what was
+    allocated when it started (its own)."""
     from stheno_torch import entry as E
 
     saved = _counts()
@@ -1458,11 +1478,18 @@ def phase_path_times(state, cache, build_s):
         "iterative_n262144_step_s": secs(lambda: E.iterative_step(x, y, params, gen)),
     }
     torch.cuda.synchronize()
+    # Earlier phases leave reference cycles that hold tensors until the
+    # collector next runs: free them, so that the peak counts live memory.
+    gc.collect()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     before = _counts()
     out["iterative_n262144_amortised_step_s"] = secs(
         lambda: E.iterative_step(x, y, params, gen, precond_state=state))
     out["amortised_step_max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    # The step's own peak: what earlier phases leave allocated cannot move it.
+    out["amortised_step_own_peak_bytes"] = torch.cuda.max_memory_allocated() - held
+    out["amortised_step_held_bytes"] = held
     # Four steps ran (a warm-up and three samples): launches per step.
     per_step = {k: (v - before[k]) / 4 for k, v in _counts().items()}
     out["amortised_step_launches"] = per_step
@@ -1502,11 +1529,19 @@ def _profile(label, fn):
     to the end of its last device activity, the device's busy time in it,
     ``{kernel: (launches, device_us)}`` and the wrappers' counts of the
     run. The profiler slows the host, so busy / span is a lower bound."""
+    before = _counts()
+    span_us, busy_us, by_name = trace(label, fn)
+    after = _counts()
+    return span_us, busy_us, by_name, {k: after[k] - before[k] for k in after}
+
+
+def trace(label, fn):
+    """``_profile`` without the wrappers' counts: ``(span_us, busy_us,
+    by_name)`` of one run of ``fn``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
-    before = _counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         # The tracer can drop a session's first device records: give it a
         # kernel and a synchronise before the step, and count only what
@@ -1516,7 +1551,6 @@ def _profile(label, fn):
         with record_function(label):
             fn()
             torch.cuda.synchronize()
-    after = _counts()
     events = prof.events()
     # The annotation is recorded twice, on the host and as a device span;
     # only the host one marks the step's start, and neither is a kernel.
@@ -1534,8 +1568,7 @@ def _profile(label, fn):
     for e in device:
         n, us = by_name.get(_kernel_name(e.name), (0, 0.0))
         by_name[_kernel_name(e.name)] = (n + 1, us + e.time_range.end - e.time_range.start)
-    launches = {k: after[k] - before[k] for k in after}
-    return span_us, _union_length(intervals), by_name, launches
+    return span_us, _union_length(intervals), by_name
 
 
 def _top(by_name, k=12):

@@ -1,11 +1,12 @@
 """K1 (the fused Gram of stheno_torch) and its backward on one GPU: checks
-against the plain versions, times beside bounds, and what the compiler
-made of the kernels.
+against the plain versions, times of two checkouts side by side, what the
+compiler made of the kernels, and where chip_smoke.py's device memory
+goes.
 
     python3 scripts/torch_k1.py check
     python3 scripts/torch_k1.py times [--root DIR]
     python3 scripts/torch_k1.py ptxas [--out DIR]
-    python3 scripts/torch_k1.py mem
+    python3 scripts/torch_k1.py mem [--root DIR]
 
 ``check`` builds the kernels and runs ``chip_smoke.py``'s phase ``gram``
 alone (the forward in three dtypes, six kinds and depths 1, 2, 3, 8, 9,
@@ -13,26 +14,24 @@ alone (the forward in three dtypes, six kinds and depths 1, 2, 3, 8, 9,
 twice with equal bits).
 
 ``times`` imports ``stheno_torch`` from the checkout at ``--root``
-(default: this one), so that two checkouts can be compared in one run on
-one card, and prints one JSON line: the card's ``nvidia-smi`` name and
-power limit; K1's forward (eq) at 2000x2 by 2000x2 and 8192x2 by 8192x2
-(the headline's warped inputs) in float32, float64 and bfloat16, and its
-backward at N=2000 (x is y, eq and matern32, float32: ``autograd.grad`` of
-a built Gram with a cotangent), each with its CUDA-event time per call
-(``ms``: 20 calls back to back, 3 warm-ups, median of 20 samples),
-its device time (``device_ms``: 20 calls enqueued behind a spin kernel,
-per call; a call that synchronises the stream puts host time in it), the
-device kernels one call launches with their profiled device times, its bound (each input
-byte read once and each output byte written once at 3.35 TB/s), its
-plain version and the PyTorch library call (``exp(-0.5 cdist^2)``, and
-``autograd.grad`` through it); a dtype the checkout's ``gram`` refuses is
-marked so. Then the N=2000 value+grad step under ``torch.profiler``:
-device launches, busy time and the K1 kernels' launches.
+(default: this one) and times it with this checkout's ``chip_smoke.py``
+(``k1_forward_times``, ``k1_backward_times``), so that two checkouts can
+be compared in one run on one card. One JSON line: the card's
+``nvidia-smi`` name and power limit; K1's forward (eq) at 2000x2 by
+2000x2 and 8192x2 by 8192x2 in float32, float64 and bfloat16 (a dtype the
+checkout refuses is marked so), and its backward at N=2000 (eq and
+matern32), each with chip_smoke's numbers and the device kernels of one
+call with their profiled device times (``trace``); then the N=2000
+value+grad step's device launches, busy time and kernels by launch count.
 
-``mem`` prints the device memory still allocated (after a garbage
-collection) once ``chip_smoke.py``'s phase ``gram`` and its K1 timing
-(``_k1_times``) have returned: what they leave held for the rest of a
-``chip_smoke.py`` run, such as the library's GEMM workspaces.
+``mem`` takes the peak device memory of one amortised N=262,144 step
+apart. For the checkout at ``--root`` (default: this one), in a fresh
+process: the step's own peak (``max_memory_allocated`` less what was
+allocated when the peak was reset). For this checkout, also within
+``chip_smoke.py``'s phases, stopped where phase ``iterative_times`` would
+start: what is allocated there, the step's own peak, and the live blocks
+grouped by the innermost frame of this repository that allocated them
+(``torch.cuda.memory._record_memory_history``).
 
 ``ptxas`` compiles ``gram.cu``, ``gram_bwd.cu`` and ``gram_bwd_f64.cu``
 with the build's flags and ``-Xptxas -v`` (written to
@@ -41,9 +40,9 @@ kernel: one JSON line.
 """
 
 import argparse
+import gc
+import importlib.util
 import json
-import math
-import statistics
 import subprocess
 import sys
 import time
@@ -54,190 +53,72 @@ import torch
 from torch_k3 import _ptxas, _smi
 
 REPO = Path(__file__).resolve().parents[1]
-HBM_BYTES_PER_S = 3.35e12
 
 
-def _ms(fn, reps=20, inner=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        samples.append(start.elapsed_time(end) / inner)
-    return statistics.median(samples)
+def _chip_smoke():
+    """This checkout's ``chip_smoke.py``, whichever ``stheno_torch`` is on
+    the path."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def _device_ms(fn, inner=20, reps=5):
-    """Per call, ``inner`` calls enqueued while a spin kernel holds the
-    stream: the device runs them back to back, with no host time between."""
-    fn()
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        samples.append(start.elapsed_time(end) / inner)
-    return statistics.median(samples)
-
-
-def _profile(fn):
-    """``(device launches, busy_ms, {kernel: [launches, device_ms]})`` of
-    one call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1_000_000)
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    # The spin kernel (torch.cuda._sleep) only settles the tracer.
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not e.is_user_annotation and "spin_kernel" not in e.name]
-    names = {}
-    for e in events:
-        head = e.name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
-        head = head.rsplit("::", 1)[-1].replace("void ", "").strip()[:60]
-        c, ms = names.get(head, (0, 0.0))
-        names[head] = (c + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
-    busy, start, end = 0.0, None, None
-    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
-        if end is None or s > end:
-            busy += 0.0 if end is None else end - start
-            start, end = s, e
-        else:
-            end = max(end, e)
-    busy += 0.0 if end is None else end - start
-    return len(events), busy / 1e3, names
-
-
-def _warped(n, ell=2.0):
-    x = torch.linspace(0.0, 10.0, n, device="cuda")[:, None]
-    a = 2 * math.pi * x
-    return torch.cat([torch.cos(a), torch.sin(a)], dim=-1) / ell
-
-
-def _grid_sweep(K1):
-    """K1's forward (eq, float32) at 2000^2 and 8192^2 with grids of 1, 2
-    and 4 blocks per SM (persistent: each block walks several tiles) and
-    one block per tile (the wrapper's choice, marked): device time per
-    call."""
-    from stheno_torch.ops import _build
-
-    lib = _build.library()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    res = []
-    for n in (2000, 8192):
-        x = _warped(n)
-        out = torch.empty((n, n), device="cuda")
-        tm, tn, tiles = K1.launch_shape(n, n, torch.float32)
-        chosen = tiles
-        stream = torch.cuda.current_stream().cuda_stream
-        for blocks in sorted({sms, 2 * sms, 4 * sms, tiles}):
-            def call(blocks=blocks):
-                code = lib.stheno_gram(0, 0, x.data_ptr(), x.data_ptr(), out.data_ptr(), n, n, 2,
-                                       1.0, blocks, tm, tn, stream)
-                assert code == 0, code
-            res.append({"n": n, "blocks": blocks, "tiles": tiles, "chosen": blocks == chosen,
-                        "device_ms": _device_ms(call)})
-    return res
+def _kernels(cs, fn):
+    """``{kernel: [launches, device_ms]}`` of one call of ``fn``."""
+    _, _, by_name = cs.trace("call", fn)
+    return {k: [c, us / 1e3] for k, (c, us) in by_name.items()}
 
 
 def times(root):
     sys.path.insert(0, str(Path(root).resolve()))
+    cs = _chip_smoke()
     from stheno_torch import config
     from stheno_torch import entry as E
     from stheno_torch.ops import gram as K1
 
+    try:
+        from stheno_torch.ops.gram_bwd import gram_bwd_plain as plain
+    except ImportError:  # a checkout from before K1's backward kernel
+        plain = None
     out = {"nvidia_smi": _smi(), "root": str(root), "forward": [], "backward": []}
     with config.matmul_precision_ctx():
         for n in (2000, 8192):
             for dtype in (torch.float32, torch.float64, torch.bfloat16):
-                x = _warped(n).to(dtype)
-                item = x.element_size()
-                rec = {"shape": [n, n, 2], "dtype": str(dtype),
-                       "bound_ms": (2 * n * 2 + n * n) * item / HBM_BYTES_PER_S * 1e3,
-                       "bound_by": "bytes"}
-                out["forward"].append(rec)
+                x = cs._warped(n).to(dtype)
                 try:
                     K1.gram("eq", x, x)
                 except TypeError as e:
-                    rec["taken"] = False
-                    rec["error"] = str(e)
+                    out["forward"].append({"shape": [n, n, 2], "dtype": str(dtype),
+                                           "taken": False, "error": str(e)})
                     continue
-                call = lambda x=x: K1.gram("eq", x, x)  # noqa: E731
-                rec["ms"] = _ms(call)
-                rec["device_ms"] = _device_ms(call)
-                rec["device_launches"], _, rec["kernels"] = _profile(call)
-                rec["plain_ms"] = _ms(lambda x=x: K1.gram_plain("eq", x, x), inner=5)
-                try:
-                    rec["library_ms"] = _ms(lambda x=x: torch.exp(-0.5 * torch.cdist(x, x).square()),
-                                            inner=5)
-                except RuntimeError as e:
-                    rec["library_ms"], rec["library_error"] = None, str(e)
-
-        if hasattr(K1, "launch_shape"):
-            out["forward_grid_sweep"] = _grid_sweep(K1)
-            # What the exp costs: eq against linear (no epilogue) at 8192^2.
-            x8 = _warped(8192)
-            out["forward_eq_vs_linear_8192"] = {
-                f"{kind} {dtype}": _device_ms(lambda kind=kind, x=x8.to(dtype): K1.gram(kind, x, x))
-                for kind in ("eq", "linear") for dtype in (torch.float32, torch.bfloat16)}
-
-        n, r3 = 2000, math.sqrt(3.0)
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        gbar = torch.randn(n, n, generator=gen, device="cuda")
-        lib_g = {"eq": lambda d: torch.exp(-0.5 * d.square()),
-                 "matern32": lambda d: (1 + r3 * d) * torch.exp(-r3 * d)}
+                rec = cs.k1_forward_times(K1, n, dtype)
+                rec["kernels"] = _kernels(cs, lambda x=x: K1.gram("eq", x, x))
+                out["forward"].append(rec)
+        gbar = cs.k1_cotangent(2000)
         for kind in ("eq", "matern32"):
-            x = _warped(n).requires_grad_(True)
-            K = K1.gram(kind, x, x)
-            call = lambda K=K, x=x: torch.autograd.grad(K, x, gbar, retain_graph=True)  # noqa: E731
-            rec = {"kind": kind, "shape": [n, n, 2], "dtype": "torch.float32",
-                   "bound_ms": (2 * n * 2 + n * n) * 4 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-                   "ms": _ms(call), "device_ms": _device_ms(call)}
-            rec["device_launches"], _, rec["kernels"] = _profile(call)
-            try:
-                from stheno_torch.ops import gram_bwd as KB
-            except ImportError:
-                rec["plain_ms"] = None
-            else:
-                xd = x.detach()
-                rec["plain_ms"] = _ms(lambda xd=xd: KB.gram_bwd_plain(kind, xd, xd, gbar, same=True),
-                                      reps=5, inner=1)
-            xl = x.detach().requires_grad_(True)
-            KL = lib_g[kind](torch.cdist(xl, xl))
-            rec["library_ms"] = _ms(lambda KL=KL, xl=xl: torch.autograd.grad(
-                KL, xl, gbar, retain_graph=True))
+            rec = cs.k1_backward_times(K1, kind, gbar, plain)
+            rec["kernels"] = _kernels(cs, cs.k1_backward_call(K1, kind, gbar))
             out["backward"].append(rec)
 
         xb, yb, ell = E.n2000_inputs()
-        launches, busy, names = _profile(lambda: E.nlml_n2000(xb, yb, ell, grad=True))
+        step = lambda: E.nlml_n2000(xb, yb, ell, grad=True)  # noqa: E731
+        for _ in range(3):
+            step()
+        span_us, busy_us, by_name = cs.trace("n2000_value_grad", step)
         out["n2000_value_grad"] = {
-            "device_launches": launches, "device_busy_ms": busy,
-            "gram_kernel_launches": names.get("gram_kernel", (0, 0.0))[0],
-            "gram_bwd_kernel_launches": names.get("gram_bwd_kernel", (0, 0.0))[0],
-            "kernels_by_launches": dict(sorted(names.items(), key=lambda kv: -kv[1][0])),
+            "span_ms": span_us / 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "device_launches": sum(c for c, _ in by_name.values()),
+            "kernels_by_launches": {k: [c, us / 1e3] for k, (c, us) in
+                                    sorted(by_name.items(), key=lambda kv: -kv[1][0])},
         }
     print(json.dumps(out), flush=True)
 
 
 def check():
     sys.path.insert(0, str(REPO))
-    import chip_smoke
+    cs = _chip_smoke()
     from stheno_torch import config
     from stheno_torch.ops import _build
 
@@ -246,33 +127,82 @@ def check():
     print(json.dumps({"nvidia_smi": _smi(), "build_s": time.perf_counter() - t0}), flush=True)
     with config.matmul_precision_ctx():
         t0 = time.perf_counter()
-        errs = chip_smoke.phase_gram()
+        errs = cs.phase_gram()
     print(json.dumps({"gram_path_err": errs[0], "gram_bwd_path_err": errs[1],
                       "seconds": time.perf_counter() - t0}), flush=True)
 
 
-def mem():
-    import gc
+def _own_peak(E, x, y, params, state, gen):
+    """``(allocated, own peak)`` of one amortised step, after a warm-up:
+    the bytes allocated when the peak is reset, and the peak less them."""
+    E.iterative_step(x, y, params, gen, precond_state=state)
+    torch.cuda.synchronize()
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    E.iterative_step(x, y, params, gen, precond_state=state)
+    torch.cuda.synchronize()
+    return base, torch.cuda.max_memory_allocated() - base
 
-    sys.path.insert(0, str(REPO))
-    import chip_smoke
+
+def _live_blocks(snapshot, top=25):
+    """The live blocks of a memory snapshot summed by the innermost frame
+    of this repository on their allocation stack (else the innermost
+    frame): ``[{"site", "blocks", "bytes"}]``, largest first."""
+    sites = {}
+    for seg in snapshot["segments"]:
+        for blk in seg["blocks"]:
+            if blk["state"] != "active_allocated":
+                continue
+            frames = blk.get("frames") or []
+            ours = [f for f in frames if "stheno_torch" in f["filename"]
+                    or f["filename"].endswith("chip_smoke.py")]
+            f = (ours or frames or [None])[0]
+            site = "unknown" if f is None else f"{f['filename'].split('/repo/')[-1]}:{f['line']} {f['name']}"
+            n, b = sites.get(site, (0, 0))
+            sites[site] = (n + 1, b + blk["size"])
+    ranked = sorted(sites.items(), key=lambda kv: -kv[1][1])[:top]
+    return [{"site": s, "blocks": n, "bytes": b} for s, (n, b) in ranked]
+
+
+def mem(root):
+    this = Path(root).resolve() == REPO
+    sys.path.insert(0, str(Path(root).resolve()))
+    cs = _chip_smoke()
     from stheno_torch import config
+    from stheno_torch import entry as E
     from stheno_torch.ops import _build
 
     _build.library()
-    out = {"nvidia_smi": _smi()}
-
-    def mark(tag):
-        torch.cuda.synchronize()
-        gc.collect()
-        out[tag] = torch.cuda.memory_allocated()
-
+    out = {"nvidia_smi": _smi(), "root": str(root)}
     with config.matmul_precision_ctx():
-        mark("start_bytes")
-        chip_smoke.phase_gram()
-        mark("after_phase_gram_bytes")
-        chip_smoke._k1_times()
-        mark("after_k1_times_bytes")
+        x, y, params = cs._path_inputs()
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        state = E.iterative_precond_state(x, params, gen)
+        out["fresh_allocated_bytes"], out["fresh_own_peak_bytes"] = _own_peak(
+            E, x, y, params, state, gen)
+        del x, y, params, state
+        gc.collect()
+        if this:
+            class Stop(Exception):
+                pass
+
+            def at_step(state, cache, build_s):
+                x, y, params = cs._path_inputs()
+                gen = torch.Generator(device="cuda").manual_seed(9)
+                base, own = _own_peak(E, x, y, params, state, gen)
+                out["in_run_allocated_bytes"], out["in_run_own_peak_bytes"] = base, own
+                out["in_run_live_blocks"] = _live_blocks(torch.cuda.memory._snapshot())
+                raise Stop
+
+            torch.cuda.memory._record_memory_history(enabled="state", context="alloc",
+                                                     stacks="python")
+            cs.phase_path_times = at_step
+            try:
+                cs._run_phases()
+            except Stop:
+                pass
+            torch.cuda.memory._record_memory_history(enabled=None)
     print(json.dumps(out), flush=True)
 
 
@@ -320,7 +250,7 @@ def main():
     elif args.what == "times":
         times(args.root)
     elif args.what == "mem":
-        mem()
+        mem(args.root)
     else:
         ptxas(args.out)
     return 0

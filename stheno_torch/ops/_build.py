@@ -92,7 +92,7 @@ def _build(target, sources):
 
 def _declare(lib):
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.stheno_gram.argtypes = [i, i, p, p, p, i, i, i, d, i, i, i, p]
+    lib.stheno_gram.argtypes = [i, i, p, p, p, i, i, i, d, i, i, p]
     lib.stheno_gram.restype = i
     lib.stheno_gram_bwd.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, i, d, i, i, i, i, p]
     lib.stheno_gram_bwd.restype = i

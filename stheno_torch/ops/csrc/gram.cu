@@ -20,13 +20,11 @@
 //     contiguous bytes of a row. Where the row stride breaks 16-byte
 //     alignment (m not a multiple of the vector) or at the ragged right
 //     edge, the stores are scalar;
-//   - the wrapper launches one block per (TM, TN) tile, four resident on
-//     each SM. The kernel walks the tiles from blockIdx.x in steps of the
-//     grid, so a smaller grid runs it persistent (each block walking
-//     several tiles, one tile's stores draining while the next one's
-//     arithmetic runs): on the H100 that measured slower, 7.60 against
-//     7.57 us at 2000^2 and 92.4 against 85.3 us at 8192^2 in float32
-//     with SMs x 4 blocks (scripts/torch_k1.py times; PERF.md).
+//   - one block per (TM, TN) tile, four resident on each SM. A persistent
+//     grid (SMs x 4 blocks, each walking several tiles so that one tile's
+//     stores drain while the next one's arithmetic runs) measured slower
+//     on the H100: 7.63 against 7.57 us at 2000^2 and 92.6 against 85.4
+//     us at 8192^2 in float32 (PERF.md).
 // The exp unit is not the limit (4 M exps are about 1 us at 16 per clock
 // per SM), so the epilogue keeps libdevice's expf / exp (gram_kind.cuh).
 //
@@ -61,79 +59,76 @@ gram_kernel(const S* __restrict__ x, const S* __restrict__ y, S* __restrict__ ou
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int depth = D == 0 ? d : D;
   const int tiles_n = (m + TN - 1) / TN;  // tiles in row-major order
-  const int tiles = ((n + TM - 1) / TM) * tiles_n;
+  const int t = blockIdx.x;
+  const int r0 = (t / tiles_n) * TM + warp * R;
+  const int c0 = (t % tiles_n) * TN + lane * V;
+  T acc[R][V], xn[R], yn[V];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    xn[i] = T(0);
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[i][j] = T(0);
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) yn[j] = T(0);
 
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int r0 = (t / tiles_n) * TM + warp * R;
-    const int c0 = (t % tiles_n) * TN + lane * V;
-    T acc[R][V], xn[R], yn[V];
+  // Rows and columns past the edge read the last one: their entries
+  // are not stored. One depth at a time, so that only R + V inputs are
+  // live beside the R x V sums.
+  const S* xr[R];
+  const S* yr[V];
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      xn[i] = T(0);
+  for (int i = 0; i < R; ++i) xr[i] = x + (size_t)min(r0 + i, n - 1) * d;
 #pragma unroll
-      for (int j = 0; j < V; ++j) acc[i][j] = T(0);
+  for (int j = 0; j < V; ++j) yr[j] = y + (size_t)min(c0 + j, m - 1) * d;
+  for (int k0 = 0; k0 < depth; k0 += DC) {
+#pragma unroll
+    for (int k = 0; k < DC; ++k) {
+      const bool in = k < d - k0;  // zeros past d change no sum
+      T xv[R], yv[V];
+#pragma unroll
+      for (int i = 0; i < R; ++i) xv[i] = in ? to_arith(__ldg(xr[i] + k0 + k)) : T(0);
+#pragma unroll
+      for (int j = 0; j < V; ++j) yv[j] = in ? to_arith(__ldg(yr[j] + k0 + k)) : T(0);
+#pragma unroll
+      for (int i = 0; i < R; ++i) xn[i] = fma(xv[i], xv[i], xn[i]);
+#pragma unroll
+      for (int j = 0; j < V; ++j) yn[j] = fma(yv[j], yv[j], yn[j]);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[i][j] = fma(xv[i], yv[j], acc[i][j]);
     }
-#pragma unroll
-    for (int j = 0; j < V; ++j) yn[j] = T(0);
-
-    // Rows and columns past the edge read the last one: their entries
-    // are not stored. One depth at a time, so that only R + V inputs are
-    // live beside the R x V sums.
-    const S* xr[R];
-    const S* yr[V];
-#pragma unroll
-    for (int i = 0; i < R; ++i) xr[i] = x + (size_t)min(r0 + i, n - 1) * d;
-#pragma unroll
-    for (int j = 0; j < V; ++j) yr[j] = y + (size_t)min(c0 + j, m - 1) * d;
-    for (int k0 = 0; k0 < depth; k0 += DC) {
-#pragma unroll
-      for (int k = 0; k < DC; ++k) {
-        const bool in = k < d - k0;  // zeros past d change no sum
-        T xv[R], yv[V];
-#pragma unroll
-        for (int i = 0; i < R; ++i) xv[i] = in ? to_arith(__ldg(xr[i] + k0 + k)) : T(0);
-#pragma unroll
-        for (int j = 0; j < V; ++j) yv[j] = in ? to_arith(__ldg(yr[j] + k0 + k)) : T(0);
-#pragma unroll
-        for (int i = 0; i < R; ++i) xn[i] = fma(xv[i], xv[i], xn[i]);
-#pragma unroll
-        for (int j = 0; j < V; ++j) yn[j] = fma(yv[j], yv[j], yn[j]);
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int j = 0; j < V; ++j) acc[i][j] = fma(xv[i], yv[j], acc[i][j]);
-      }
-    }
+  }
 
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = r0 + i;
-      if (r >= n) break;
-      S o[V];
+  for (int i = 0; i < R; ++i) {
+    const int r = r0 + i;
+    if (r >= n) break;
+    S o[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      o[j] = to_storage<S>(epilogue<KIND, T>(xn[i] + yn[j] - T(2) * acc[i][j], acc[i][j], alpha));
+    S* dst = out + (size_t)r * m + c0;
+    if (vec_ok && c0 + V <= m) {
+      store16(dst, o);
+    } else {
 #pragma unroll
       for (int j = 0; j < V; ++j)
-        o[j] = to_storage<S>(epilogue<KIND, T>(xn[i] + yn[j] - T(2) * acc[i][j], acc[i][j], alpha));
-      S* dst = out + (size_t)r * m + c0;
-      if (vec_ok && c0 + V <= m) {
-        store16(dst, o);
-      } else {
-#pragma unroll
-        for (int j = 0; j < V; ++j)
-          if (c0 + j < m) dst[j] = o[j];
-      }
+        if (c0 + j < m) dst[j] = o[j];
     }
   }
 }
 
 template <int KIND, typename S>
 void launch_depth(int dt, const S* x, const S* y, S* out, int n, int m, int d,
-                  typename Arith<S>::T alpha, int vec_ok, int grid, cudaStream_t s) {
+                  typename Arith<S>::T alpha, int vec_ok, int tiles, cudaStream_t s) {
   switch (dt) {
-    case 1: gram_kernel<KIND, S, 1><<<grid, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
-    case 2: gram_kernel<KIND, S, 2><<<grid, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
-    case 4: gram_kernel<KIND, S, 4><<<grid, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
-    case 8: gram_kernel<KIND, S, 8><<<grid, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
-    default: gram_kernel<KIND, S, 0><<<grid, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
+    case 1: gram_kernel<KIND, S, 1><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
+    case 2: gram_kernel<KIND, S, 2><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
+    case 4: gram_kernel<KIND, S, 4><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
+    case 8: gram_kernel<KIND, S, 8><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
+    default: gram_kernel<KIND, S, 0><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
   }
 }
 
@@ -141,10 +136,9 @@ void launch_depth(int dt, const S* x, const S* y, S* out, int n, int m, int d,
 // wrapper's tiling (ops/gram.py:tile_shape) is then not the kernel's.
 template <typename S>
 cudaError_t launch(int kind, const void* xp, const void* yp, void* outp, int n, int m, int d,
-                   double alpha, int grid, int tm, int tn, cudaStream_t s) {
-  if (tm != fwd_tm<S>() || tn != fwd_tn<S>() ||
-      ((n + (long long)tm - 1) / tm) * ((m + tn - 1) / tn) > 0x7fffffff)
-    return cudaErrorInvalidValue;
+                   double alpha, int tm, int tn, cudaStream_t s) {
+  const long long tiles = ((n + (long long)tm - 1) / tm) * ((m + tn - 1) / tn);
+  if (tm != fwd_tm<S>() || tn != fwd_tn<S>() || tiles > 0x7fffffff) return cudaErrorInvalidValue;
   const S* x = static_cast<const S*>(xp);
   const S* y = static_cast<const S*>(yp);
   S* out = static_cast<S*>(outp);
@@ -152,12 +146,12 @@ cudaError_t launch(int kind, const void* xp, const void* yp, void* outp, int n, 
   const int dt = depth_template(d);
   const auto a = static_cast<typename Arith<S>::T>(alpha);
   switch (kind) {
-    case kEq: launch_depth<kEq, S>(dt, x, y, out, n, m, d, a, vec_ok, grid, s); break;
-    case kRq: launch_depth<kRq, S>(dt, x, y, out, n, m, d, a, vec_ok, grid, s); break;
-    case kMatern12: launch_depth<kMatern12, S>(dt, x, y, out, n, m, d, a, vec_ok, grid, s); break;
-    case kMatern32: launch_depth<kMatern32, S>(dt, x, y, out, n, m, d, a, vec_ok, grid, s); break;
-    case kMatern52: launch_depth<kMatern52, S>(dt, x, y, out, n, m, d, a, vec_ok, grid, s); break;
-    case kLinear: launch_depth<kLinear, S>(dt, x, y, out, n, m, d, a, vec_ok, grid, s); break;
+    case kEq: launch_depth<kEq, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
+    case kRq: launch_depth<kRq, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
+    case kMatern12: launch_depth<kMatern12, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
+    case kMatern32: launch_depth<kMatern32, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
+    case kMatern52: launch_depth<kMatern52, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
+    case kLinear: launch_depth<kLinear, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -165,21 +159,19 @@ cudaError_t launch(int kind, const void* xp, const void* yp, void* outp, int n, 
 
 }  // namespace
 
-// Launches K1 on `stream`: `blocks` blocks of 256 threads walking the
-// (tm, tn) tiles of out (the wrapper: one block per tile). `kind` follows
-// the Kind enum of gram_kind.cuh,
-// `dtype` the DtypeCode of gram_elem.cuh (float32, float64, bfloat16; x,
-// y and out all of it). Returns cudaGetLastError() after the
-// launch; the caller raises if it is not 0.
+// Launches K1 on `stream`: one block of 256 threads per (tm, tn) tile of
+// out. `kind` follows the Kind enum of gram_kind.cuh, `dtype` the
+// DtypeCode of gram_elem.cuh (float32, float64, bfloat16; x, y and out
+// all of it). Returns cudaGetLastError() after the launch; the caller
+// raises if it is not 0.
 extern "C" int stheno_gram(int kind, int dtype, const void* x, const void* y, void* out, int n,
-                           int m, int d, double alpha, int blocks, int tm, int tn,
-                           void* stream) {
-  if (n <= 0 || m <= 0 || d < 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
+                           int m, int d, double alpha, int tm, int tn, void* stream) {
+  if (n <= 0 || m <= 0 || d < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return (int)launch<float>(kind, x, y, out, n, m, d, alpha, blocks, tm, tn, s);
-    case kF64: return (int)launch<double>(kind, x, y, out, n, m, d, alpha, blocks, tm, tn, s);
-    case kBf16: return (int)launch<__nv_bfloat16>(kind, x, y, out, n, m, d, alpha, blocks, tm, tn, s);
+    case kF32: return (int)launch<float>(kind, x, y, out, n, m, d, alpha, tm, tn, s);
+    case kF64: return (int)launch<double>(kind, x, y, out, n, m, d, alpha, tm, tn, s);
+    case kBf16: return (int)launch<__nv_bfloat16>(kind, x, y, out, n, m, d, alpha, tm, tn, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

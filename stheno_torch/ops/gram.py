@@ -127,7 +127,8 @@ def tile_shape(dtype):
 
 def launch_shape(n, m, dtype):
     """``(tm, tn, tiles)`` of a launch: the tile shape and the number of
-    tiles of the ``(n, m)`` output, one block each. Block ``t`` builds the
+    tiles of the ``(n, m)`` output, one block each, as ``stheno_gram``
+    (``csrc/gram.cu``) launches them. Block ``t`` builds the
     rows ``[(t // cdiv(m, tn)) tm, + tm)`` and the columns ``[(t % cdiv(m,
     tn)) tn, + tn)``."""
     tm, tn = tile_shape(dtype)
@@ -142,25 +143,48 @@ def _launch(kind, x, y, alpha):
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
     if n == 0 or m == 0:
         return out
-    tm, tn, tiles = launch_shape(n, m, x.dtype)
+    tm, tn = tile_shape(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.stheno_gram(
             KINDS.index(kind), _DTYPE_CODES[x.dtype], x.data_ptr(), y.data_ptr(),
-            out.data_ptr(), n, m, d, float(alpha) if kind == "rq" else 1.0, tiles, tm, tn,
-            stream,
+            out.data_ptr(), n, m, d, float(alpha) if kind == "rq" else 1.0, tm, tn, stream,
         )
     _build.check(code, "gram")
     launches += 1
     return out
 
 
+def _gram_backward(ctx, gbar):
+    from .gram_bwd import gram_bwd
+
+    x, y, alpha = ctx.saved_tensors
+    need_x, need_y, need_alpha = ctx.needs_input_grad[:3]
+    want_alpha = ctx.kind == "rq" and need_alpha
+    if ctx.same:
+        # autograd hands the one tensor twice: the first slot takes the sum
+        # of both roles.
+        xbar, _, dalpha = gram_bwd(ctx.kind, x, x, gbar, alpha, want_x=need_x, want_y=need_x,
+                                   want_alpha=want_alpha, same=True)
+        return xbar, None, dalpha, None
+    xbar, ybar, dalpha = gram_bwd(ctx.kind, x, y, gbar, alpha, want_x=need_x, want_y=need_y,
+                                  want_alpha=want_alpha)
+    return xbar, ybar, dalpha, None
+
+
+# The CUDA kernel has no derivative of its own: a second derivative
+# through it raises.
+_gram_backward_once = once_differentiable(_gram_backward)
+
+
 class _Gram(torch.autograd.Function):
     """``gram(kind, x, y, alpha)``, differentiable in ``x``, ``y`` and rq's
     ``alpha`` (a tensor): forward K1, backward K1's backward kernel
     (``ops/gram_bwd.py``), which recomputes ``d2`` and ``g'`` and does not
-    keep K. Where ``x`` is ``y`` one launch sums both roles. Inputs: ``x, y,
-    alpha, kind``."""
+    keep K. Where ``x`` is ``y`` one launch sums both roles. On CPU tensors
+    the backward is the plain version in torch, itself differentiable, so
+    a second derivative there works; on CUDA tensors it raises. Inputs:
+    ``x, y, alpha, kind``."""
 
     @staticmethod
     def forward(ctx, x, y, alpha, kind):
@@ -170,22 +194,8 @@ class _Gram(torch.autograd.Function):
         return _launch(kind, x, y, alpha) if x.is_cuda else gram_plain(kind, x, y, alpha)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, gbar):
-        from .gram_bwd import gram_bwd
-
-        x, y, alpha = ctx.saved_tensors
-        need_x, need_y, need_alpha = ctx.needs_input_grad[:3]
-        want_alpha = ctx.kind == "rq" and need_alpha
-        if ctx.same:
-            # autograd hands the one tensor twice: the first slot takes
-            # the sum of both roles.
-            xbar, _, dalpha = gram_bwd(ctx.kind, x, x, gbar, alpha, want_x=need_x,
-                                       want_y=need_x, want_alpha=want_alpha, same=True)
-            return xbar, None, dalpha, None
-        xbar, ybar, dalpha = gram_bwd(ctx.kind, x, y, gbar, alpha, want_x=need_x,
-                                      want_y=need_y, want_alpha=want_alpha)
-        return xbar, ybar, dalpha, None
+        return (_gram_backward_once if gbar.is_cuda else _gram_backward)(ctx, gbar)
 
 
 def gram(kind, x, y, alpha=1.0):

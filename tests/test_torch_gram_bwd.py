@@ -57,21 +57,21 @@ def _lattice(n, offset, seed, d=2):
     return grid * 0.6 + offset + 0.1 * r.rand(n, d)
 
 
-def _case(case, d=2):
+def _case(case, d=2, kind="eq"):
     x = _lattice(37, 0.0, 2, d)
     y = x if case == "square" else _lattice(29, 0.3, 3, d)
     cot = np.random.RandomState(1).randn(len(x), len(y))
-    if case == "square":
+    if case == "square" and kind == "matern12":
         np.fill_diagonal(cot, 0.0)  # Matérn-1/2 at coincident points: see below
     return x, y, cot
 
 
 def _jax_grads(kind, x, y, cot, case):
     """jax.grad of ``sum(cot * gram)`` with respect to x (and y unless x is
-    y, or y takes no gradient) and alpha. Where x is y the cotangent's
-    diagonal is 0: there Matérn-1/2's g' is -0.5 / 1e-18, and the W-trick's
+    y, or y takes no gradient) and alpha. For Matérn-1/2 where x is y the
+    cotangent's diagonal is 0: there g' is -0.5 / 1e-18, and the W-trick's
     rowsum(W) x - W y cancels two such terms to noise, where the port's
-    direct form adds exactly 0."""
+    direct form adds exactly 0. Every other kind keeps its diagonal."""
     C = jnp.asarray(cot)
     if case == "square":
         def loss(xx, alpha):
@@ -96,7 +96,7 @@ def _close(a, b, scale=1.0):
 def test_gram_bwd_plain_matches_jax_gram_bwd(kind, case, shape, jax_interpret_f64):
     # "split" forces a 3 x 3 grid over ragged row groups and column spans,
     # the kernel's partials and their fixed-order sum.
-    x, y, cot = _case(case)
+    x, y, cot = _case(case, kind=kind)
     gx, gy, ga = _jax_grads(kind, x, y, cot, case)
     T = torch.tensor
     n, m = len(x), len(y)
@@ -122,7 +122,7 @@ def test_gram_bwd_plain_matches_jax_gram_bwd(kind, case, shape, jax_interpret_f6
 def test_gram_autograd_matches_jax_gram_bwd(kind, case, jax_interpret_f64):
     # The same through the autograd Function, as a model differentiates it:
     # x is y hands one tensor twice, and its gradient is both roles'.
-    x, y, cot = _case(case)
+    x, y, cot = _case(case, kind=kind)
     gx, gy, ga = _jax_grads(kind, x, y, cot, case)
     xt = torch.tensor(x).requires_grad_(True)
     yt = xt if case == "square" else torch.tensor(y).requires_grad_(case == "cross")
@@ -137,6 +137,43 @@ def test_gram_autograd_matches_jax_gram_bwd(kind, case, jax_interpret_f64):
         _close(grads[-1], ga)
     else:
         assert grads[-1] is None or float(grads[-1]) == 0.0
+
+
+@pytest.mark.parametrize("case", ["cross", "square"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_gram_second_derivative_matches_jax(kind, case, jax_interpret_f64):
+    # On CPU tensors K1's backward is plain torch and differentiable again:
+    # the gradient of <v, d/dx sum(cot * gram)> against jax.grad of the
+    # same through ``_gram_bwd``. Matérn-1/2 at x is y has no second
+    # derivative at the coincident points, so there the cotangent's
+    # diagonal is 0 as above.
+    x, y, cot = _case(case, kind=kind)
+    v = np.random.RandomState(5).randn(*x.shape)
+    C, V = jnp.asarray(cot), jnp.asarray(v)
+
+    def jloss(xx, alpha):
+        yy = xx if case == "square" else jnp.asarray(y)
+        return jnp.sum(C * jgram.gram(kind, xx, yy, alpha))
+
+    def jinner(xx, alpha):
+        return jnp.sum(V * jax.grad(jloss)(xx, alpha))
+
+    hx, ha = jax.grad(jinner, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(ALPHA))
+    xt = torch.tensor(x).requires_grad_(True)
+    at = torch.tensor(ALPHA, dtype=torch.float64).requires_grad_(True)
+    yt = xt if case == "square" else torch.tensor(y)
+    (gx,) = torch.autograd.grad(torch.sum(torch.tensor(cot) * tgram.gram(kind, xt, yt, at)), xt,
+                                create_graph=True)
+    if not gx.requires_grad:  # linear's x gradient, cot @ y, is free of x
+        assert kind == "linear" and case == "cross" and not np.any(np_(hx))
+        return
+    hxt, hat = torch.autograd.grad(torch.sum(torch.tensor(v) * gx), (xt, at), allow_unused=True)
+    _close(hxt, hx, float(np.abs(np_(hx)).max()))
+    if kind == "rq":
+        # The JAX wrapper hands the kernel alpha as float32, so the second
+        # pass's cotangent of alpha is rounded to float32 once there.
+        assert float(np.float32(ha)) == float(ha)
+        np.testing.assert_allclose(np_(hat), float(ha), rtol=2.0**-24)
 
 
 @pytest.mark.parametrize("d", [1, 3, 9])
