@@ -5,7 +5,7 @@
 Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a)
 and the CUDA toolkit. It builds the hand-written kernels from
 ``stheno_torch/ops/csrc``, holds each against its plain PyTorch version
-on the card, and drives the port's two paths through their entry points:
+on the card, and drives the port's paths through their entry points:
 
 - the main path, the exact-GP training-and-prediction step at N=2000,
   checked against the same port run in float64 on the CPU;
@@ -14,7 +14,13 @@ on the card, and drives the port's two paths through their entry points:
   preconditioner, the representer weights, the cached mean, the variance
   cache and its queries, the serving bundle), checked at N=8192 in
   float64 against the dense exact GP and at N=262,144 against the same
-  step in float64 on the card.
+  step in float64 on the card;
+- the training paths of ``bench.py:bench_opt_steps`` and ``bench_nuts``:
+  the N=2000 EQ GP trained by the Adam driver, whose step runs as a CUDA
+  graph replay (K1, K1's backward and K2 inside it), checked against
+  float64 on the CPU and against eager steps on the card, profiled and
+  timed against an eager loop; and NUTS over its three
+  log-hyperparameters, gated on ESS and R-hat.
 
 The training step's surrogate, its Gram term's value and gradient, is
 one launch of the fused Gram-gradient kernel (``csrc/gram_matvec_vjp.cu``),
@@ -1741,6 +1747,217 @@ def phase_profile_iterative(state):
     )
 
 
+# ---------------------------------------------------------------------------
+# The training paths: Adam captured in CUDA graphs, and NUTS
+# (bench.py:bench_opt_steps and bench_nuts).
+
+# bench.py:bench_opt_steps's iterations per steps_per_dispatch.
+ADAM_ITERS = {1: 60, 50: 400, 100: 400}
+ADAM_GATE_STEPS = 20
+
+
+def _latent(vs):
+    return {k: v.detach().double().cpu() for k, v in vs.latent_dict().items()}
+
+
+def _eager_adam(timed, untimed=1):
+    """``untimed`` then ``timed`` Adam steps of ``adam_n2000_objective``
+    on the card, eagerly: plain code, the driver's optimiser settings and
+    no graph. Returns ``(latent values after, seconds of the timed steps,
+    launches of one step)``."""
+    from stheno_torch import entry as E
+
+    f, vs = E.adam_n2000_objective()
+    with torch.no_grad():
+        f(vs)
+    params = {k: v.clone().requires_grad_(True) for k, v in vs.latent_dict().items()}
+    opt = torch.optim.Adam(list(params.values()), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                           capturable=True)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        val = f(vs.with_latent(params))
+        val.backward()
+        opt.step()
+
+    before = _counts()
+    step()
+    per_step = {k: v - before[k] for k, v in _counts().items()}
+    for _ in range(untimed - 1):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return {k: v.detach().double().cpu() for k, v in params.items()}, secs, per_step
+
+
+def _exp_avg(driver):
+    """Adam's first moment of each latent parameter: a weighted sum of
+    the gradients, so linear in them (the parameters' changes are near
+    ``-rate * sign(g)`` a step, blind to the gradient's size)."""
+    return {k: driver.opt.state[p]["exp_avg"].detach().double().cpu()
+            for k, p in driver.params.items()}
+
+
+def phase_opt_adam():
+    """The Adam path of ``bench.py:bench_opt_steps`` (EQ, N=2000, float32,
+    rate 1e-3) through ``entry.adam_n2000``, whose step is captured as a
+    CUDA graph when the driver is built:
+
+    (a) 20 captured steps (20 replays of the step's graph) against the
+        port's eager float64 steps on the CPU from the same initial values:
+        each parameter's change and Adam's first moment of it (linear in
+        the gradient) within rel 5e-2 (the JAX package's float32 gradient
+        error, stheno_tpu/config.py:95-96), and the objective at the last
+        step's start within rel 1e-3;
+    (b) the same 20 steps run eagerly on the card in float32: parameters
+        within rel 1e-5 of the captured run's;
+    (c) 50 replays profiled: K1, K1's backward and K2's kernels run inside
+        them, as many times as 50 eager steps launch them (so their ctypes
+        launches landed on the capturing stream; a replay runs no Python
+        wrapper, so the trace, not the wrappers' counts, gives the path's
+        launches), and the device is busy for most of the run; around 50
+        bare replays the memory allocated is the same (the capture, in
+        global mode, also refused any cudaMalloc or sync by the kernels'
+        library);
+    (d) bench.py's protocol for k = 1, 50, 100: build the driver, run(2k),
+        then time run(iters) (60, 400, 400 iterations); beside it an eager
+        loop's steps/s on the card, timed over as many steps after 2k
+        untimed ones.
+    """
+    from stheno_torch import entry as E
+
+    driver = E.adam_n2000()
+    start = _latent(driver.vs)
+    val = driver.run(ADAM_GATE_STEPS)
+    captured = _latent(driver.vs)
+    captured_m = _exp_avg(driver)
+    report = {"phase": "opt_adam", "gate_steps": ADAM_GATE_STEPS}
+    checks = []
+
+    # (a) against float64 on the CPU.
+    ref = E.adam_n2000(device="cpu", dtype=torch.float64)
+    check(all(torch.equal(_latent(ref.vs)[k], start[k]) for k in start),
+          "the CPU reference starts elsewhere")
+    ref_val = ref.run(ADAM_GATE_STEPS)
+    ref_latent = _latent(ref.vs)
+    ref_m = _exp_avg(ref)
+    report["vs_cpu_float64"] = {
+        "value": float(val), "value_ref": float(ref_val), "value_rel": _rel(val, ref_val),
+        **{f"delta_{k}": float(captured[k] - start[k]) for k in start},
+        **{f"delta_{k}_ref": float(ref_latent[k] - start[k]) for k in start},
+        **{f"delta_{k}_rel": _rel(captured[k] - start[k], ref_latent[k] - start[k])
+           for k in start},
+        **{f"exp_avg_{k}": float(captured_m[k]) for k in start},
+        **{f"exp_avg_{k}_ref": float(ref_m[k]) for k in start},
+        **{f"exp_avg_{k}_rel": _rel(captured_m[k], ref_m[k]) for k in start},
+    }
+    gate = report["vs_cpu_float64"]
+    checks.append((gate["value_rel"] <= 1e-3, "captured Adam objective against float64"))
+    checks.extend((gate[f"delta_{k}_rel"] <= 5e-2, f"captured Adam change of {k} against float64")
+                  for k in start)
+    checks.extend((gate[f"exp_avg_{k}_rel"] <= 5e-2,
+                   f"captured Adam's first moment of {k} against float64") for k in start)
+
+    # (b) against the same steps run eagerly on the card.
+    eager_latent, _, per_step = _eager_adam(ADAM_GATE_STEPS - 1)
+    report["vs_eager_card"] = {f"{k}_rel": _rel(captured[k].exp(), eager_latent[k].exp())
+                               for k in start}
+    checks.extend((report["vs_eager_card"][f"{k}_rel"] <= 1e-5,
+                   f"captured Adam's {k} against eager steps on the card") for k in start)
+    report["eager_launches_per_step"] = per_step
+    checks.extend((per_step[name] >= 1, f"an eager Adam step launched no {name}")
+                  for name in ("gram", "gram_bwd", "chol_tile"))
+
+    # (c) 50 replays profiled, and 50 bare replays' memory.
+    reps = 50
+    prof_driver = E.adam_n2000()
+    prof_driver.run(2 * reps)
+    span_us, busy_us, by_name = trace("adam_replays", lambda: prof_driver.run(reps))
+    graph, _ = prof_driver._graph
+    gc.collect()
+    torch.cuda.synchronize()
+    mem = (torch.cuda.memory_allocated(), torch.cuda.mem_get_info()[0])
+    for _ in range(reps):
+        graph.replay()
+    torch.cuda.synchronize()
+    mem_after = (torch.cuda.memory_allocated(), torch.cuda.mem_get_info()[0])
+    k1_n = by_name.get("gram_kernel", (0, 0.0))[0]
+    kb_n = by_name.get("gram_bwd_kernel", (0, 0.0))[0]
+    k2_n = by_name.get("factor_panel", (0, 0.0))[0]
+    checks += [
+        (k1_n == reps * per_step["gram"], "gram_kernel launches in the replays"),
+        (kb_n == reps * per_step["gram_bwd"], "gram_bwd_kernel launches in the replays"),
+        # 8 factor_panel launches per n=1024 tile (both tiles pad to it).
+        (k2_n == 8 * reps * per_step["chol_tile"], "factor_panel launches in the replays"),
+        (busy_us / span_us >= 0.5, "the replays' device busy share"),
+        (mem_after[0] == mem[0], "the replays changed the allocated device memory"),
+    ]
+    report["replay_profile"] = {
+        "steps": reps, "span_ms": span_us / 1e3, "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / span_us, "device_ms_per_step": busy_us / reps / 1e3,
+        "device_launches_per_step": sum(c for c, _ in by_name.values()) / reps,
+        "launches_per_step": {"gram_kernel": k1_n / reps, "gram_bwd_kernel": kb_n / reps,
+                              "factor_panel": k2_n / reps},
+        "memory_allocated_before_after": [mem[0], mem_after[0]],
+        "device_free_before_after": [mem[1], mem_after[1]],
+        "kernels": _top(by_name, 10),
+    }
+    del prof_driver, graph
+
+    # (d) bench.py's protocol.
+    rates = {}
+    for k, iters in ADAM_ITERS.items():
+        d = E.adam_n2000(k)
+        d.run(2 * k)
+        t0 = time.perf_counter()
+        d.run(iters)
+        captured_s = time.perf_counter() - t0
+        _, eager_s, _ = _eager_adam(iters, untimed=2 * k)
+        rates[f"k{k}"] = {"iters": iters, "captured_steps_per_s": iters / captured_s,
+                          "eager_steps_per_s": iters / eager_s}
+        del d
+    report["steps_per_s"] = rates
+    emit(report)
+    failed = [what for ok, what in checks if not ok]
+    check(not failed, f"opt_adam: {failed}")
+
+
+def phase_opt_nuts():
+    """The NUTS path of ``bench.py:bench_nuts`` through
+    ``entry.nuts_n2000`` (N=2000, float32, 4 chains, 192 warm-up and 128
+    sampling steps, depth 6, dense metric, adaptive jitter): wall time,
+    the smallest ESS and largest split R-hat over the three
+    log-hyperparameters, ESS/s; gated as bench.py gates it (finite ESS,
+    R-hat < 1.7)."""
+    from stheno_torch import entry as E
+    from stheno_torch.opt import effective_sample_size, potential_scale_reduction
+
+    _set_counts(ZERO_COUNTS)
+    t0 = time.perf_counter()
+    samples, accept = E.nuts_n2000(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    for name in ("gram", "gram_bwd", "chol_tile"):
+        check(counts[name] >= 1, f"NUTS launched no {name}: {counts}")
+    for k, v in samples.items():
+        check(v.shape == (4, 128) and v.is_cuda and bool(torch.isfinite(v).all()),
+              f"NUTS samples of {k}: {tuple(v.shape)}, {v.device}")
+    ess = min(effective_sample_size(v) for v in samples.values())
+    rhat = max(potential_scale_reduction(v) for v in samples.values())
+    report = {"phase": "opt_nuts", "launches": counts, "wall_s": wall, "min_ess": ess,
+              "max_rhat": rhat, "ess_per_s": ess / wall, "accept": accept,
+              "posterior_mean": {k: float(v.double().mean()) for k, v in samples.items()},
+              "cut": None}
+    emit(report)
+    check(math.isfinite(ess) and rhat < 1.7, f"NUTS mixing: ESS {ess}, R-hat {rhat}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU.", file=sys.stderr)
@@ -1788,6 +2005,8 @@ def _run_phases():
     run("iterative_times", phase_path_times, state, cache, build_s)
     run("profile", phase_profile)
     run("profile_iterative", phase_profile_iterative, state)
+    run("opt_adam", phase_opt_adam)
+    run("opt_nuts", phase_opt_nuts)
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     # The card's name and power limit again, beside the kernels' numbers.
     print(smi, flush=True)

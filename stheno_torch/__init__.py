@@ -6,8 +6,10 @@ The same ``Measure``/``GP`` algebra over structured matrices as
 and hand-written CUDA kernels (``ops/csrc``) where it has Pallas kernels.
 Entry points run on the card unless the CPU is asked for
 (``config.set_default_device("cpu")``). Ported so far: the exact-GP
-training-and-prediction step, and the matrix-free (iterative) exact-GP
-path of ``stheno_torch.iterative``; ``ROADMAP.md`` lists what is still to
+training-and-prediction step, the matrix-free (iterative) exact-GP path
+of ``stheno_torch.iterative``, and the optimisers and samplers of
+``stheno_torch.opt`` (Adam captured in a CUDA graph on the card, L-BFGS,
+HMC, NUTS and their diagnostics); ``ROADMAP.md`` lists what is still to
 be ported.
 """
 
@@ -18,5 +20,6 @@ from .dist import *  # noqa: F401,F403
 from .lazy import LazyMatrix, LazyVector
 from .mo import *  # noqa: F401,F403
 from .model import *  # noqa: F401,F403
+from . import opt
 
 __version__ = "0.1.0"

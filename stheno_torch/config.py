@@ -37,6 +37,9 @@ __all__ = [
     "set_default_device",
     "resolve_device",
     "as_tensor",
+    "as_scalar",
+    "capturing",
+    "no_host_sync",
 ]
 
 #: Global jitter override. ``None`` means "dtype-aware default".
@@ -213,3 +216,48 @@ def as_tensor(x, dtype=None, device=None):
     if isinstance(x, torch.Tensor):
         return x if dtype is None or x.dtype == dtype else x.to(dtype)
     return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))
+
+
+def as_scalar(value, dtype, device):
+    """``value`` (a tensor, a number or a 0-d array) as a 0-d tensor of
+    ``dtype`` on ``device``. A number is filled in on the device, with no
+    host-to-device copy, so a CUDA graph may capture it."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype=dtype, device=device)
+    return torch.full((), float(value), dtype=dtype, device=device)
+
+
+_no_host_sync = False
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Context manager: run the enclosed code as a CUDA graph capture
+    runs it. :func:`capturing` is true inside, so the checks that read a
+    device value on the host are skipped, and every other host sync on the
+    card raises (``torch.cuda.set_sync_debug_mode("error")``, where there
+    is a card), naming its line. The Adam driver's warm-up and capture run
+    under it."""
+    global _no_host_sync
+    card = torch.cuda.is_available()
+    prev = _no_host_sync, torch.cuda.get_sync_debug_mode() if card else None
+    _no_host_sync = True
+    if card:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        _no_host_sync = prev[0]
+        if card:
+            torch.cuda.set_sync_debug_mode(prev[1])
+
+
+def capturing():
+    """Whether the code runs as a CUDA graph capture: inside
+    :func:`no_host_sync`, or while the current CUDA stream captures a
+    graph. A capture allows no host sync, so the checks that read a device
+    value on the host are skipped then, as the JAX package skips them under
+    a trace."""
+    return _no_host_sync or (
+        torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+    )

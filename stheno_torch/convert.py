@@ -7,7 +7,10 @@ through :func:`params_from_jax` gives the port the same numbers, so both
 packages compute the same thing. The iterative path's state crosses the
 same way: :func:`precond_state_from_jax` takes the numpy arrays of an
 eig-preconditioner state ``(U, lam)`` and :func:`variance_cache_from_jax`
-those of a ``VarianceCache``. Nothing here imports JAX.
+those of a ``VarianceCache``. An optimisation crosses mid-way with
+:func:`vars_from_jax` (the latent values of a JAX ``Vars``) and
+:func:`adam_state_from_jax` (optax's Adam state) into
+:meth:`~stheno_torch.opt.AdamDriver.load_state`. Nothing here imports JAX.
 """
 
 import numpy as np
@@ -20,6 +23,8 @@ __all__ = [
     "array_from_jax",
     "precond_state_from_jax",
     "variance_cache_from_jax",
+    "vars_from_jax",
+    "adam_state_from_jax",
 ]
 
 
@@ -47,3 +52,41 @@ def variance_cache_from_jax(cache, device=None, dtype=None):
     from .iterative import VarianceCache
 
     return VarianceCache(*(array_from_jax(a, device, dtype) for a in cache))
+
+
+def vars_from_jax(latent, kinds, device=None, dtype=torch.float64):
+    """A :class:`~stheno_torch.opt.Vars` with the JAX ``Vars``' latent
+    values ``{name: numpy array}`` (``vs.latent_dict()`` through
+    ``np.asarray``) and, from ``kinds``, each name's constraint:
+    ``"unbounded"``, ``"positive"`` or ``("bounded", lower, upper)``. Its
+    constrained values are the JAX ``Vars``'."""
+    from .opt.vars import Vars, _Exp, _Identity, _Logistic
+
+    vs = Vars(dtype=dtype, device=device)
+    for name, z in latent.items():
+        kind = kinds[name]
+        if kind == "unbounded":
+            bij = _Identity()
+        elif kind == "positive":
+            bij = _Exp()
+        elif isinstance(kind, tuple) and kind[0] == "bounded":
+            bij = _Logistic(*kind[1:])
+        else:
+            raise ValueError(f"Unknown constraint {kind!r} of {name!r}.")
+        vs._latent[name] = array_from_jax(z, vs.device, dtype)
+        vs._bijections[name] = bij
+    return vs
+
+
+def adam_state_from_jax(mu, nu, count, device=None, dtype=torch.float64):
+    """The port's Adam state, ``{name: {"step", "exp_avg", "exp_avg_sq"}}``,
+    from optax's ``ScaleByAdamState`` as numpy: ``mu`` and ``nu`` dicts like
+    the parameters, ``count`` the number of steps taken."""
+    return {
+        name: {
+            "step": torch.tensor(float(count)),
+            "exp_avg": array_from_jax(mu[name], device, dtype),
+            "exp_avg_sq": array_from_jax(nu[name], device, dtype),
+        }
+        for name in mu
+    }

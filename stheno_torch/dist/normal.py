@@ -170,8 +170,9 @@ class Normal(RandomVector):
     def logpdf(self, x, mask=None):
         """Log-density of ``x`` (a column; extra trailing columns are a
         batch of inputs). Rows where ``x`` is NaN are dropped (one host sync
-        to find them); ``mask`` (boolean ``(n,)``) marginalises out the
-        rows where it is False with static shapes."""
+        to find them, skipped while a CUDA graph is captured); ``mask``
+        (boolean ``(n,)``) marginalises out the rows where it is False with
+        static shapes."""
         x = config.as_tensor(x)
         if x.ndim == 0:
             x = x[None, None]
@@ -181,7 +182,7 @@ class Normal(RandomVector):
         if mask is not None:
             return self._masked_logpdf(x, mask)
 
-        if x.ndim == 2 and x.shape[1] == 1:
+        if x.ndim == 2 and x.shape[1] == 1 and not config.capturing():
             available = ~torch.isnan(x[:, 0])
             if not bool(available.all()):
                 mean = _arr(self.mean)[available]

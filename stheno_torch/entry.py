@@ -18,7 +18,12 @@ the model of ``bench.py:bench_n2000``:
   (fresh or amortised preconditioner), and :func:`serving_weights`,
   :func:`serving_mean`, :func:`serving_variance_cache`,
   :func:`serving_var` and :func:`serving_bundle` its amortised
-  posterior, each with the benchmark's settings as defaults.
+  posterior, each with the benchmark's settings as defaults;
+- the training workloads of ``bench.py:bench_opt_steps`` and
+  ``bench_nuts``: :func:`adam_n2000` builds the Adam driver of the
+  N=2000 EQ GP (:func:`adam_n2000_objective`; its step captured in CUDA
+  graphs on the card), and :func:`nuts_n2000` runs NUTS over the three
+  log-hyperparameters of an EQ GP at N=2000.
 
 Raw inputs go to ``device`` (default ``config.default_device``, the card);
 tensors keep their own device.
@@ -31,6 +36,7 @@ from . import config
 from . import iterative as it
 from .kernels import EQ
 from .model import GP
+from .opt import AdamDriver, Vars, sample_nuts
 
 __all__ = [
     "flagship_step",
@@ -47,6 +53,9 @@ __all__ = [
     "serving_variance_cache",
     "serving_var",
     "serving_bundle",
+    "adam_n2000_objective",
+    "adam_n2000",
+    "nuts_n2000",
 ]
 
 
@@ -216,3 +225,73 @@ def serving_bundle(x, y, params, generator, *, precond_state=None, noise=ITERATI
         precond_state=precond_state, block=block, chunk=chunk,
         var_max_cg_iters=var_max_cg_iters,
     )
+
+
+# ---------------------------------------------------------------------------
+# Training at N=2000 (bench.py:bench_opt_steps, bench_nuts).
+
+
+def adam_n2000_objective(device=None, dtype=torch.float32, *, n=2000):
+    """``(f, vs)``: the objective of ``bench_opt_steps`` and an empty
+    :class:`~stheno_torch.opt.Vars` for it. ``f(vs)`` is the NLML of
+    ``GP(s2 * EQ().stretch(ell))`` with noise 0.1 on ``x = linspace(0, 10,
+    n)``, ``y = sin x + 0.3 cos 3.2x``, with ``ell`` and ``s2`` positive
+    parameters from 1."""
+    dev = config.resolve_device(device)
+    x = torch.linspace(0.0, 10.0, n, dtype=dtype, device=dev)
+    y = torch.sin(x) + 0.3 * torch.cos(3.2 * x)
+
+    def f(v):
+        ell = v.positive(1.0, name="ell")
+        s2 = v.positive(1.0, name="s2")
+        g = GP(s2 * EQ().stretch(ell))
+        return -g.measure.logpdf(g(x, 0.1), y)
+
+    return f, Vars(dtype=dtype, device=dev)
+
+
+def adam_n2000(steps_per_dispatch=1, device=None, dtype=torch.float32, *, n=2000):
+    """The Adam driver of ``bench_opt_steps`` on
+    :func:`adam_n2000_objective`, at rate 1e-3. On the card its step is
+    captured as a CUDA graph when it is built; ``steps_per_dispatch``
+    changes nothing there (see :class:`~stheno_torch.opt.AdamDriver`)."""
+    f, vs = adam_n2000_objective(device, dtype, n=n)
+    return AdamDriver(f, vs, rate=1e-3, steps_per_dispatch=steps_per_dispatch)
+
+
+def nuts_n2000(key_seed, device=None, *, n=2000, num_chains=4, num_warmup=192,
+               num_samples=128, max_depth=6):
+    """``bench_nuts``'s run: NUTS with the dense metric over ``(log_ell,
+    log_s2, log_noise)`` of an EQ GP with standard normal priors on the
+    three, from ``(0, 0, -1.9)``, on ``n`` sorted uniform points on [0, 10]
+    with ``y = sin x + 0.15 noise`` (float32, from a numpy
+    ``RandomState(0)``), with a CPU generator seeded by ``key_seed`` and
+    adaptive jitter on (warm-up explores small noise values where the
+    fixed float32 jitter fails). Returns ``(samples, accept_rate)``, each
+    sample ``(num_chains, num_samples)``."""
+    dev = config.resolve_device(device)
+    r = np.random.RandomState(0)
+    x = np.sort(r.rand(n).astype(np.float32)) * 10
+    y = (np.sin(x) + 0.15 * r.randn(n)).astype(np.float32)
+    x, y = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+
+    def logpost(p):
+        f = GP(torch.exp(p["log_s2"]) * EQ().stretch(torch.exp(p["log_ell"])))
+        lp = f.measure.logpdf(f(x, torch.exp(p["log_noise"])), y)
+        return lp - 0.5 * (p["log_ell"] ** 2 + p["log_s2"] ** 2 + p["log_noise"] ** 2)
+
+    init = {
+        "log_ell": torch.zeros((), device=dev),
+        "log_s2": torch.zeros((), device=dev),
+        "log_noise": torch.full((), -1.9, device=dev),
+    }
+    prev = config.adaptive_jitter
+    config.set_adaptive_jitter(True)
+    try:
+        return sample_nuts(
+            logpost, init, torch.Generator().manual_seed(key_seed), num_samples=num_samples,
+            num_warmup=num_warmup, num_chains=num_chains, max_depth=max_depth,
+            adapt_mass="dense",
+        )
+    finally:
+        config.set_adaptive_jitter(prev)

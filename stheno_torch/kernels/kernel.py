@@ -22,6 +22,7 @@ gradient with respect to ``s2``).
 import math
 import numbers
 
+import numpy as np
 import torch
 
 from .. import config
@@ -122,9 +123,12 @@ def _param_eq(a, b):
 
 
 def _param(p, like):
-    """A parameter ready to combine with the tensor ``like``."""
+    """A parameter ready to combine with the tensor ``like``: a 0-d array
+    is filled in on ``like``'s device (no host copy)."""
     if isinstance(p, (torch.Tensor, numbers.Number)):
         return p
+    if np.ndim(p) == 0:
+        return config.as_scalar(p, like.dtype, like.device)
     return torch.as_tensor(p, dtype=like.dtype, device=like.device)
 
 

@@ -249,7 +249,7 @@ def add(a, b):
         if isinstance(b, (int, float)) and b == 0:
             return a
         a = as_matrix(a)
-        return add(a, Constant(torch.as_tensor(b, dtype=a.dtype, device=a.device), a.rows, a.cols))
+        return add(a, Constant(config.as_scalar(b, a.dtype, a.device), a.rows, a.cols))
     if _is_scalar(a):
         return add(b, a)
 
@@ -413,7 +413,14 @@ def _cached(a, key, compute):
 
 def adaptive_jitter_eps(mat, base):
     """Smallest jitter in ``{base * 10^k}`` under which ``chol(mat + eps I)``
-    succeeds, probed on a detached copy (one host sync per probe)."""
+    succeeds, probed on a detached copy (one host sync per probe, so it
+    raises while a CUDA graph is captured)."""
+    if config.capturing():
+        raise RuntimeError(
+            "The adaptive-jitter probe reads each factorisation's status on the host, which "
+            "CUDA graph capture does not allow: turn config.adaptive_jitter off to capture "
+            "a step."
+        )
     n = mat.shape[-1]
     eye = torch.eye(n, dtype=mat.dtype, device=mat.device)
     sg = mat.detach()

@@ -6,6 +6,7 @@ whose mean/variance thunks are all lazy, with the fused
 ``var_diag``/``mean_var``/``mean_var_diag`` paths.
 """
 
+import numpy as np
 import torch
 
 from .. import config
@@ -20,13 +21,18 @@ __all__ = ["FDD", "noise_as_matrix", "take"]
 def noise_as_matrix(noise, dtype, n, device):
     """Promote noise to a structured matrix: ``None`` -> Zero, scalar ->
     scaled identity, vector -> Diagonal, matrix -> Dense. Raw (non-tensor)
-    noise takes the inputs' dtype and device."""
+    noise takes the inputs' dtype and device; a raw scalar is filled in on
+    the device (no host copy, so a CUDA graph can capture it)."""
     if noise is None:
         return Zero(dtype, n, n, device=device)
     if is_structured(noise):
         return noise
     if not isinstance(noise, torch.Tensor):
-        noise = torch.as_tensor(noise, dtype=dtype, device=device)
+        noise = (
+            config.as_scalar(noise, dtype, device)
+            if np.ndim(noise) == 0
+            else torch.as_tensor(noise, dtype=dtype, device=device)
+        )
     if noise.ndim == 0:
         return fill_diag(noise, n)
     if noise.ndim == 1:

@@ -21,7 +21,8 @@ __all__ = ["AbstractObservations", "Observations", "Obs"]
 
 class AbstractObservations:
     """Base: takes an ``(fdd, y)`` pair, upranks ``y`` to a column and drops
-    the rows where ``y`` is NaN (one host sync to find them)."""
+    the rows where ``y`` is NaN (one host sync to find them, skipped while a
+    CUDA graph is captured)."""
 
     def __init__(self, *args):
         if len(args) == 1 and isinstance(args[0], tuple):
@@ -36,7 +37,7 @@ class AbstractObservations:
         y = uprank(config.as_tensor(y))
         if y.shape[-1] != 1:
             raise ValueError(f"Invalid shape of observed values {y_shape}.")
-        if y.ndim == 2:
+        if y.ndim == 2 and not config.capturing():
             available = ~torch.isnan(y[:, 0])
             if not bool(available.all()):
                 fdd = take(fdd, available.cpu())

@@ -31,6 +31,7 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
+from .. import config
 from . import _build
 
 __all__ = ["gram", "gram_plain", "launch_shape", "tile_shape", "KINDS", "DTYPES", "launches"]
@@ -219,4 +220,10 @@ def gram(kind, x, y, alpha=1.0):
         # stream on every call (a pageable copy), and the kernel takes
         # alpha by value.
         alpha = torch.as_tensor(alpha, dtype=arith_dtype(x.dtype))
+    elif kind == "rq" and config.capturing():
+        raise RuntimeError(
+            "gram: rq's alpha, given as a tensor, is read on the host at each launch (the "
+            "kernel takes it by value), so a CUDA graph would replay the value it had at "
+            "capture. Give alpha as a number to capture an rq Gram."
+        )
     return _Gram.apply(x.contiguous(), y.contiguous(), alpha, kind)
