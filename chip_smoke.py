@@ -20,7 +20,14 @@ on the card, and drives the port's paths through their entry points:
   graph replay (K1, K1's backward and K2 inside it), checked against
   float64 on the CPU and against eager steps on the card, profiled and
   timed against an eager loop; and NUTS over its three
-  log-hyperparameters, gated on ESS and R-hat.
+  log-hyperparameters, gated on ESS and R-hat;
+- the pseudo-point path of ``bench.py:bench_vfe_n2000`` and
+  ``bench_dist_elbo_1m``: the VFE, FITC and DTC ELBOs at N=2000, M=100
+  and the VFE value and gradient, checked against float64 on the CPU; the
+  VFE value and gradient and the sparse posterior at N=1,000,000, M=512,
+  checked against the same step in float64 on the card within twice the
+  JAX package's own float32 error; K1 and its backward at the path's
+  512 x 10^6 shape, timed beside their bound.
 
 The training step's surrogate, its Gram term's value and gradient, is
 one launch of the fused Gram-gradient kernel (``csrc/gram_matvec_vjp.cu``),
@@ -99,10 +106,37 @@ KERNELS = {
         "source": "stheno_torch/ops/csrc/gram_matvec_vjp.cu",
         "replaces": "stheno_tpu/ops/gram.py:92",
     },
+    # K1 and its backward at the sparse path's 512 x 10^6 cross Gram.
+    "gram_sparse": {
+        "source": "stheno_torch/ops/csrc/gram.cu",
+        "replaces": "stheno_tpu/ops/gram.py:92",
+    },
+    "gram_bwd_sparse": {
+        "source": "stheno_torch/ops/csrc/gram_bwd.cu",
+        "replaces": "stheno_tpu/ops/gram.py:198",
+    },
 }
 
 # The matrix-free path's size (bench.py:bench_iterative_262k).
 N_IT = 262_144
+
+# The JAX package's own float32 error on the sparse path at N=500,000,
+# M=512 on the CPU (the largest N held there; scripts/jax_sparse_f32_error.py,
+# recorded in PERF.md): the ELBO's relative error, the normwise relative
+# error of its gradient with respect to (log ell, log noise, z), and the
+# largest error of the posterior mean and variance at 4096 points over the
+# largest float64 value. The N=10^6 gate of phase sparse_path allows twice
+# each. The variance's is taken as the port's entry points take it, in
+# float32 under the adaptive jitter (under the fixed jitter the JAX
+# package's float32 variance is NaN: the re-whitened subspace matrix
+# L_z A L_z^T is indefinite in float32, and the adaptive probe puts 10 on
+# its diagonal where the float64 run puts 1e-3).
+JAX_F32_SPARSE = {
+    "elbo_rel": 8.804825366593068e-04,
+    "grad_rel": 4.415395150520416e-03,
+    "mean_rel": 4.430042426939862e-03,
+    "var_rel": 5.399060933981150e-02,
+}
 
 
 class SmokeFailure(AssertionError):
@@ -1529,52 +1563,105 @@ def _kernel_name(name):
     return head.rsplit("::", 1)[-1].replace("void ", "").strip()[:80]
 
 
-def _profile(label, fn):
-    """Run ``fn`` once under torch.profiler: ``(span_us, busy_us,
-    by_name, launches)``, with the step's span from its start on the host
-    to the end of its last device activity, the device's busy time in it,
-    ``{kernel: (launches, device_us)}`` and the wrappers' counts of the
-    run. The profiler slows the host, so busy / span is a lower bound."""
-    before = _counts()
-    span_us, busy_us, by_name = trace(label, fn)
-    after = _counts()
-    return span_us, busy_us, by_name, {k: after[k] - before[k] for k in after}
+#: Idle host time that a traced session holds on each side of the step,
+#: and the most takes of a trace whose counts its caller refuses.
+TRACE_MARGIN_S = 0.2
+TRACE_TAKES = 3
 
 
-def trace(label, fn):
-    """``_profile`` without the wrappers' counts: ``(span_us, busy_us,
-    by_name)`` of one run of ``fn``."""
+def _is_launch_call(e):
+    """A CUDA runtime or driver call that puts work on the card."""
+    return e.name.startswith("cu") and any(w in e.name for w in ("Launch", "Memcpy", "Memset"))
+
+
+def _trace_once(label, fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
+    before = _counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # The tracer can drop a session's first device records: give it a
-        # kernel and a synchronise before the step, and count only what
-        # starts after the step does.
+        time.sleep(TRACE_MARGIN_S)
         torch.cuda._sleep(1_000_000)
         torch.cuda.synchronize()
         with record_function(label):
             fn()
             torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+    after = _counts()
     events = prof.events()
     # The annotation is recorded twice, on the host and as a device span;
-    # only the host one marks the step's start, and neither is a kernel.
+    # only the host one marks the step, and neither is a kernel. The two
+    # spin kernels around the step are the session's own.
     (step,) = [e for e in events if e.name == label and e.device_type == DeviceType.CPU]
     device = [
         e
         for e in events
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation and e.name != label
-        and e.time_range.start >= step.time_range.start
+        and _kernel_name(e.name) != "spin_kernel"
     ]
     check(device, "the profiler recorded no device activity")
+    calls = [e.time_range.start for e in events if e.device_type == DeviceType.CPU
+             and _is_launch_call(e) and e.time_range.start >= step.time_range.start]
+    check(calls, "the profiler recorded no launch call in the step")
     intervals = [(e.time_range.start, e.time_range.end) for e in device]
-    span_us = max(step.time_range.end, max(e for _, e in intervals)) - step.time_range.start
     by_name = {}
     for e in device:
         n, us = by_name.get(_kernel_name(e.name), (0, 0.0))
         by_name[_kernel_name(e.name)] = (n + 1, us + e.time_range.end - e.time_range.start)
-    return span_us, _union_length(intervals), by_name
+    return {
+        "span_us": step.time_range.end - step.time_range.start,
+        "busy_us": _union_length(intervals),
+        "by_name": by_name,
+        "lead_us": min(s for s, _ in intervals) - min(calls),
+        "launches": {k: after[k] - before[k] for k in after},
+    }
+
+
+def trace(label, fn, want=None):
+    """One run of ``fn`` under torch.profiler, as a dict: ``span_us``, the
+    step's span on the host (from its start to the return of the
+    synchronise that ends it); ``busy_us``, the union of its device
+    records' intervals; ``by_name``, ``{kernel: (launches, device_us)}``;
+    ``lead_us``, the first device record's start less the first launch
+    call's (tens of microseconds where the profiler puts host and device
+    records on one clock); ``launches``, the wrappers' counts in the run;
+    and ``refused``, one entry for each earlier take that ``want(by_name,
+    launches)`` refused, with its lead and the kernels whose launches it
+    saw otherwise than the last take. The step is traced again, up to
+    ``TRACE_TAKES`` takes in all, while ``want`` refuses it.
+
+    The profiler both misplaces and loses device records. It has put a
+    record 2 ms before the call that launched it, so no record is cut by
+    its time: the session holds
+    ``TRACE_MARGIN_S`` of idle host time on each side of the step, nothing
+    runs on the card when it starts, and every record in it but the two
+    spin kernels around the step is the step's. And late in a whole run
+    of this script a trace of the 10^6 sparse step lacked both of its K1
+    launches, its first record 21 ms after its first launch call (PERF.md):
+    a take that misses launches shows that records were lost, not that a
+    kernel did not run."""
+    refused = []
+    for _ in range(TRACE_TAKES):
+        out = _trace_once(label, fn)
+        if want is None or want(out["by_name"], out["launches"]):
+            break
+        refused.append(out)
+    last = out["by_name"]
+    out["refused"] = [
+        {"lead_us": r["lead_us"],
+         "launches": {k: [c, last.get(k, (0, 0.0))[0]] for k, (c, _) in r["by_name"].items()
+                      if c != last.get(k, (0, 0.0))[0]}
+         | {k: [0, c] for k, (c, _) in last.items() if k not in r["by_name"]}}
+        for r in refused
+    ]
+    return out
+
+
+def _traced(by_name, kernel):
+    return by_name.get(kernel, (0, 0.0))[0]
 
 
 def _top(by_name, k=12):
@@ -1641,14 +1728,17 @@ def phase_profile():
     xb, yb, ell = E.n2000_inputs()
     for _ in range(3):
         E.nlml_n2000(xb, yb, ell, grad=True)
-    span_us, busy_us, by_name, launches = _profile(
-        "n2000_value_grad", lambda: E.nlml_n2000(xb, yb, ell, grad=True))
-    k1_n, k1_us = by_name.get("gram_kernel", (0, 0.0))
-    tiles = launches["chol_tile"]
     # K2 per tile of n = 1024 (both tiles pad to it): 8 factor_panel, 7
     # trailing, 1 finalize and 6 join_product (two per level of the
     # inverse's join tree).
     k2_want = {"factor_panel": 8, "trailing": 7, "finalize": 1, "join_product": 6}
+    t = trace("n2000_value_grad", lambda: E.nlml_n2000(xb, yb, ell, grad=True),
+              lambda b, n: _traced(b, "gram_kernel") == n["gram"]
+              and _traced(b, "gram_bwd_kernel") == n["gram_bwd"]
+              and all(_traced(b, k) == c * n["chol_tile"] for k, c in k2_want.items()))
+    span_us, busy_us, by_name, launches = t["span_us"], t["busy_us"], t["by_name"], t["launches"]
+    k1_n, k1_us = by_name.get("gram_kernel", (0, 0.0))
+    tiles = launches["chol_tile"]
     k2_us = sum(by_name.get(k, (0, 0.0))[1] for k in k2_want)
     check(k1_n == launches["gram"] >= 1,
           f"profiled gram_kernel launches {k1_n} != wrapper count {launches['gram']}")
@@ -1664,6 +1754,8 @@ def phase_profile():
             "phase": "profile",
             "step": "N=2000 periodic-EQ NLML value+grad, float32",
             "span_ms": span_us / 1e3,
+            "clock_lead_us": t["lead_us"],
+            "refused_traces": t["refused"],
             "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / span_us,
             "gram_device_ms_per_launch": k1_us / k1_n / 1e3,
@@ -1697,9 +1789,13 @@ def phase_profile_iterative(state):
     x, y, params = _path_inputs()
     gen = torch.Generator(device="cuda").manual_seed(13)
     E.iterative_step(x, y, params, gen, precond_state=state)
-    span_us, busy_us, by_name, launches = _profile(
-        "n262144_amortised_value_grad",
-        lambda: E.iterative_step(x, y, params, gen, precond_state=state))
+    t = trace("n262144_amortised_value_grad",
+              lambda: E.iterative_step(x, y, params, gen, precond_state=state),
+              lambda b, n: sum(_traced(b, k) for k in ("gmv_kernel", "gmv_mma_kernel",
+                                                       "gmv_dmma_kernel")) == n["gram_matvec"]
+              and sum(_traced(b, k) for k in ("gmv_vjp_kernel", "gmv_vjp_dmma_kernel"))
+              == n["gram_matvec_vjp"] and _traced(b, "gram_kernel") == n["gram"])
+    span_us, busy_us, by_name, launches = t["span_us"], t["busy_us"], t["by_name"], t["launches"]
     _set_counts(saved)
     ffma_n, ffma_us = by_name.get("gmv_kernel", (0, 0.0))
     mma_n, mma_us = by_name.get("gmv_mma_kernel", (0, 0.0))
@@ -1731,6 +1827,8 @@ def phase_profile_iterative(state):
             "phase": "profile_iterative",
             "step": f"N={N_IT} EQ stochastic NLML value+grad, amortised, float32",
             "span_ms": span_us / 1e3,
+            "clock_lead_us": t["lead_us"],
+            "refused_traces": t["refused"],
             "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / span_us,
             "gram_matvec_launches": k3_n,
@@ -1876,7 +1974,12 @@ def phase_opt_adam():
     reps = 50
     prof_driver = E.adam_n2000()
     prof_driver.run(2 * reps)
-    span_us, busy_us, by_name = trace("adam_replays", lambda: prof_driver.run(reps))
+    want = {"gram_kernel": reps * per_step["gram"], "gram_bwd_kernel": reps * per_step["gram_bwd"],
+            # 8 factor_panel launches per n=1024 tile (both tiles pad to it).
+            "factor_panel": 8 * reps * per_step["chol_tile"]}
+    t = trace("adam_replays", lambda: prof_driver.run(reps),
+              lambda b, _: all(_traced(b, k) == n for k, n in want.items()))
+    span_us, busy_us, by_name = t["span_us"], t["busy_us"], t["by_name"]
     graph, _ = prof_driver._graph
     gc.collect()
     torch.cuda.synchronize()
@@ -1889,15 +1992,16 @@ def phase_opt_adam():
     kb_n = by_name.get("gram_bwd_kernel", (0, 0.0))[0]
     k2_n = by_name.get("factor_panel", (0, 0.0))[0]
     checks += [
-        (k1_n == reps * per_step["gram"], "gram_kernel launches in the replays"),
-        (kb_n == reps * per_step["gram_bwd"], "gram_bwd_kernel launches in the replays"),
-        # 8 factor_panel launches per n=1024 tile (both tiles pad to it).
-        (k2_n == 8 * reps * per_step["chol_tile"], "factor_panel launches in the replays"),
+        (k1_n == want["gram_kernel"], "gram_kernel launches in the replays"),
+        (kb_n == want["gram_bwd_kernel"], "gram_bwd_kernel launches in the replays"),
+        (k2_n == want["factor_panel"], "factor_panel launches in the replays"),
         (busy_us / span_us >= 0.5, "the replays' device busy share"),
         (mem_after[0] == mem[0], "the replays changed the allocated device memory"),
     ]
     report["replay_profile"] = {
-        "steps": reps, "span_ms": span_us / 1e3, "device_busy_ms": busy_us / 1e3,
+        "steps": reps, "span_ms": span_us / 1e3, "clock_lead_us": t["lead_us"],
+        "refused_traces": t["refused"],
+        "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / span_us, "device_ms_per_step": busy_us / reps / 1e3,
         "device_launches_per_step": sum(c for c, _ in by_name.values()) / reps,
         "launches_per_step": {"gram_kernel": k1_n / reps, "gram_bwd_kernel": kb_n / reps,
@@ -1958,6 +2062,243 @@ def phase_opt_nuts():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The pseudo-point (sparse) path.
+
+
+def _sparse_grad_rels(g, ref):
+    """Relative errors of a sparse gradient against ``ref``: each
+    log-hyperparameter's, z's (normwise) and the whole vector's
+    (normwise)."""
+    def vec(d):
+        return torch.cat([d["log_ell"].reshape(1), d["log_noise"].reshape(1),
+                          d["z"].reshape(-1)]).double().cpu()
+
+    def rel(a, b):
+        a, b = a.double().cpu().reshape(-1), b.double().cpu().reshape(-1)
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    out = {k: rel(g[k], ref[k]) for k in ("log_ell", "log_noise", "z")}
+    out["whole"] = rel(vec(g), vec(ref))
+    return out
+
+
+def _sparse_pred_rels(pred, ref):
+    """The largest error of the posterior mean and variance, absolute and
+    over the largest reference value."""
+    out = {}
+    for name, a, b in zip(("mean", "var"), pred, ref):
+        check(a.shape == (4096,) and bool(torch.isfinite(a).all()),
+              f"sparse posterior {name}: shape {tuple(a.shape)} or not finite")
+        b = b.double().cpu()
+        out[f"{name}_max_abs_err"] = max_err(a.cpu(), b)
+        out[f"{name}_ref_max"] = float(b.abs().max())
+        out[f"{name}_rel"] = out[f"{name}_max_abs_err"] / out[f"{name}_ref_max"]
+    return out
+
+
+def k1_sparse_times(zs, xs):
+    """K1 at the sparse path's cross Gram, ``zs (512, 1)`` by ``xs (10^6,
+    1)`` float32 (z / ell and x / ell), against its plain version within
+    ``_gram_atol``; its CUDA-event time (5 calls back to back, median of
+    20), device time, plain version, ``exp(-0.5 cdist^2)`` and bound
+    (inputs read once, the 2.05 GB output written once)."""
+    from stheno_torch.ops import gram as K1
+
+    n, m = zs.shape[0], xs.shape[0]
+    K, P = K1.gram("eq", zs, xs), K1.gram_plain("eq", zs, xs)
+    err, over = _hold(K, P, _gram_atol("eq", zs, xs), "gram eq 512x1 by 10^6x1")
+    del K, P
+    b_ms, b_by = bound((n + m + n * m) * 4, n * m * (2 + 4), torch.float32)
+    call = lambda: K1.gram("eq", zs, xs)  # noqa: E731
+    return {
+        "shape": [n, m, 1], "dtype": "torch.float32", "max_abs_err": err, "of_tol": over,
+        "ms": time_ms(call, inner=5),
+        "device_ms": device_ms_per_call(call, inner=5),
+        "plain_ms": time_ms(lambda: K1.gram_plain("eq", zs, xs), reps=5, warmup=1),
+        "library_ms": time_ms(lambda: torch.exp(-0.5 * torch.cdist(zs, xs).square()), reps=5),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+
+
+def k1_bwd_sparse_times(zs, xs):
+    """K1's backward at the sparse path's cross Gram (both roles, a random
+    512 x 10^6 cotangent): against its plain version within ``_bwd_tols``
+    (run twice, equal bits); ``autograd.grad`` through K1 per call (CUDA
+    events and device time), the plain version, ``autograd.grad`` through
+    ``exp(-0.5 cdist^2)``, and the bound (x, y and the cotangent read once,
+    both gradients written once)."""
+    from stheno_torch.ops import gram as K1
+    from stheno_torch.ops import gram_bwd as KB
+
+    n, m = zs.shape[0], xs.shape[0]
+    gbar = torch.randn(n, m, generator=torch.Generator(device="cuda").manual_seed(23),
+                       device="cuda")
+    got = KB.gram_bwd("eq", zs, xs, gbar)
+    again = KB.gram_bwd("eq", zs, xs, gbar)
+    ref = KB.gram_bwd_plain("eq", zs, xs, gbar)
+    check(all(torch.equal(a, b) for a, b in zip(got[:2], again[:2])),
+          "gram_bwd 512x1 by 10^6x1: two runs differ")
+    tx, ty, _ = _bwd_tols("eq", zs, xs, gbar, 1.0, block=32)
+    ex, ox = _hold(got[0], ref[0], tx, "gram_bwd eq 512x1 by 10^6x1 d/dx")
+    ey, oy = _hold(got[1], ref[1], ty, "gram_bwd eq 512x1 by 10^6x1 d/dy")
+    del got, again, ref, tx, ty
+    zg, xg = zs.clone().requires_grad_(True), xs.clone().requires_grad_(True)
+    K = K1.gram("eq", zg, xg)
+    call = lambda: torch.autograd.grad(K, (zg, xg), gbar, retain_graph=True)  # noqa: E731
+    b_ms, b_by = bound(2 * (n + m) * 4 + n * m * 4, 20 * n * m, torch.float32)
+    out = {
+        "kind": "eq", "shape": [n, m, 1], "dtype": "torch.float32",
+        "max_abs_err": max(ex, ey), "x_of_tol": ox, "y_of_tol": oy,
+        "launch_shape": list(KB.launch_shape(n, m, 1, torch.float32)),
+        "ms": time_ms(call, inner=5),
+        "device_ms": device_ms_per_call(call, inner=5),
+        "plain_ms": time_ms(lambda: KB.gram_bwd_plain("eq", zs, xs, gbar), reps=3, warmup=1),
+    }
+    del K
+    zl, xl = zs.clone().requires_grad_(True), xs.clone().requires_grad_(True)
+    KL = torch.exp(-0.5 * torch.cdist(zl, xl).square())
+    out["library_ms"] = time_ms(
+        lambda: torch.autograd.grad(KL, (zl, xl), gbar, retain_graph=True), reps=5)
+    out["bound_ms"], out["bound_by"] = b_ms, b_by
+    return out
+
+
+def phase_sparse_path(smi):
+    """The pseudo-point path through the user's entry points
+    (``entry.sparse_elbo``, ``sparse_predict``), float32, on the card.
+
+    N=2000, M=100 (``bench.py:bench_vfe_n2000``): the VFE, FITC and DTC
+    ELBOs and the VFE value and gradient with respect to (log ell, log
+    noise, z), against the same port run in float64 on the CPU with the
+    jitter the float32 run's adaptive probe picked (so both factor the
+    same inducing Gram): ELBO rel <= 1e-3, and rel <= 5e-2 for each
+    log-hyperparameter's gradient and for the whole gradient (normwise).
+    z's own gradient is reported, not gated: its float64 value is near 0
+    on this grid and the JAX package's float32 z-gradient is off by far
+    more than its size (PERF.md).
+
+    N=1,000,000, M=512 (``bench_dist_elbo_1m``'s data): the VFE value and
+    gradient and the posterior marginals at 4096 points, against the same
+    step in float64 on the card with the same jitter, each within twice
+    the JAX package's own float32 error (``JAX_F32_SPARSE``). K1 and K1's
+    backward must launch in each size's run. Then the times (CUDA events:
+    median of 20 after 3 warm-ups, the 10^6 steps of 5), one profiled
+    10^6 value+grad step, and K1 and its backward at the 512 x 10^6 cross
+    Gram beside their bounds, each report with the card's ``smi`` line.
+    Returns the kernels line's two rows."""
+    from stheno_torch import entry as E
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpu64 = lambda t: t.detach().double().cpu()  # noqa: E731
+    report = {"phase": "sparse_path", "nvidia_smi": smi}
+
+    # N=2000, M=100.
+    x, y, z, ell = E.vfe_n2000_inputs()
+    eps = E.sparse_jitter(z, ell)
+    _set_counts(ZERO_COUNTS)
+    vals = {m: E.sparse_elbo(x, y, z, ell, method=m) for m in ("vfe", "fitc", "dtc")}
+    vg = E.sparse_elbo(x, y, z, ell, grad=True)
+    torch.cuda.synchronize()
+    counts = _counts()
+    check(counts["gram"] >= 1 and counts["gram_bwd"] >= 1,
+          f"the N=2000 sparse path's launches {counts}")
+    xc, yc, zc, ec = (cpu64(t) for t in (x, y, z, ell))
+    small = {"jitter": eps, "launches": counts}
+    for m, v in vals.items():
+        ref = E.sparse_elbo(xc, yc, zc, ec, method=m, jitter=eps)
+        check(bool(torch.isfinite(v)), f"N=2000 {m} ELBO not finite")
+        small[f"{m}_elbo"], small[f"{m}_elbo_ref_f64"] = float(v), float(ref)
+        small[f"{m}_elbo_rel"] = _rel(v, ref)
+        check(small[f"{m}_elbo_rel"] <= 1e-3, f"N=2000 {m} ELBO {small}")
+    ref_v, ref_g = E.sparse_elbo(xc, yc, zc, ec, grad=True, jitter=eps)
+    small["vg_elbo_rel"] = _rel(vg[0], ref_v)
+    small["grad_rel"] = _sparse_grad_rels(vg[1], ref_g)
+    small["grad_ref_f64"] = {k: float(ref_g[k]) for k in ("log_ell", "log_noise")}
+    small["grad_z_ref_f64_norm"] = float(torch.linalg.norm(ref_g["z"]))
+    check(small["vg_elbo_rel"] <= 1e-3, f"N=2000 VFE value+grad ELBO {small}")
+    for k in ("log_ell", "log_noise", "whole"):
+        check(small["grad_rel"][k] <= 5e-2, f"N=2000 VFE gradient {k}: {small['grad_rel']}")
+    small["value_ms"] = {m: time_ms(lambda m=m: E.sparse_elbo(x, y, z, ell, method=m))
+                         for m in ("vfe", "fitc", "dtc")}
+    small["value_grad_ms"] = time_ms(lambda: E.sparse_elbo(x, y, z, ell, grad=True))
+    report["n2000_m100"] = small
+
+    # N=1,000,000, M=512.
+    x, y, z, ell = E.sparse_1m_inputs()
+    x_new = torch.linspace(0.0, 10.0, 4096, device="cuda")
+    eps = E.sparse_jitter(z, ell)
+    _set_counts(ZERO_COUNTS)
+    v, g = E.sparse_elbo(x, y, z, ell, grad=True)
+    pred = E.sparse_predict(x, y, z, ell, x_new)
+    torch.cuda.synchronize()
+    counts = _counts()
+    check(counts["gram"] >= 1 and counts["gram_bwd"] >= 1,
+          f"the N=10^6 sparse path's launches {counts}")
+    check(bool(torch.isfinite(v)) and all(bool(torch.isfinite(t).all()) for t in g.values()),
+          "N=10^6 ELBO or gradient not finite")
+    big = {"jitter": eps, "launches": counts, "elbo": float(v)}
+    x64, y64, z64, e64, n64 = (t.double() for t in (x, y, z, ell, x_new))
+    ref_v, ref_g = E.sparse_elbo(x64, y64, z64, e64, grad=True, jitter=eps)
+    ref_pred = E.sparse_predict(x64, y64, z64, e64, n64, jitter=eps)
+    del x64, y64, z64, e64, n64
+    big["elbo_ref_f64"] = float(ref_v)
+    big["elbo_rel"] = _rel(v, ref_v)
+    big["grad_rel"] = _sparse_grad_rels(g, ref_g)
+    big["grad_ref_f64"] = {k: float(ref_g[k]) for k in ("log_ell", "log_noise")}
+    big["grad_z_ref_f64_norm"] = float(torch.linalg.norm(ref_g["z"]))
+    big.update(_sparse_pred_rels(pred, ref_pred))
+    big["tolerance"] = {k: 2 * t for k, t in JAX_F32_SPARSE.items()}
+    emit({"phase": "sparse_path_gates", "nvidia_smi": smi, "n2000_m100": small,
+          "n1e6_m512": big})
+    for k, got in (("elbo_rel", big["elbo_rel"]), ("grad_rel", big["grad_rel"]["whole"]),
+                   ("mean_rel", big["mean_rel"]), ("var_rel", big["var_rel"])):
+        check(got <= 2 * JAX_F32_SPARSE[k], f"N=10^6 {k} {got} exceeds twice the JAX "
+              f"package's float32 error {JAX_F32_SPARSE[k]}")
+    del ref_pred, ref_g, pred, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    big["value_ms"] = time_ms(lambda: E.sparse_elbo(x, y, z, ell), reps=5)
+    big["value_grad_ms"] = time_ms(lambda: E.sparse_elbo(x, y, z, ell, grad=True), reps=5)
+    big["predict_ms"] = time_ms(lambda: E.sparse_predict(x, y, z, ell, x_new), reps=5)
+    torch.cuda.reset_peak_memory_stats()
+    E.sparse_elbo(x, y, z, ell, grad=True)
+    big["value_grad_peak_bytes"] = torch.cuda.max_memory_allocated()
+    step = lambda: E.sparse_elbo(x, y, z, ell, grad=True)  # noqa: E731
+    t = trace("sparse_1m_value_grad", step,
+              lambda b, n: all(_traced(b, f"{k}_kernel") == n[k] for k in ("gram", "gram_bwd")))
+    span_us, busy_us, by_name, launches = t["span_us"], t["busy_us"], t["by_name"], t["launches"]
+    traced = {k: _traced(by_name, f"{k}_kernel") for k in ("gram", "gram_bwd")}
+    big["profile"] = {
+        "span_ms": span_us / 1e3, "clock_lead_us": t["lead_us"], "refused_traces": t["refused"],
+        "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / span_us,
+        "device_launches": sum(c for c, _ in by_name.values()),
+        "launches": traced,
+        "kernels": _top(by_name),
+    }
+    check(all(traced[k] == launches[k] >= 1 for k in traced),
+          f"the profiled 10^6 step's K1 launches {traced} against the wrappers' "
+          f"{ {k: launches[k] for k in traced} } (clock lead {t['lead_us']} us; refused "
+          f"takes {t['refused']})")
+    zs, xs = (z / ell)[:, None], (x / ell)[:, None]
+    del x, y
+    k1 = k1_sparse_times(zs, xs)
+    k1b = k1_bwd_sparse_times(zs, xs)
+    report["n1e6_m512"] = big
+    report["gram_512x1e6"], report["gram_bwd_512x1e6"] = k1, k1b
+    emit(report)
+    return [
+        {"name": name, "route": "cuda", "source": KERNELS[name]["source"],
+         "replaces": KERNELS[name]["replaces"], "launches": counts[base],
+         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}}
+        for name, base, row in (("gram_sparse", "gram", k1), ("gram_bwd_sparse", "gram_bwd", k1b))
+    ]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU.", file=sys.stderr)
@@ -2007,6 +2348,10 @@ def _run_phases():
     run("profile_iterative", phase_profile_iterative, state)
     run("opt_adam", phase_opt_adam)
     run("opt_nuts", phase_opt_nuts)
+    sparse = run("sparse_path", phase_sparse_path, smi)
+    idle = [k["name"] for k in sparse if k["launches"] < 1]
+    check(not idle, f"kernels that the sparse path never launched: {idle}")
+    kernels.extend(sparse)
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     # The card's name and power limit again, beside the kernels' numbers.
     print(smi, flush=True)

@@ -66,7 +66,7 @@ def _chip_smoke():
 
 def _kernels(cs, fn):
     """``{kernel: [launches, device_ms]}`` of one call of ``fn``."""
-    _, _, by_name = cs.trace("call", fn)
+    by_name = cs.trace("call", fn)["by_name"]
     return {k: [c, us / 1e3] for k, (c, us) in by_name.items()}
 
 
@@ -105,7 +105,8 @@ def times(root):
         step = lambda: E.nlml_n2000(xb, yb, ell, grad=True)  # noqa: E731
         for _ in range(3):
             step()
-        span_us, busy_us, by_name = cs.trace("n2000_value_grad", step)
+        t = cs.trace("n2000_value_grad", step)
+        span_us, busy_us, by_name = t["span_us"], t["busy_us"], t["by_name"]
         out["n2000_value_grad"] = {
             "span_ms": span_us / 1e3,
             "device_busy_ms": busy_us / 1e3,

@@ -7,10 +7,12 @@ and hand-written CUDA kernels (``ops/csrc``) where it has Pallas kernels.
 Entry points run on the card unless the CPU is asked for
 (``config.set_default_device("cpu")``). Ported so far: the exact-GP
 training-and-prediction step, the matrix-free (iterative) exact-GP path
-of ``stheno_torch.iterative``, and the optimisers and samplers of
+of ``stheno_torch.iterative``, the optimisers and samplers of
 ``stheno_torch.opt`` (Adam captured in a CUDA graph on the card, L-BFGS,
-HMC, NUTS and their diagnostics); ``ROADMAP.md`` lists what is still to
-be ported.
+HMC, NUTS and their diagnostics), and the pseudo-point path (VFE, FITC
+and DTC with their ELBO and posterior, several observed processes
+through ``combine`` and the cross process, sampling); ``ROADMAP.md``
+lists what is still to be ported.
 """
 
 from . import config

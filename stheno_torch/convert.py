@@ -7,7 +7,10 @@ through :func:`params_from_jax` gives the port the same numbers, so both
 packages compute the same thing. The iterative path's state crosses the
 same way: :func:`precond_state_from_jax` takes the numpy arrays of an
 eig-preconditioner state ``(U, lam)`` and :func:`variance_cache_from_jax`
-those of a ``VarianceCache``. An optimisation crosses mid-way with
+those of a ``VarianceCache``. A fitted sparse posterior crosses with
+:func:`pseudo_obs_state_from_jax` (the ``K_z``, ``mu`` and ``A`` of a
+JAX ``PseudoObs``, installed in a port one's caches). An optimisation
+crosses mid-way with
 :func:`vars_from_jax` (the latent values of a JAX ``Vars``) and
 :func:`adam_state_from_jax` (optax's Adam state) into
 :meth:`~stheno_torch.opt.AdamDriver.load_state`. Nothing here imports JAX.
@@ -25,6 +28,7 @@ __all__ = [
     "variance_cache_from_jax",
     "vars_from_jax",
     "adam_state_from_jax",
+    "pseudo_obs_state_from_jax",
 ]
 
 
@@ -90,3 +94,18 @@ def adam_state_from_jax(mu, nu, count, device=None, dtype=torch.float64):
         }
         for name in mu
     }
+
+
+def pseudo_obs_state_from_jax(obs, measure, K_z, mu, A, device=None, dtype=None):
+    """Install the JAX package's fitted sparse state, the numpy arrays of
+    ``obs.K_z(m)``, ``obs.mu(m)`` and ``obs.A(m)`` of a JAX ``PseudoObs``
+    (dense), in the port's pseudo-observations ``obs`` for ``measure``:
+    conditioning ``measure`` on ``obs`` then predicts with that state.
+    Returns ``obs``."""
+    from .matrix import Dense
+
+    key = id(measure)
+    obs._K_z[key] = Dense(array_from_jax(K_z, device, dtype))
+    obs._mu[key] = array_from_jax(mu, device, dtype)
+    obs._A[key] = Dense(array_from_jax(A, device, dtype))
+    return obs

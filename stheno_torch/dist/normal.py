@@ -3,9 +3,9 @@
 Counterpart of ``stheno_tpu/dist/normal.py``, ported for the exact-GP
 path: lazy thunks with the ``var_diag``/``mean_var``/``mean_var_diag``
 fast paths (so ``marginals`` of a posterior never forms the N x N
-covariance), and ``logpdf`` with batching, NaN-dropped missing data and a
-boolean ``mask``. Sampling, ``entropy``, ``kl``, ``w2`` and the affine
-arithmetic are not ported yet.
+covariance), ``logpdf`` with batching, NaN-dropped missing data and a
+boolean ``mask``, and ``sample`` from a ``torch.Generator``. ``entropy``,
+``kl``, ``w2`` and the affine arithmetic are not ported yet.
 """
 
 import math
@@ -17,14 +17,18 @@ from .. import config
 from ..matrix import (
     Diagonal,
     Zero,
+    add,
     as_matrix,
     dense,
     diag_of,
+    fill_diag,
     iqf_diag,
     is_structured,
     logdet,
     submatrix,
 )
+from ..matrix import sample as mat_sample
+from .rng import global_generator
 
 __all__ = ["Random", "RandomProcess", "RandomVector", "Normal"]
 
@@ -212,6 +216,18 @@ class Normal(RandomVector):
             logdet(masked)[..., None] + torch.sum(m) * _LOG_2_PI + iqf_diag(masked, resid)
         )
         return logpdfs[..., 0] if logpdfs.shape[-1] == 1 else logpdfs
+
+    # -- sampling ---------------------------------------------------------
+
+    def sample(self, generator=None, num=1, noise=None):
+        """``num`` samples as the columns of an ``(n, num)`` tensor, drawn
+        from ``generator`` (default: the global generator), with ``noise``
+        added to the variance's diagonal."""
+        var = self.var
+        if noise is not None:
+            var = add(var, fill_diag(config.as_scalar(noise, var.dtype, var.device), self.dim))
+        generator = global_generator() if generator is None else generator
+        return mat_sample(generator, var, num=int(num)) + _arr(self.mean)
 
 
 def _is_symbolic_zero(mean):

@@ -23,19 +23,33 @@ the model of ``bench.py:bench_n2000``:
   ``bench_nuts``: :func:`adam_n2000` builds the Adam driver of the
   N=2000 EQ GP (:func:`adam_n2000_objective`; its step captured in CUDA
   graphs on the card), and :func:`nuts_n2000` runs NUTS over the three
-  log-hyperparameters of an EQ GP at N=2000.
+  log-hyperparameters of an EQ GP at N=2000;
+- the pseudo-point (sparse) path of ``bench.py:bench_vfe_n2000`` (N=2000,
+  M=100) and ``bench_dist_elbo_1m`` (N=1,000,000, M=512):
+  :func:`vfe_n2000_inputs` and :func:`sparse_1m_inputs` make their data,
+  :func:`sparse_elbo` (alias :func:`vfe_elbo_n2000` and
+  :func:`sparse_elbo_1m`) the VFE, FITC or DTC ELBO of
+  ``GP(EQ().stretch(ell))`` as a value or a value and gradient, and
+  :func:`sparse_predict` the posterior marginals after pseudo-point
+  conditioning. The inducing Gram is near singular in float32 at these
+  sizes, so they factor with the adaptive jitter (as the JAX package's
+  ``dist_elbo`` does) unless ``jitter`` fixes it; :func:`sparse_jitter`
+  is the probe's choice.
 
 Raw inputs go to ``device`` (default ``config.default_device``, the card);
 tensors keep their own device.
 """
+
+import contextlib
 
 import numpy as np
 import torch
 
 from . import config
 from . import iterative as it
-from .kernels import EQ
-from .model import GP
+from .kernels import EQ, pairwise
+from .matrix import adaptive_jitter_eps, dense
+from .model import GP, PseudoObs, PseudoObsDTC, PseudoObsFITC
 from .opt import AdamDriver, Vars, sample_nuts
 
 __all__ = [
@@ -56,6 +70,14 @@ __all__ = [
     "adam_n2000_objective",
     "adam_n2000",
     "nuts_n2000",
+    "SPARSE_NOISE",
+    "vfe_n2000_inputs",
+    "sparse_1m_inputs",
+    "sparse_jitter",
+    "sparse_elbo",
+    "vfe_elbo_n2000",
+    "sparse_elbo_1m",
+    "sparse_predict",
 ]
 
 
@@ -295,3 +317,109 @@ def nuts_n2000(key_seed, device=None, *, n=2000, num_chains=4, num_warmup=192,
         )
     finally:
         config.set_adaptive_jitter(prev)
+
+
+# ---------------------------------------------------------------------------
+# The pseudo-point path (bench.py:bench_vfe_n2000, bench_dist_elbo_1m).
+
+#: Observation-noise variance of the sparse path.
+SPARSE_NOISE = 0.1
+
+_SPARSE_METHODS = {"vfe": PseudoObs, "fitc": PseudoObsFITC, "dtc": PseudoObsDTC}
+
+
+def _np_dtype(dtype):
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
+def vfe_n2000_inputs(dtype=torch.float32, device=None, *, n=2000, m=100):
+    """``bench_vfe_n2000``'s data: ``x`` (``n``) and ``z`` (``m``) on
+    linspace(0, 10), ``y = sin x + 0.3 cos 3.2x``, and ``ell = 1``; made in
+    numpy in ``dtype``. Returns ``(x, y, z, ell)``."""
+    npd = _np_dtype(dtype)
+    x = np.linspace(0.0, 10.0, n).astype(npd)
+    y = (np.sin(x) + npd(0.3) * np.cos(npd(3.2) * x)).astype(npd)
+    z = np.linspace(0.0, 10.0, m).astype(npd)
+    dev = config.resolve_device(device)
+    x, y, z = (torch.as_tensor(a, device=dev) for a in (x, y, z))
+    return x, y, z, torch.ones((), dtype=dtype, device=dev)
+
+
+def sparse_1m_inputs(dtype=torch.float32, device=None, *, n=1_000_000, m=512, seed=1):
+    """``bench_dist_elbo_1m``'s data: ``n`` sorted uniform ``x`` on [0, 10)
+    and ``y = sin x + 0.1 noise`` from a numpy ``RandomState(seed)``,
+    ``z = linspace(0, 10, m)``, ``ell = 1``, made in ``dtype``. Returns
+    ``(x, y, z, ell)``."""
+    npd = _np_dtype(dtype)
+    r = np.random.RandomState(seed)
+    x = np.sort(r.rand(n).astype(npd)) * 10
+    y = (np.sin(x) + npd(0.1) * r.randn(n).astype(npd)).astype(npd)
+    z = np.linspace(0.0, 10.0, m).astype(npd)
+    dev = config.resolve_device(device)
+    x, y, z = (torch.as_tensor(a, device=dev) for a in (x, y, z))
+    return x, y, z, torch.ones((), dtype=dtype, device=dev)
+
+
+def sparse_jitter(z, ell):
+    """The jitter that the adaptive probe picks for the inducing Gram of
+    ``EQ().stretch(ell)`` at ``z`` (from ``config.jitter`` of its dtype)."""
+    K_z = dense(pairwise(EQ().stretch(ell), z))
+    return adaptive_jitter_eps(K_z, config.jitter(K_z.dtype))
+
+
+@contextlib.contextmanager
+def _jitter(jitter):
+    """The adaptive jitter when ``jitter`` is None, else ``jitter`` fixed."""
+    prev = config.epsilon, config.adaptive_jitter
+    if jitter is None:
+        config.set_adaptive_jitter(True)
+    else:
+        config.set_epsilon(float(jitter))
+        config.set_adaptive_jitter(False)
+    try:
+        yield
+    finally:
+        config.set_epsilon(prev[0])
+        config.set_adaptive_jitter(prev[1])
+
+
+def _sparse_obs(x, y, z, ell, noise, method):
+    f = GP(EQ().stretch(ell))
+    return f, _SPARSE_METHODS[method](f(z), (f(x, noise), y))
+
+
+@config.pin_matmul_precision
+def sparse_elbo(x, y, z, ell, grad=False, method="vfe", *, jitter=None):
+    """The ELBO of ``PseudoObs(f(z), (f(x, SPARSE_NOISE), y))`` (``method``:
+    ``"vfe"``, ``"fitc"`` or ``"dtc"``) for ``f = GP(EQ().stretch(ell))``:
+    its value, or ``(value, grads)`` with ``grads`` the gradient with respect
+    to ``{"log_ell", "log_noise", "z"}``."""
+    ell = config.as_scalar(ell, x.dtype, x.device)
+    noise = config.as_scalar(SPARSE_NOISE, x.dtype, x.device)
+    with _jitter(jitter):
+        if not grad:
+            with torch.no_grad():
+                f, obs = _sparse_obs(x, y, z, ell, noise, method)
+                return f.measure.logpdf(obs)
+        leaves = [t.detach().requires_grad_(True) for t in (ell, noise, z)]
+        with torch.enable_grad():
+            f, obs = _sparse_obs(x, y, leaves[2], leaves[0], leaves[1], method)
+            val = f.measure.logpdf(obs)
+            g_ell, g_noise, g_z = torch.autograd.grad(val, leaves)
+    return val.detach(), {"log_ell": ell * g_ell, "log_noise": noise * g_noise, "z": g_z}
+
+
+#: ``bench.py``'s names for the two sizes of :func:`sparse_elbo`.
+vfe_elbo_n2000 = sparse_elbo
+sparse_elbo_1m = sparse_elbo
+
+
+@config.pin_matmul_precision
+def sparse_predict(x, y, z, ell, x_new, *, jitter=None):
+    """``f | obs`` for the VFE pseudo-observations of :func:`sparse_elbo`,
+    and its posterior marginals ``(mean, var)`` at ``x_new``."""
+    ell = config.as_scalar(ell, x.dtype, x.device)
+    noise = config.as_scalar(SPARSE_NOISE, x.dtype, x.device)
+    with _jitter(jitter), torch.no_grad():
+        f, obs = _sparse_obs(x, y, z, ell, noise, "vfe")
+        return (f | obs)(x_new).marginals()

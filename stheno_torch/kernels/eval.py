@@ -4,8 +4,9 @@ Counterpart of ``stheno_tpu/kernels/eval.py``: ``pairwise``/``elwise``/
 ``mean_eval`` normalise inputs (raw arrays are placed on the default
 device and upranked to ``(..., n, d)``) and delegate to the expression
 objects; ``mean_var``/``mean_var_diag`` are the fused posterior paths
-that let ``marginals`` avoid the N x N posterior covariance. Tuple
-(multi-output) inputs are not ported yet.
+that let ``marginals`` avoid the N x N posterior covariance. A tuple
+input (the multi-output form) recurses: ``pairwise`` assembles the block
+Gram, ``elwise`` and ``mean_eval`` stack the blocks' columns.
 """
 
 import numbers
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..matrix import is_structured
+from ..matrix import block, is_structured
 from .kernel import Kernel, SumKernel
 from .mean import Mean
 from .util import uprank
@@ -27,10 +28,10 @@ def _is_raw_input(x):
 
 
 def _process(x):
-    """Normalise an input: arrays are upranked to (..., n, d); tagged inputs
-    pass through untouched."""
+    """Normalise an input: arrays are upranked to (..., n, d); tuples
+    recurse; tagged inputs (FDDs) pass through untouched."""
     if isinstance(x, tuple):
-        raise NotImplementedError("Multi-output (tuple) inputs are not ported yet.")
+        return tuple(_process(xi) for xi in x)
     if is_structured(x):
         raise TypeError("Structured matrices are not valid kernel inputs.")
     if _is_raw_input(x):
@@ -44,6 +45,10 @@ def pairwise(k: Kernel, x, y=None):
     returned as a structured matrix."""
     x = _process(x)
     y = x if y is None else _process(y)
+    if isinstance(x, tuple) or isinstance(y, tuple):
+        xs = x if isinstance(x, tuple) else (x,)
+        ys = y if isinstance(y, tuple) else (y,)
+        return block([[pairwise(k, xi, yi) for yi in ys] for xi in xs])
     return k._pairwise(x, y)
 
 
@@ -52,12 +57,21 @@ def elwise(k: Kernel, x, y=None):
     """Elementwise kernel evaluation ``(..., n, 1)``."""
     x = _process(x)
     y = x if y is None else _process(y)
+    if isinstance(x, tuple) or isinstance(y, tuple):
+        xs = x if isinstance(x, tuple) else (x,)
+        ys = y if isinstance(y, tuple) else (y,)
+        if len(xs) != len(ys):
+            raise ValueError('"elwise" must be called with similarly sized tuples.')
+        return torch.cat([elwise(k, xi, yi) for xi, yi in zip(xs, ys)], dim=-2)
     return k._elwise(x, y)
 
 
 def mean_eval(m: Mean, x):
     """Evaluate a mean function at ``x`` as a column ``(..., n, 1)``."""
-    return m._eval(_process(x))
+    x = _process(x)
+    if isinstance(x, tuple):
+        return torch.cat([mean_eval(m, xi) for xi in x], dim=-2)
+    return m._eval(x)
 
 
 def mean_var(m: Mean, k: Kernel, x):

@@ -1,17 +1,22 @@
 """Structure-aware linear algebra over the structured matrix types.
 
-Counterpart of ``stheno_tpu/matrix/ops.py``, ported for the exact-GP
-path: ``dense``, ``diag``, ``transpose``, ``add``, ``scale``,
-``multiply``, ``matmul``, ``cholesky``, ``solve``, ``iqf``, ``iqf_diag``
-and ``logdet`` (plus the helpers they need). Structure dispatch is by
-``isinstance`` at call time.
+Counterpart of ``stheno_tpu/matrix/ops.py``, ported for the exact-GP and
+pseudo-point paths: ``dense``, ``diag``, ``transpose``, ``add``,
+``scale``, ``multiply``, ``matmul``, ``matmul3``, ``matmul_diag``,
+``cholesky``, ``solve``, ``iqf``, ``iqf_diag``, ``logdet``, ``ratio``,
+``root``, ``trace``, ``sample`` and the construction helpers
+(``fill_diag``, ``eye_like``, ``block_diag``, ``block``, ``submatrix``,
+``shape_matrix``, ``dtype_of``). Structure dispatch is by ``isinstance``
+at call time.
 
 The dense-Cholesky-backed reductions (``logdet``, ``iqf``, ``iqf_diag``,
-``solve``) are ``torch.autograd.Function``s whose backward routes the
-whole cotangent through the matrix with the closed-form adjoints of the
-JAX package's custom VJPs (``d logdet A = A^{-1}``, rank-structured outer
-products for the quadratic forms). Their factors are detached, so no
-gradient ever flows back through the factorisation itself.
+``solve``, ``ratio``) are ``torch.autograd.Function``s whose backward
+routes the whole cotangent through the matrix with the closed-form
+adjoints of the JAX package's custom VJPs (``d logdet A = A^{-1}``,
+rank-structured outer products for the quadratic forms, ``d tr(B^{-1} A)
+= (B^{-1}, -B^{-1} A B^{-1})``). Their factors are detached, so no
+gradient ever flows back through the factorisation itself. ``sample``
+takes a ``torch.Generator`` where the JAX function takes a key.
 
 Differences from the JAX package: a factorisation is "under autodiff"
 when grad mode is on and the matrix requires grad; the fast-path backend
@@ -52,13 +57,24 @@ __all__ = [
     "scale",
     "multiply",
     "matmul",
+    "matmul3",
+    "matmul_diag",
     "cholesky",
     "solve",
     "iqf",
     "iqf_diag",
     "logdet",
+    "ratio",
+    "root",
+    "trace",
+    "sample",
     "fill_diag",
+    "eye_like",
+    "block_diag",
+    "block",
     "submatrix",
+    "shape_matrix",
+    "dtype_of",
 ]
 
 
@@ -172,6 +188,14 @@ def transpose(a):
     if isinstance(a, UpperTriangular):
         return LowerTriangular(_t(a.mat))
     raise TypeError(f"Cannot transpose {type(a).__name__}.")
+
+
+def shape_matrix(a):
+    return as_matrix(a).shape[-2:]
+
+
+def dtype_of(a):
+    return a.dtype if is_structured(a) else config.as_tensor(a).dtype
 
 
 def _as_lowrank(a):
@@ -394,6 +418,26 @@ def matmul(a, b, tr_a=False, tr_b=False):
     if isinstance(b, Woodbury):
         return add(matmul(a, b.diag), matmul(a, b.lr))
     return Dense(dense(a) @ dense(b))
+
+
+@config.pin_matmul_precision
+def matmul3(a, b, c, tr_a=False, tr_c=False):
+    """``a @ b @ c`` with optional transposes of ``a`` and ``c``."""
+    return matmul(matmul(a, b, tr_a=tr_a), c, tr_b=tr_c)
+
+
+@config.pin_matmul_precision
+def matmul_diag(a, b, tr_a=False):
+    """``diag(a @ b)`` (or ``diag(a^T @ b)``) without forming the product:
+    one elementwise product and a sum."""
+    a, b = _arr(a), _arr(b)
+    if tr_a:
+        return torch.sum(a * b, dim=-2)
+    return torch.sum(a * _t(b), dim=-1)
+
+
+def trace(a):
+    return torch.sum(diag_of(a), dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -669,6 +713,28 @@ def _as_col_operand(b):
 
 _CLOSED_FORM = (Diagonal, LowerTriangular, UpperTriangular)
 
+#: A contraction longer than ``_CHUNK`` runs in chunks of it (``_contract``).
+_CHUNK = 2048
+
+
+def _contract(a, b):
+    """``a @ b``. For 2-D operands whose contraction is longer than
+    ``_CHUNK``, the product of each chunk of ``_CHUNK`` terms is formed
+    apart and a reduction adds the partials, so float32 rounding grows
+    with the chunk and the reduction's depth instead of with the length.
+    On an H100 at N=10^6, M=512 the plain product left the ELBO's ``A = I +
+    B K_n^{-1} B^T`` indefinite in float32 (least eigenvalue -1.6 against
+    1.0); in chunks of 2048 its least eigenvalue is 0.94."""
+    n = a.shape[-1]
+    if a.ndim != 2 or b.ndim != 2 or n <= _CHUNK:
+        return a @ b
+    nb = n // _CHUNK
+    k = nb * _CHUNK
+    parts = torch.bmm(a[:, :k].reshape(a.shape[0], nb, _CHUNK).transpose(0, 1),
+                      b[:k].reshape(nb, _CHUNK, b.shape[1]))
+    out = parts.sum(0)
+    return out if k == n else out + a[:, k:] @ b[k:]
+
 
 @config.pin_matmul_precision
 def iqf(a, b, c=None):
@@ -677,7 +743,7 @@ def iqf(a, b, c=None):
     b = _as_col_operand(b)
     c = b if c is None else _as_col_operand(c)
     if isinstance(a, _CLOSED_FORM):
-        return Dense(_t(_arr(b)) @ solve(a, c))
+        return Dense(_contract(_t(_arr(b)), solve(a, c)))
     a = as_matrix(a)
     L = cholesky(a)
     b_arr = _arr(b)
@@ -726,6 +792,92 @@ def logdet(a):
     return _LogdetChol.apply(*_chol_arrays(a))
 
 
+@config.pin_matmul_precision
+def ratio(a, b):
+    """``trace(b^{-1} a)``. The dense-Cholesky branch of ``b`` carries the
+    closed-form adjoint (``_RatioChol``)."""
+    if isinstance(a, Diagonal) and isinstance(b, Diagonal):
+        return torch.sum(a.diag / b.diag, dim=-1)
+    if isinstance(b, (Diagonal, Woodbury)):
+        return torch.diagonal(solve(b, dense(a)), dim1=-2, dim2=-1).sum(-1)
+    b = as_matrix(b)
+    L = cholesky(b)
+    a_arr = _arr(a)
+    if not isinstance(L, LowerTriangular):
+        half = solve(L, a_arr)
+        return torch.diagonal(solve(L, _t(half)), dim1=-2, dim2=-1).sum(-1)
+    return _RatioChol.apply(*_chol_arrays(b), a_arr)
+
+
+class _RatioChol(torch.autograd.Function):
+    """``tr(B^{-1} A)`` from ``B``'s factor."""
+
+    @staticmethod
+    def forward(ctx, mat, L, Linv, a):
+        half = _half_solve(L, Linv, a)
+        half2 = _half_solve(L, Linv, _t(half))
+        ctx.save_for_backward(L, Linv, a)
+        return torch.diagonal(half2, dim1=-2, dim2=-1).sum(-1)
+
+    @staticmethod
+    @config.pin_matmul_precision
+    def backward(ctx, g):
+        L, Linv, a = ctx.saved_tensors
+        # dA = B^{-1} (symmetric); dB = -B^{-1} sym(A) B^{-1} (the primal
+        # factors B's symmetric part; sym(A) is right for a free-form A).
+        Binv = _kinv_from_chol(L, Linv)
+        gm = g[..., None, None]
+        return -gm * (Binv @ _sym(a) @ Binv), None, None, gm * Binv
+
+
+@config.pin_matmul_precision
+def root(a):
+    """Symmetric positive-semidefinite square root."""
+    if isinstance(a, Diagonal):
+        return Diagonal(torch.sqrt(torch.clamp_min(a.diag, 0)))
+    if isinstance(a, Zero):
+        return a
+    vals, vecs = torch.linalg.eigh(_arr(a))
+    vals = torch.sqrt(torch.clamp_min(vals, 0))
+    return Dense((vecs * vals[..., None, :]) @ _t(vecs))
+
+
+# ---------------------------------------------------------------------------
+# Sampling.
+# ---------------------------------------------------------------------------
+
+
+def _randn(generator, shape, dtype, device):
+    """Standard normals of ``shape`` drawn from ``generator`` (on its own
+    device) and placed on ``device``."""
+    eps = torch.randn(shape, generator=generator, dtype=dtype, device=generator.device)
+    return eps.to(device)
+
+
+@config.pin_matmul_precision
+def sample(generator, var, num=1):
+    """Draw ``num`` zero-mean samples with covariance ``var`` as the columns
+    of a ``(..., n, num)`` tensor, using the structure of ``var``; the
+    normals come from the ``torch.Generator`` ``generator``."""
+    var = as_matrix(var)
+    n = var.rows
+    if isinstance(var, Zero):
+        return torch.zeros(var.batch_shape + (n, num), dtype=var.dtype, device=var.device)
+    if isinstance(var, Diagonal):
+        eps = _randn(generator, var.batch_shape + (n, num), var.dtype, var.device)
+        return torch.sqrt(torch.clamp_min(var.diag, 0))[..., :, None] * eps
+    if isinstance(var, (Constant, LowRank)):
+        lr = _as_lowrank(var)
+        eps = _randn(generator, lr.batch_shape + (lr.rank, num), lr.dtype, lr.device)
+        if lr.middle is None:
+            return lr.left @ eps
+        return lr.left @ (dense(root(Dense(lr.middle))) @ eps)
+    if isinstance(var, Woodbury):
+        return sample(generator, var.diag, num) + sample(generator, var.lr, num)
+    L = dense(cholesky(var))
+    return L @ _randn(generator, var.batch_shape + (n, num), var.dtype, var.device)
+
+
 # ---------------------------------------------------------------------------
 # Construction helpers.
 # ---------------------------------------------------------------------------
@@ -735,6 +887,65 @@ def fill_diag(scalar, n):
     """Diagonal matrix with every diagonal entry ``scalar``."""
     scalar = config.as_tensor(scalar)
     return Diagonal(scalar[..., None].expand(tuple(scalar.shape) + (n,)))
+
+
+def eye_like(a):
+    a = as_matrix(a)
+    return Diagonal(torch.ones(a.batch_shape + (a.rows,), dtype=a.dtype, device=a.device))
+
+
+def block_diag(*mats):
+    """Block-diagonal assembly; square Diagonal/Zero blocks stay
+    structured."""
+    mats = [as_matrix(m) for m in mats]
+    if len(mats) == 1:
+        return mats[0]
+    first = mats[0]
+    if all(isinstance(m, Zero) for m in mats):
+        return Zero(first.dtype, sum(m.rows for m in mats), sum(m.cols for m in mats),
+                    device=first.device)
+    # The Diagonal form needs every block square (a rectangular Zero makes
+    # the whole non-square).
+    if all(isinstance(m, (Diagonal, Zero)) and m.rows == m.cols for m in mats):
+        diags = [
+            m.diag if isinstance(m, Diagonal)
+            else torch.zeros(m.batch_shape + (m.rows,), dtype=m.dtype, device=m.device)
+            for m in mats
+        ]
+        batch = torch.broadcast_shapes(*[d.shape[:-1] for d in diags])
+        return Diagonal(torch.cat([d.expand(batch + d.shape[-1:]) for d in diags], dim=-1))
+    batch = torch.broadcast_shapes(*[m.batch_shape for m in mats])
+    dtype = first.dtype
+    for m in mats[1:]:
+        dtype = torch.promote_types(dtype, m.dtype)
+    out = torch.zeros(batch + (sum(m.rows for m in mats), sum(m.cols for m in mats)),
+                      dtype=dtype, device=first.device)
+    i = j = 0
+    for m in mats:
+        out[..., i:i + m.rows, j:j + m.cols] = dense(m)
+        i += m.rows
+        j += m.cols
+    return Dense(out)
+
+
+def block(rows):
+    """Assemble a matrix from a 2-D grid of blocks (the multi-output Gram
+    assembler). Diagonal structure survives when every off-diagonal block
+    is Zero and every diagonal block Diagonal or Zero."""
+    grid = [[as_matrix(b) for b in row] for row in rows]
+    n_r, n_c = len(grid), len(grid[0])
+    if n_r == n_c and all(
+        isinstance(grid[i][i], (Diagonal, Zero))
+        and all(isinstance(grid[i][j], Zero) for j in range(n_c) if j != i)
+        for i in range(n_r)
+    ):
+        return block_diag(*[grid[i][i] for i in range(n_r)])
+    batch = torch.broadcast_shapes(*[b.batch_shape for row in grid for b in row])
+    return Dense(torch.cat(
+        [torch.cat([dense(b).expand(batch + b.shape[-2:]) for b in row], dim=-1)
+         for row in grid],
+        dim=-2,
+    ))
 
 
 def submatrix(a, mask):

@@ -1,3 +1,17 @@
-from .core import dimensionality, infer_size, num_elements
+from .core import (
+    AmbiguousDimensionalityKernel,
+    MultiOutputKernel,
+    MultiOutputMean,
+    dimensionality,
+    infer_size,
+    num_elements,
+)
 
-__all__ = ["dimensionality", "infer_size", "num_elements"]
+__all__ = [
+    "AmbiguousDimensionalityKernel",
+    "MultiOutputKernel",
+    "MultiOutputMean",
+    "dimensionality",
+    "infer_size",
+    "num_elements",
+]

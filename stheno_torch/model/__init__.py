@@ -1,17 +1,42 @@
 from .fdd import FDD, noise_as_matrix, take
-from .gp import GP, assert_same_measure, intersection_measure_group
+from .gp import GP, assert_same_measure, cross, intersection_measure_group
 from .measure import Measure
-from .observations import AbstractObservations, Obs, Observations
+from .observations import (
+    AbstractObservations,
+    AbstractPseudoObservations,
+    Obs,
+    Observations,
+    PseudoObs,
+    PseudoObsDTC,
+    PseudoObservations,
+    PseudoObservationsDTC,
+    PseudoObservationsFITC,
+    PseudoObsFITC,
+    SparseObs,
+    SparseObservations,
+    combine,
+)
 
 __all__ = [
     "FDD",
     "noise_as_matrix",
     "take",
     "GP",
+    "cross",
     "assert_same_measure",
     "intersection_measure_group",
     "Measure",
+    "combine",
     "AbstractObservations",
     "Observations",
     "Obs",
+    "AbstractPseudoObservations",
+    "PseudoObservations",
+    "PseudoObs",
+    "PseudoObservationsFITC",
+    "PseudoObsFITC",
+    "PseudoObservationsDTC",
+    "PseudoObsDTC",
+    "SparseObs",
+    "SparseObservations",
 ]

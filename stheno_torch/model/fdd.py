@@ -41,8 +41,19 @@ def noise_as_matrix(noise, dtype, n, device):
 
 
 def _input(x):
-    """Place a raw input on the default device; tensors pass through."""
-    return x if isinstance(x, FDD) else config.as_tensor(x)
+    """Place a raw input on the default device; tensors, tagged inputs and
+    tuples of inputs (the multi-output form) pass through."""
+    return x if isinstance(x, (FDD, tuple)) else config.as_tensor(x)
+
+
+def _first_array(x):
+    """The first array of an input, through tuples and tags: the source of
+    its dtype and device."""
+    if isinstance(x, tuple):
+        return _first_array(x[0])
+    if isinstance(x, FDD):
+        return _first_array(x.x)
+    return x
 
 
 class FDD(Normal):
@@ -60,7 +71,8 @@ class FDD(Normal):
 
         kernel = p.kernel
         mean = p.mean
-        self.noise = noise_as_matrix(noise, x.dtype, infer_size(kernel, x), x.device)
+        like = _first_array(x)
+        self.noise = noise_as_matrix(noise, like.dtype, infer_size(kernel, x), like.device)
 
         def construct_mean():
             return mean_eval(mean, x)
@@ -89,7 +101,27 @@ class FDD(Normal):
         )
 
     def __repr__(self):
-        return f"<FDD: process={self.p!r}, input={tuple(self.x.shape)}, noise={self.noise!r}>"
+        shape = tuple(self.x.shape) if isinstance(self.x, torch.Tensor) else "tuple"
+        return f"<FDD: process={self.p!r}, input={shape}, noise={self.noise!r}>"
+
+
+def _take_x(kernel, x, mask):
+    """Subset inputs by a boolean mask, recursing through tuples."""
+    from ..mo import MultiOutputKernel
+
+    if isinstance(x, tuple):
+        i, taken = 0, ()
+        for xi in x:
+            n = infer_size(kernel, xi)
+            taken += (_take_x(kernel, xi, mask[i:i + n]),)
+            i += n
+        return taken
+    if isinstance(x, FDD):
+        if isinstance(kernel, MultiOutputKernel) and x.p not in kernel.ps:
+            raise ValueError(f"Process {x.p} is not part of the multi-output kernel.")
+        return FDD(x.p, _take_x(kernel, x.x, mask), submatrix(x.noise, mask))
+    idx = mask.nonzero().flatten().to(x.device)
+    return x[..., idx] if x.ndim == 1 else x[..., idx, :]
 
 
 def take(fdd: FDD, mask):
@@ -100,6 +132,4 @@ def take(fdd: FDD, mask):
         raise AssertionError(
             "Can only take from finite-dimensional distributions according to a mask."
         )
-    idx = mask.nonzero().flatten().to(fdd.x.device)
-    x = fdd.x[..., idx] if fdd.x.ndim == 1 else fdd.x[..., idx, :]
-    return FDD(fdd.p, x, submatrix(fdd.noise, mask))
+    return FDD(fdd.p, _take_x(fdd.p.kernel, fdd.x, mask), submatrix(fdd.noise, mask))

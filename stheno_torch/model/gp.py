@@ -2,9 +2,10 @@
 
 Counterpart of ``stheno_tpu/model/gp.py``. A ``GP`` owns no mean or
 kernel: it is a symbol whose statistics live in the measures it belongs
-to. Sums and products apply to every measure in the intersection group.
-The input transforms of processes (shift, stretch, select, transform,
-diff), ``cross`` and ``diff_approx`` are not ported yet.
+to. Sums and products apply to every measure in the intersection group;
+``cross`` makes the Cartesian product of processes. The input transforms
+of processes (shift, stretch, select, transform, diff) and
+``diff_approx`` are not ported yet.
 """
 
 from ..dist import RandomProcess
@@ -13,7 +14,7 @@ from ..kernels.kernel import Kernel
 from ..kernels.mean import Mean
 from .fdd import FDD
 
-__all__ = ["GP", "assert_same_measure", "intersection_measure_group"]
+__all__ = ["GP", "cross", "assert_same_measure", "intersection_measure_group"]
 
 
 def assert_same_measure(*ps):
@@ -32,6 +33,14 @@ def intersection_measure_group(*ps):
     for p in ps[1:]:
         intersection &= set(p._measures)
     return intersection
+
+
+def cross(*ps):
+    """Cartesian product of processes, registered in every common measure."""
+    p_cross = GP()
+    for measure in intersection_measure_group(*ps):
+        measure.cross(p_cross, *ps)
+    return p_cross
 
 
 class GP(RandomProcess):

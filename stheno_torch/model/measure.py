@@ -1,19 +1,35 @@
 """The ``Measure``: a joint Gaussian measure over a growing set of processes.
 
 Counterpart of ``stheno_tpu/model/measure.py``, ported for the exact-GP
-path: the process registry with lazily built mean and cross-kernel
-tables, sums and products (GP x GP by moment matching), projection,
-exact conditioning and the joint ``logpdf``. The input transforms,
-``cross``, joint sampling and pseudo-point ELBOs are not ported yet.
+and pseudo-point paths: the process registry with lazily built mean and
+cross-kernel tables, sums and products (GP x GP by moment matching), the
+cross process, projection, exact and pseudo-point conditioning, joint
+sampling, and the joint ``logpdf`` (over one pair or several, and the
+ELBO of pseudo-observations). ``sample`` takes a ``torch.Generator``
+where the JAX package takes a key. The input transforms (shift, stretch,
+select, transform, diff) are not ported yet.
 """
+
+import numbers
+
+import torch
 
 from ..kernels import TensorProductKernel, ZeroKernel
 from ..kernels.kernel import Kernel, _SwappedKernel
 from ..kernels.mean import Mean
 from ..lazy import LazyMatrix, LazyVector
+from ..mo import AmbiguousDimensionalityKernel as ADK
+from ..mo import MultiOutputKernel as MOK
+from ..mo import MultiOutputMean as MOM
+from ..mo import num_elements
 from .fdd import FDD
 from .gp import GP, assert_same_measure
-from .observations import AbstractObservations, Observations
+from .observations import (
+    AbstractObservations,
+    AbstractPseudoObservations,
+    Observations,
+    combine,
+)
 
 __all__ = ["Measure"]
 
@@ -161,6 +177,18 @@ class Measure:
             lambda j: self.kernels[p, j] * other,
         )
 
+    def cross(self, p_cross, *ps):
+        """Cartesian product process."""
+        mok = MOK(self, *ps)
+        return self._update(
+            p_cross,
+            MOM(self, *ps),
+            mok,
+            # The cross rule turns inputs into FDD tags, which hides the
+            # dimensionality: wrap in ADK.
+            lambda j: ADK(mok.transform(None, lambda y: FDD(j, y))),
+        )
+
     # -- conditioning -----------------------------------------------------
 
     def condition(self, *args):
@@ -185,20 +213,49 @@ class Measure:
             return self.condition(*args)
         return self.condition(args)
 
+    # -- sampling ---------------------------------------------------------
+
+    def sample(self, *args):
+        """Sample processes jointly: ``m.sample([generator,] [n,] *fdds)``.
+
+        Draws from ``generator`` (a ``torch.Generator``), or from the global
+        generator (``stheno_torch.dist.rng``) when none is given. Returns
+        the sample of each FDD, ``(num_elements, n)``, as a tuple, or the
+        one sample for one FDD."""
+        generator = None
+        if args and isinstance(args[0], torch.Generator):
+            generator, args = args[0], args[1:]
+        n = 1
+        if args and isinstance(args[0], numbers.Integral):
+            n, args = int(args[0]), args[1:]
+        fdds = args
+        if not fdds or not all(isinstance(f, FDD) for f in fdds):
+            raise ValueError("Give FDDs to sample.")
+        # Sample under this measure.
+        sample = self(combine(*fdds)).sample(generator, n)
+        i, samples = 0, []
+        for fdd in fdds:
+            length = num_elements(fdd)
+            samples.append(sample[..., i:i + length, :])
+            i += length
+        return samples[0] if len(samples) == 1 else tuple(samples)
+
     # -- densities --------------------------------------------------------
 
     def logpdf(self, *args):
-        """Joint log-density of an ``(fdd, y)`` pair or an observations
-        object."""
+        """Joint log-density of observation pairs; for pseudo-observations
+        this is the ELBO."""
+        if len(args) == 1 and isinstance(args[0], AbstractPseudoObservations):
+            return args[0].elbo(self)
         if len(args) == 1 and isinstance(args[0], Observations):
             return self.logpdf(args[0].fdd, args[0].y)
         if len(args) == 2 and isinstance(args[0], FDD):
             fdd, y = args
-            return self(fdd).logpdf(y)
-        raise NotImplementedError(
-            "Give one (fdd, y) pair: joint densities over several processes "
-            "are not ported yet."
-        )
+        elif all(isinstance(a, (tuple, list)) for a in args):
+            fdd, y = combine(*[tuple(a) for a in args])
+        else:
+            raise ValueError("Give (fdd, y) or pairs of observations.")
+        return self(fdd).logpdf(y)
 
 
 def _mean_fn(measure, p):

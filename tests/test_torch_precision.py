@@ -123,6 +123,12 @@ def test_decorator_keeps_the_name_and_pins():
         ("iqf", "_half_solve", lambda A, b: st.iqf(st.Dense(A), b)),
         ("iqf_diag", "_half_solve", lambda A, b: st.iqf_diag(st.Dense(A), b)),
         ("logdet", "_chol_arrays", lambda A, b: st.logdet(st.Dense(A))),
+        ("ratio", "_half_solve", lambda A, b: st.ratio(st.Dense(b @ b.T), st.Dense(A))),
+        ("matmul3", "matmul", lambda A, b: st.matmul3(st.Dense(A), b, b, tr_c=True)),
+        ("matmul_diag", "dense", lambda A, b: st.matmul_diag(st.Dense(A), st.Dense(A))),
+        ("root", "dense", lambda A, b: st.root(st.Dense(A))),
+        ("sample", "dense", lambda A, b: st.sample(torch.Generator().manual_seed(0),
+                                                  st.Dense(A), 2)),
     ],
 )
 def test_matrix_chokepoints_are_pinned(monkeypatch, chokepoint, spied, call):
@@ -140,6 +146,7 @@ def test_matrix_chokepoints_are_pinned(monkeypatch, chokepoint, spied, call):
         ("solve", "_chol_apply_inv", lambda A, b: st.solve(st.Dense(A), b).sum()),
         ("iqf", "_chol_apply_inv", lambda A, b: st.dense(st.iqf(st.Dense(A), b)).sum()),
         ("iqf_diag", "_chol_apply_inv", lambda A, b: st.iqf_diag(st.Dense(A), b).sum()),
+        ("ratio", "_kinv_from_chol", lambda A, b: st.ratio(st.Dense(b @ b.T), st.Dense(A))),
     ],
 )
 def test_backwards_are_pinned(monkeypatch, name, spied, f):
@@ -249,6 +256,20 @@ def test_entry_points_leave_the_callers_flags():
     xb, yb, ell = E.n2000_inputs(dtype=torch.float64, device="cpu")
     E.nlml_n2000(xb[:200], yb[:200], ell, grad=True)
     config.resolve_device("cpu")
+    assert _flags() == AMBIENT
+
+
+@pytest.mark.parametrize("name", ["sparse_elbo", "sparse_predict"])
+def test_sparse_entry_points_are_pinned(monkeypatch, name):
+    from stheno_torch import entry as E
+
+    x, y, z, ell = E.vfe_n2000_inputs(torch.float64, "cpu", n=40, m=6)
+    spy = _Spy(monkeypatch, E, "_sparse_obs")
+    if name == "sparse_elbo":
+        E.sparse_elbo(x, y, z, ell, grad=True)
+    else:
+        E.sparse_predict(x, y, z, ell, x[:5])
+    assert spy.seen == [PINNED]
     assert _flags() == AMBIENT
 
 
