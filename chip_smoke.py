@@ -27,7 +27,14 @@ on the card, and drives the port's paths through their entry points:
   VFE value and gradient and the sparse posterior at N=1,000,000, M=512,
   checked against the same step in float64 on the card within twice the
   JAX package's own float32 error; K1 and its backward at the path's
-  512 x 10^6 shape, timed beside their bound.
+  512 x 10^6 shape, timed beside their bound;
+- the modelling DSL through the reference's own example models: example
+  6's Bayesian linear regression at N=10^6 (a Woodbury variance, never
+  densified) and a Kronecker ``Normal`` on a 1024 x 1024 grid, unmasked
+  and masked, against float64 on the card within twice the JAX package's
+  own float32 error; example 2's decomposition and example 5's
+  derivative model at N=2000 against float64 on the CPU; K1 (rq), its
+  backward and K2 at their shapes.
 
 The training step's surrogate, its Gram term's value and gradient, is
 one launch of the fused Gram-gradient kernel (``csrc/gram_matvec_vjp.cu``),
@@ -115,6 +122,21 @@ KERNELS = {
         "source": "stheno_torch/ops/csrc/gram_bwd.cu",
         "replaces": "stheno_tpu/ops/gram.py:198",
     },
+    # K1, its backward and K2 on the modelling DSL's paths (phase
+    # dsl_path): rq at the decomposition model's N=2000 Gram, and the
+    # tile factorisation of a Kronecker factor.
+    "gram_dsl": {
+        "source": "stheno_torch/ops/csrc/gram.cu",
+        "replaces": "stheno_tpu/ops/gram.py:92",
+    },
+    "gram_bwd_dsl": {
+        "source": "stheno_torch/ops/csrc/gram_bwd.cu",
+        "replaces": "stheno_tpu/ops/gram.py:198",
+    },
+    "chol_tile_dsl": {
+        "source": "stheno_torch/ops/csrc/chol_tile.cu",
+        "replaces": "stheno_tpu/ops/pallas_chol.py:112",
+    },
 }
 
 # The matrix-free path's size (bench.py:bench_iterative_262k).
@@ -136,6 +158,21 @@ JAX_F32_SPARSE = {
     "grad_rel": 4.415395150520416e-03,
     "mean_rel": 4.430042426939862e-03,
     "var_rel": 5.399060933981150e-02,
+}
+
+
+# The JAX package's own float32 error on the Kronecker logpdf on the 1024 x
+# 1024 grid, unmasked and with 10% of each axis masked, on the CPU
+# (scripts/jax_dsl_f32_error.py, recorded in PERF.md): the value's relative
+# error and the gradient's normwise one. Phase dsl_path allows twice each.
+# Its BLR run is held to the main path's gates instead (value rel 1e-3,
+# each gradient entry 5e-2), which lie far below the JAX package's float32
+# error there (value 14.6, gradient 598).
+JAX_F32_DSL = {
+    "kron_unmasked_value_rel": 3.7360543262625473e-07,
+    "kron_unmasked_grad_rel": 7.994472308817081e-05,
+    "kron_masked_value_rel": 6.489885134258344e-07,
+    "kron_masked_grad_rel": 2.935846436159447e-04,
 }
 
 
@@ -1568,13 +1605,26 @@ def _kernel_name(name):
 TRACE_MARGIN_S = 0.2
 TRACE_TAKES = 3
 
+#: Short spin kernels enqueued at the head of each traced step. Late in a
+#: whole run the profiler lost the first 7-9 device records of a step in
+#: every take, K1 launches among them, and more takes did not help: behind
+#: a 50 ms spin kernel it lost the same records, behind 64 or 256 short
+#: ones none (PERF.md): a head of records, not of time. These, which every
+#: count leaves out, stand first in it.
+TRACE_HEAD_SPINS = 64
+
+
+def _head_spins():
+    for _ in range(TRACE_HEAD_SPINS):
+        torch.cuda._sleep(1000)
+
 
 def _is_launch_call(e):
     """A CUDA runtime or driver call that puts work on the card."""
     return e.name.startswith("cu") and any(w in e.name for w in ("Launch", "Memcpy", "Memset"))
 
 
-def _trace_once(label, fn):
+def _trace_once(label, fn, head_us):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1585,6 +1635,7 @@ def _trace_once(label, fn):
         torch.cuda._sleep(1_000_000)
         torch.cuda.synchronize()
         with record_function(label):
+            _head_spins()
             fn()
             torch.cuda.synchronize()
         torch.cuda._sleep(1_000_000)
@@ -1593,8 +1644,8 @@ def _trace_once(label, fn):
     after = _counts()
     events = prof.events()
     # The annotation is recorded twice, on the host and as a device span;
-    # only the host one marks the step, and neither is a kernel. The two
-    # spin kernels around the step are the session's own.
+    # only the host one marks the step, and neither is a kernel. The spin
+    # kernels around the step and at its head are the session's own.
     (step,) = [e for e in events if e.name == label and e.device_type == DeviceType.CPU]
     device = [
         e
@@ -1612,10 +1663,10 @@ def _trace_once(label, fn):
         n, us = by_name.get(_kernel_name(e.name), (0, 0.0))
         by_name[_kernel_name(e.name)] = (n + 1, us + e.time_range.end - e.time_range.start)
     return {
-        "span_us": step.time_range.end - step.time_range.start,
+        "span_us": step.time_range.end - step.time_range.start - head_us,
         "busy_us": _union_length(intervals),
         "by_name": by_name,
-        "lead_us": min(s for s, _ in intervals) - min(calls),
+        "lead_us": min(s for s, _ in intervals) - min(calls) - head_us,
         "launches": {k: after[k] - before[k] for k in after},
     }
 
@@ -1623,33 +1674,37 @@ def _trace_once(label, fn):
 def trace(label, fn, want=None):
     """One run of ``fn`` under torch.profiler, as a dict: ``span_us``, the
     step's span on the host (from its start to the return of the
-    synchronise that ends it); ``busy_us``, the union of its device
-    records' intervals; ``by_name``, ``{kernel: (launches, device_us)}``;
-    ``lead_us``, the first device record's start less the first launch
-    call's (tens of microseconds where the profiler puts host and device
-    records on one clock); ``launches``, the wrappers' counts in the run;
-    and ``refused``, one entry for each earlier take that ``want(by_name,
-    launches)`` refused, with its lead and the kernels whose launches it
-    saw otherwise than the last take. The step is traced again, up to
-    ``TRACE_TAKES`` takes in all, while ``want`` refuses it.
+    synchronise that ends it) less the head spins' time (``head_us``, CUDA
+    events); ``busy_us``, the union of its device records' intervals;
+    ``by_name``, ``{kernel: (launches, device_us)}``; ``lead_us``, the
+    first device record's start less the first launch call's, less
+    ``head_us`` (tens of microseconds where the profiler puts host and
+    device records on one clock); ``launches``, the wrappers' counts in
+    the run; and ``refused``, one entry for each earlier take that
+    ``want(by_name, launches)`` refused, with its lead and the kernels
+    whose launches it saw otherwise than the last take. The step is traced
+    again, up to ``TRACE_TAKES`` takes in all, while ``want`` refuses it.
 
     The profiler both misplaces and loses device records. It has put a
     record 2 ms before the call that launched it, so no record is cut by
-    its time: the session holds
-    ``TRACE_MARGIN_S`` of idle host time on each side of the step, nothing
-    runs on the card when it starts, and every record in it but the two
-    spin kernels around the step is the step's. And late in a whole run
-    of this script a trace of the 10^6 sparse step lacked both of its K1
-    launches, its first record 21 ms after its first launch call (PERF.md):
-    a take that misses launches shows that records were lost, not that a
-    kernel did not run."""
+    its time: the session holds ``TRACE_MARGIN_S`` of idle host time on
+    each side of the step, nothing runs on the card when it starts, and
+    every record in it but the spin kernels around the step and at its
+    head is the step's. And late in a whole run of this script a trace of
+    the 10^6 sparse step lacked both of its K1 launches, its first record
+    21 ms after its first launch call (PERF.md): a take that misses
+    launches shows that records were lost, not that a kernel did not run.
+    Those lost records are the step's first: the ``TRACE_HEAD_SPINS`` spin
+    kernels at its head take their place."""
+    head_us = time_ms(_head_spins, reps=3, warmup=1) * 1e3
     refused = []
     for _ in range(TRACE_TAKES):
-        out = _trace_once(label, fn)
+        out = _trace_once(label, fn, head_us)
         if want is None or want(out["by_name"], out["launches"]):
             break
         refused.append(out)
     last = out["by_name"]
+    out["head_us"] = head_us
     out["refused"] = [
         {"lead_us": r["lead_us"],
          "launches": {k: [c, last.get(k, (0, 0.0))[0]] for k, (c, _) in r["by_name"].items()
@@ -2299,6 +2354,337 @@ def phase_sparse_path(smi):
     ]
 
 
+# ---------------------------------------------------------------------------
+# The modelling DSL: the reference's example models.
+
+#: K2's launches per tile padded to 1024 (``phase_profile``).
+K2_PER_TILE = {"factor_panel": 8, "trailing": 7, "finalize": 1, "join_product": 6}
+
+
+def _grad_rel(g, ref):
+    """The normwise relative error of a gradient dict, and each entry's."""
+    keys = list(ref)
+    a = torch.stack([g[k].double().cpu().reshape(()) for k in keys])
+    b = torch.stack([ref[k].double().cpu().reshape(()) for k in keys])
+    each = {k: _rel(g[k], ref[k]) for k in keys}
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b)), each
+
+
+def _launched(fn):
+    """``fn()`` with the wrappers' counts set to 0 first; returns its output
+    and the counts it left."""
+    _set_counts(ZERO_COUNTS)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _counts()
+
+
+def _own_peak(fn):
+    """The peak memory that ``fn()`` allocates above what was allocated
+    before it, in bytes."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _traced_dsl(label, fn):
+    """One traced run of the float32 step ``fn`` (``trace``): its K1,
+    K1-backward and K2 launches on the device must equal the wrappers'
+    counts (K2: ``K2_PER_TILE`` per tile). Returns the profile's summary."""
+    def want(b, n):
+        return (_traced(b, "gram_kernel") == n["gram"]
+                and _traced(b, "gram_bwd_kernel") == n["gram_bwd"]
+                and all(_traced(b, k) == c * n["chol_tile"] for k, c in K2_PER_TILE.items()))
+
+    t = trace(label, fn, want)
+    by_name, launches = t["by_name"], t["launches"]
+    traced = {"gram": _traced(by_name, "gram_kernel"),
+              "gram_bwd": _traced(by_name, "gram_bwd_kernel"),
+              **{f"chol_tile_{k}": _traced(by_name, k) for k in K2_PER_TILE}}
+    check(want(by_name, launches),
+          f"{label}: traced launches {traced} against the wrappers' "
+          f"{ {k: launches[k] for k in ('gram', 'gram_bwd', 'chol_tile')} } (clock lead "
+          f"{t['lead_us']} us; {sum(c for c, _ in by_name.values())} device records; refused "
+          f"takes {t['refused']})")
+    return {"span_ms": t["span_us"] / 1e3, "head_spins_us": t["head_us"],
+            "device_busy_ms": t["busy_us"] / 1e3,
+            "device_busy_share": t["busy_us"] / t["span_us"], "clock_lead_us": t["lead_us"],
+            "refused_traces": t["refused"], "traced_launches": traced,
+            "wrapper_launches": {k: launches[k] for k in ("gram", "gram_bwd", "chol_tile")},
+            "device_launches": sum(c for c, _ in by_name.values()), "kernels": _top(by_name, 8)}
+
+
+def _blr_exact(x, y, params):
+    """Example 6's posterior in its information form, in float64 on the
+    host: with ``X = [x, 1]``, the weights' precision is ``diag(1 / s_slope,
+    1 / s_intercept) + X^T X / noise`` and their mean ``cov X^T y / noise``;
+    ``f``'s marginals at ``blr_predict``'s 1024 points follow from ``[x_new,
+    1]``. No Woodbury difference: a plain reference for ``blr_predict``."""
+    x, y = x.detach().double().cpu(), y.detach().double().cpu()
+    s = {k: float(torch.exp(v)) for k, v in params.items()}
+    X = torch.stack([x, torch.ones_like(x)], 1)
+    prec = torch.diag(torch.tensor([1 / s["log_s_slope"], 1 / s["log_s_intercept"]],
+                                   dtype=torch.float64)) + X.T @ X / s["log_noise"]
+    cov = torch.linalg.inv(prec)
+    mean = cov @ (X.T @ y) / s["log_noise"]
+    xn = torch.linspace(0.0, 10.0, 1024, dtype=x.dtype, device=x.device)
+    Xn = torch.stack([xn, torch.ones_like(xn)], 1)
+    return {"slope": (mean[0:1], cov[0:1, 0]), "intercept": (mean[1:2], cov[1:2, 1]),
+            "f": (Xn @ mean, torch.einsum("ij,jk,ik->i", Xn, cov, Xn))}
+
+
+def _k1_rq_dsl(x, alpha):
+    """K1 and its backward, rq, at the decomposition model's N=2000 Gram (x
+    is y): each against its plain version (``_gram_atol``, ``_hold_bwd``),
+    CUDA-event times, plain and library times (``(1 + cdist^2 / 2 alpha)^
+    -alpha`` and ``autograd.grad`` through it) and bounds (inputs and the
+    output read or written once; the forward's ``exp``/``log`` pair and a
+    dozen flops an entry, the backward's about 20)."""
+    from stheno_torch.ops import gram as K1
+    from stheno_torch.ops import gram_bwd as KB
+
+    n = x.shape[0]
+    K, P = K1.gram("rq", x, x, alpha), K1.gram_plain("rq", x, x, alpha)
+    err, over = _hold(K, P, _gram_atol("rq", x, x), "gram rq at the decomposition's 2000x1")
+    lib = lambda z: (1 + torch.cdist(z, z).square() / (2 * alpha)) ** (-alpha)  # noqa: E731
+    b_ms, b_by = bound((2 * n + n * n) * 4, 12 * n * n, torch.float32)
+    fwd = {"kind": "rq", "shape": [n, n, 1], "max_abs_err": err, "of_tol": over,
+           "ms": time_ms(lambda: K1.gram("rq", x, x, alpha), inner=20),
+           "plain_ms": time_ms(lambda: K1.gram_plain("rq", x, x, alpha), inner=5),
+           "library_ms": time_ms(lambda: lib(x), inner=5), "bound_ms": b_ms, "bound_by": b_by}
+    gbar = k1_cotangent(n)
+    cases = []
+    bwd_err = _hold_bwd("rq", x, x, gbar, "2000x1, x is y (the decomposition's)", cases, same=True)
+    xg, xl = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    Kg, KL = K1.gram("rq", xg, xg, alpha), lib(xl)
+    b_ms, b_by = bound((2 * n + n * n) * 4, 20 * n * n, torch.float32)
+    bwd = {"kind": "rq", "shape": [n, n, 1], "max_abs_err": bwd_err, "cases": cases,
+           "ms": time_ms(lambda: torch.autograd.grad(Kg, xg, gbar, retain_graph=True), inner=20),
+           "plain_ms": time_ms(lambda: KB.gram_bwd_plain("rq", x, x, gbar, alpha, same=True),
+                               reps=5, warmup=1),
+           "library_ms": time_ms(lambda: torch.autograd.grad(KL, xl, gbar, retain_graph=True),
+                                 inner=5),
+           "bound_ms": b_ms, "bound_by": b_by}
+    return fwd, bwd
+
+
+def _k2_kron_dsl(A):
+    """K2 at a Kronecker factor of the DSL's grid (``A``: the EQ Gram of an
+    axis plus 0.1 I, 1024 x 1024, float32): ``(L, inv L)`` against the
+    plain version (atol 5e-5, as phase chol_tile), times beside the library
+    factorisation and inverse and the bound (``phase_times``'s)."""
+    from stheno_torch.ops import chol_tile as K2
+
+    n = A.shape[0]
+    (L, Linv), (Lp, Linvp) = K2.chol_tile(A), K2.chol_tile_plain(A)
+    err = max(max_err(L, Lp), max_err(Linv, Linvp))
+    check(err <= 5e-5, f"chol_tile at the Kronecker factor: {err}")
+    eye = torch.eye(n, device="cuda")
+
+    def library():
+        Ll = torch.linalg.cholesky(A)
+        return Ll, torch.linalg.solve_triangular(Ll, eye, upper=False)
+
+    b_ms, b_by = bound(3 * n * n * 4, 2 * n**3 / 3, torch.float32)
+    return {"shape": [n], "max_abs_err": err, "ms": time_ms(lambda: K2.chol_tile(A)),
+            "plain_ms": time_ms(lambda: K2.chol_tile_plain(A), reps=5, warmup=1),
+            "library_ms": time_ms(library), "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_dsl_path(smi):
+    """The modelling DSL through the reference's own example models, each
+    through its entry point (``stheno_torch.entry``), in float32 on the
+    card:
+
+    - example 6's Bayesian linear regression at N=10^6 (``blr_logpdf``
+      value and gradient, ``blr_predict``), whose variance is a
+      ``Woodbury`` held closed-form: value and gradient against the same
+      step in float64 on the card at the main path's gates; the float64
+      posterior means against the information form (``_blr_exact``) at
+      1e-3 of its largest value; every posterior marginal, float32 and
+      float64, finite and of its shape (float32 keeps no digit of them
+      at this N); with each step's own peak memory;
+    - example 2's decomposition at N=2000 (``decomposition_logpdf``: value,
+      gradient and the posterior means of the two components and their
+      sum) and example 5's derivative model at N=2000
+      (``derivative_condition``: the log-density of the second
+      derivative's observations, its gradient and the posterior
+      marginals), each against the port in float64 on the CPU at the main
+      path's gates (value rel 1e-3, each gradient entry 5e-2, marginals
+      1e-3 of the largest float64 value), and ``mean_s + mean_w = mean_f``;
+    - ``Normal(0, Kronecker(A + 0.1 I, B + 0.1 I)).logpdf`` on the 1024 x
+      1024 grid (``kronecker_logpdf``), value and gradient, unmasked and
+      with 10% of each axis masked, against float64 on the card within
+      twice the JAX package's float32 error.
+
+    Each float32 step is traced once (``_traced_dsl``: K1, K1-backward and
+    K2 launches on the device equal the wrappers' counts) and timed. K1
+    (rq) and its backward at the decomposition's Gram and K2 at a
+    Kronecker factor are held against their plain versions and timed
+    beside their bounds. Returns the kernels line's three rows, whose
+    launches are the three kernel-running models' float32 steps'."""
+    from stheno_torch import entry as E
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpu64 = lambda t: t.detach().double().cpu()  # noqa: E731
+    dev64 = lambda d: {k: v.double() for k, v in d.items()}  # noqa: E731
+    report = {"phase": "dsl_path", "nvidia_smi": smi}
+    gates, path_counts = [], {k: 0 for k in ("gram", "gram_bwd", "chol_tile")}
+
+    def gate(what, got, limit):
+        gates.append({"what": what, "got": got, "limit": limit})
+        check(got <= limit, f"dsl_path {what}: {got} exceeds {limit}")
+
+    # Bayesian linear regression, N=10^6.
+    x, y, p = E.blr_inputs()
+    (v, g), counts = _launched(lambda: E.blr_logpdf(x, y, p, grad=True))
+    pred = E.blr_predict(x, y, p)
+    check(bool(torch.isfinite(v)) and all(bool(torch.isfinite(t)) for t in g.values()),
+          "BLR logpdf or gradient not finite")
+    x64, y64, p64 = x.double(), y.double(), dev64(p)
+    v64, g64 = E.blr_logpdf(x64, y64, p64, grad=True)
+    pred64 = E.blr_predict(x64, y64, p64)
+    exact = _blr_exact(x64, y64, p64)
+    blr = {"n": x.shape[0], "launches": counts, "value": float(v), "value_f64": float(v64),
+           "value_rel": _rel(v, v64), "grad_f64": {k: float(t) for k, t in g64.items()}}
+    blr["grad_rel"], blr["grad_rel_each"] = _grad_rel(g, g64)
+    gate("BLR value rel", blr["value_rel"], 1e-3)
+    for k, r in blr["grad_rel_each"].items():
+        gate(f"BLR gradient {k} rel", r, 5e-2)
+    # The posterior against its information form. Each variance, and in
+    # float32 each mean, is a difference of Woodbury terms about N / noise
+    # times larger, so float32 keeps no digit of any of them and float64
+    # none of the variances (README): those are held to their shape and
+    # finiteness, and their errors recorded. The float64 means are gated.
+    for name in ("slope", "intercept", "f"):
+        for i, q in enumerate(("mean", "var")):
+            ref = exact[name][i]
+            blr[f"{name}_{q}_exact_max"] = float(ref.abs().max())
+            for tag, out in (("f32", pred), ("f64", pred64)):
+                a = out[name][i]
+                check(a.shape == ref.shape and bool(torch.isfinite(a).all()),
+                      f"BLR {name} {q} ({tag}): shape {tuple(a.shape)} or not finite")
+                blr[f"{name}_{q}_{tag}_max_abs_err"] = max_err(a.cpu(), ref)
+            blr[f"{name}_{q}_f32_vs_f64_max_abs_err"] = max_err(pred[name][i], pred64[name][i])
+        gate(f"BLR {name} mean (f64) against the information form",
+             blr[f"{name}_mean_f64_max_abs_err"], 1e-3 * blr[f"{name}_mean_exact_max"])
+    del pred64, g64
+    gc.collect()
+    torch.cuda.empty_cache()
+    blr["value_grad_peak_bytes"] = _own_peak(lambda: E.blr_logpdf(x, y, p, grad=True))
+    blr["predict_peak_bytes"] = _own_peak(lambda: E.blr_predict(x, y, p))
+    blr["value_grad_ms"] = time_ms(lambda: E.blr_logpdf(x, y, p, grad=True), reps=5)
+    blr["predict_ms"] = time_ms(lambda: E.blr_predict(x, y, p), reps=3, warmup=1)
+    blr["profile"] = _traced_dsl("blr_1e6_value_grad", lambda: E.blr_logpdf(x, y, p, grad=True))
+    report["blr_n1e6"] = blr
+    del x, y, x64, y64, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Example 2's decomposition, N=2000.
+    x, y, p = E.decomposition_inputs()
+    (v, g, means), counts = _launched(lambda: E.decomposition_logpdf(x, y, p, grad=True))
+    check(counts["gram"] >= 1 and counts["gram_bwd"] >= 1 and counts["chol_tile"] == 2,
+          f"the decomposition's launches {counts}")
+    rv, rg, rmeans = E.decomposition_logpdf(cpu64(x), cpu64(y), {k: cpu64(t) for k, t in p.items()},
+                                            grad=True)
+    dec = {"n": x.shape[0], "launches": counts, "value": float(v), "value_f64": float(rv),
+           "value_rel": _rel(v, rv), "grad_f64": {k: float(t) for k, t in rg.items()}}
+    dec["grad_rel"], dec["grad_rel_each"] = _grad_rel(g, rg)
+    gate("decomposition value rel", dec["value_rel"], 1e-3)
+    for k, r in dec["grad_rel_each"].items():
+        gate(f"decomposition gradient {k} rel", r, 5e-2)
+    for k in means:
+        err = max_err(means[k].cpu(), rmeans[k])
+        dec[f"mean_{k}_max_abs_err"] = err
+        gate(f"decomposition mean {k}", err, 1e-3 * max(1.0, float(rmeans[k].abs().max())))
+    dec["sum_of_components_max_abs_err"] = max_err(means["smooth"] + means["wiggly"], means["f"])
+    gate("decomposition mean_s + mean_w - mean_f", dec["sum_of_components_max_abs_err"],
+         1e-3 * max(1.0, float(rmeans["f"].abs().max())))
+    dec["value_grad_ms"] = time_ms(lambda: E.decomposition_logpdf(x, y, p, grad=True), reps=5)
+    dec["value_grad_peak_bytes"] = _own_peak(lambda: E.decomposition_logpdf(x, y, p, grad=True))
+    dec["profile"] = _traced_dsl("decomposition_n2000_value_grad",
+                                 lambda: E.decomposition_logpdf(x, y, p, grad=True))
+    for k in path_counts:
+        path_counts[k] += counts[k]
+    report["decomposition_n2000"] = dec
+    x_rq = (x / torch.exp(p["log_ell_wiggly"]))[:, None].contiguous()
+
+    # Example 5's derivative model, N=2000.
+    x, y, p = E.derivative_inputs()
+    (v, g, marg), counts = _launched(lambda: E.derivative_condition(x, y, p, grad=True))
+    check(counts["gram"] >= 1 and counts["gram_bwd"] >= 1 and counts["chol_tile"] == 2,
+          f"the derivative model's launches {counts}")
+    rv, rg, rmarg = E.derivative_condition(cpu64(x), cpu64(y), {k: cpu64(t) for k, t in p.items()},
+                                           grad=True)
+    der = {"n": x.shape[0], "launches": counts, "value": float(v), "value_f64": float(rv),
+           "value_rel": _rel(v, rv), "grad_f64": {k: float(t) for k, t in rg.items()}}
+    der["grad_rel"], der["grad_rel_each"] = _grad_rel(g, rg)
+    gate("derivative value rel", der["value_rel"], 1e-3)
+    for k, r in der["grad_rel_each"].items():
+        gate(f"derivative gradient {k} rel", r, 5e-2)
+    for name, a, b in zip(("mean", "var"), marg, rmarg):
+        check(a.shape == (x.shape[0],) and bool(torch.isfinite(a).all()), f"derivative {name}")
+        err = max_err(a.cpu(), b)
+        der[f"{name}_max_abs_err"] = err
+        gate(f"derivative posterior {name}", err, 1e-3 * max(1.0, float(b.abs().max())))
+    der["value_grad_ms"] = time_ms(lambda: E.derivative_condition(x, y, p, grad=True), reps=5)
+    der["value_grad_peak_bytes"] = _own_peak(lambda: E.derivative_condition(x, y, p, grad=True))
+    der["profile"] = _traced_dsl("derivative_n2000_value_grad",
+                                 lambda: E.derivative_condition(x, y, p, grad=True))
+    for k in path_counts:
+        path_counts[k] += counts[k]
+    report["derivative_n2000"] = der
+
+    # The Kronecker Normal on the 1024 x 1024 grid.
+    a1, a2, y, p, masks = E.kronecker_inputs()
+    kron = {}
+    for tag, mask in (("unmasked", None), ("masked", masks)):
+        (v, g), counts = _launched(lambda: E.kronecker_logpdf(a1, a2, y, p, grad=True, mask=mask))
+        check(counts["gram"] == 2 and counts["gram_bwd"] >= 1 and counts["chol_tile"] == 2,
+              f"the Kronecker {tag} run's launches {counts}")
+        v64, g64 = E.kronecker_logpdf(a1.double(), a2.double(), y.double(), dev64(p), grad=True,
+                                      mask=mask)
+        run = {"launches": counts, "value": float(v), "value_f64": float(v64),
+               "value_rel": _rel(v, v64), "grad_f64": {k: float(t) for k, t in g64.items()}}
+        run["grad_rel"], run["grad_rel_each"] = _grad_rel(g, g64)
+        gate(f"Kronecker {tag} value rel", run["value_rel"],
+             2 * JAX_F32_DSL[f"kron_{tag}_value_rel"])
+        gate(f"Kronecker {tag} gradient rel", run["grad_rel"],
+             2 * JAX_F32_DSL[f"kron_{tag}_grad_rel"])
+        step = lambda mask=mask: E.kronecker_logpdf(a1, a2, y, p, grad=True, mask=mask)  # noqa: E731
+        run["value_grad_ms"] = time_ms(step, reps=5)
+        run["value_grad_peak_bytes"] = _own_peak(step)
+        run["profile"] = _traced_dsl(f"kronecker_{tag}_value_grad", step)
+        for k in path_counts:
+            path_counts[k] += counts[k]
+        kron[tag] = run
+    report["kronecker_1024x1024"] = kron
+    emit({"phase": "dsl_path_gates", "nvidia_smi": smi, "gates": gates})
+
+    # The kernels at the DSL's shapes.
+    from stheno_torch import EQ, dense, pairwise
+
+    k1, k1b = _k1_rq_dsl(x_rq, 0.1)
+    A = dense(pairwise(EQ(), a1)) + 0.1 * torch.eye(a1.shape[0], device="cuda")
+    k2 = _k2_kron_dsl(A)
+    report.update(gram_rq_2000=k1, gram_bwd_rq_2000=k1b, chol_tile_kron_1024=k2,
+                  path_launches=path_counts)
+    emit(report)
+    return [
+        {"name": name, "route": "cuda", "source": KERNELS[name]["source"],
+         "replaces": KERNELS[name]["replaces"], "launches": path_counts[base],
+         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}}
+        for name, base, row in (("gram_dsl", "gram", k1), ("gram_bwd_dsl", "gram_bwd", k1b),
+                                ("chol_tile_dsl", "chol_tile", k2))
+    ]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU.", file=sys.stderr)
@@ -2352,6 +2738,10 @@ def _run_phases():
     idle = [k["name"] for k in sparse if k["launches"] < 1]
     check(not idle, f"kernels that the sparse path never launched: {idle}")
     kernels.extend(sparse)
+    dsl = run("dsl_path", phase_dsl_path, smi)
+    idle = [k["name"] for k in dsl if k["launches"] < 1]
+    check(not idle, f"kernels that the DSL paths never launched: {idle}")
+    kernels.extend(dsl)
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     # The card's name and power limit again, beside the kernels' numbers.
     print(smi, flush=True)

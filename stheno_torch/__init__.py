@@ -9,9 +9,12 @@ Entry points run on the card unless the CPU is asked for
 training-and-prediction step, the matrix-free (iterative) exact-GP path
 of ``stheno_torch.iterative``, the optimisers and samplers of
 ``stheno_torch.opt`` (Adam captured in a CUDA graph on the card, L-BFGS,
-HMC, NUTS and their diagnostics), and the pseudo-point path (VFE, FITC
-and DTC with their ELBO and posterior, several observed processes
-through ``combine`` and the cross process, sampling); ``ROADMAP.md``
+HMC, NUTS and their diagnostics), the pseudo-point path (VFE, FITC and
+DTC with their ELBO and posterior, several observed processes through
+``combine`` and the cross process, sampling), and the rest of the
+modelling DSL (input transforms and derivatives of processes, Delta and
+the other kernels and means, ``Normal``'s divergences and affine
+arithmetic, the Woodbury and Kronecker closed forms); ``ROADMAP.md``
 lists what is still to be ported.
 """
 

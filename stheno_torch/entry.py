@@ -34,7 +34,18 @@ the model of ``bench.py:bench_n2000``:
   conditioning. The inducing Gram is near singular in float32 at these
   sizes, so they factor with the adaptive jitter (as the JAX package's
   ``dist_elbo`` does) unless ``jitter`` fixes it; :func:`sparse_jitter`
-  is the probe's choice.
+  is the probe's choice;
+- the modelling DSL through the reference's own example models:
+  Bayesian linear regression (``examples/example6_blr.py``) at N=10^6,
+  :func:`blr_inputs`, :func:`blr_logpdf` and :func:`blr_predict`, whose
+  variance is a ``Woodbury`` that is never densified; the smooth-plus-
+  wiggly decomposition (``examples/example2_decomposition.py``) at the
+  headline's N=2000, :func:`decomposition_inputs` and
+  :func:`decomposition_logpdf`; the derivative model
+  (``examples/example5_integration.py``), :func:`derivative_inputs` and
+  :func:`derivative_condition`; and a ``Normal`` with a ``Kronecker``
+  variance on ``bench.py``'s 1024 x 1024 grid, :func:`kronecker_inputs`
+  and :func:`kronecker_logpdf`, with or without a mask of each axis.
 
 Raw inputs go to ``device`` (default ``config.default_device``, the card);
 tensors keep their own device.
@@ -47,9 +58,10 @@ import torch
 
 from . import config
 from . import iterative as it
-from .kernels import EQ, pairwise
-from .matrix import adaptive_jitter_eps, dense
-from .model import GP, PseudoObs, PseudoObsDTC, PseudoObsFITC
+from .dist import Normal
+from .kernels import EQ, RQ, Delta, pairwise
+from .matrix import Diagonal, Kronecker, adaptive_jitter_eps, add, dense
+from .model import GP, Measure, PseudoObs, PseudoObsDTC, PseudoObsFITC
 from .opt import AdamDriver, Vars, sample_nuts
 
 __all__ = [
@@ -78,6 +90,15 @@ __all__ = [
     "vfe_elbo_n2000",
     "sparse_elbo_1m",
     "sparse_predict",
+    "blr_inputs",
+    "blr_logpdf",
+    "blr_predict",
+    "decomposition_inputs",
+    "decomposition_logpdf",
+    "derivative_inputs",
+    "derivative_condition",
+    "kronecker_inputs",
+    "kronecker_logpdf",
 ]
 
 
@@ -423,3 +444,219 @@ def sparse_predict(x, y, z, ell, x_new, *, jitter=None):
     with _jitter(jitter), torch.no_grad():
         f, obs = _sparse_obs(x, y, z, ell, noise, "vfe")
         return (f | obs)(x_new).marginals()
+
+
+# ---------------------------------------------------------------------------
+# The modelling DSL: the reference's example models.
+
+
+def _value_and_grad(fn, params, grad):
+    """``fn(params)`` (a scalar tensor), or ``(value, grads)`` with
+    ``grads`` its gradient with respect to each entry of ``params``."""
+    if not grad:
+        with torch.no_grad():
+            return fn(params)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        val = fn(leaves)
+        grads = torch.autograd.grad(val, list(leaves.values()))
+    return val.detach(), dict(zip(leaves, grads))
+
+
+def _log_params(dtype, device, **values):
+    return {k: torch.full((), float(np.log(v)), dtype=dtype, device=device)
+            for k, v in values.items()}
+
+
+def blr_inputs(n=1_000_000, dtype=torch.float32, device=None):
+    """Example 6's data at ``n`` points: ``x`` on linspace(0, 10), ``y = 0.8 x
+    + 4 + 0.2 eps`` with ``eps`` from a numpy ``RandomState(4)``, made in
+    float64 and cast to ``dtype``; and the parameters ``log_s_slope = 0``,
+    ``log_s_intercept = log 5``, ``log_noise = log 0.04``. Returns ``(x, y,
+    params)``."""
+    dev = config.resolve_device(device)
+    x = np.linspace(0.0, 10.0, n)
+    y = 0.8 * x + 4.0 + 0.2 * np.random.RandomState(4).randn(n)
+    npd = _np_dtype(dtype)
+    x, y = (torch.as_tensor(a.astype(npd), device=dev) for a in (x, y))
+    return x, y, _log_params(dtype, dev, log_s_slope=1.0, log_s_intercept=5.0, log_noise=0.04)
+
+
+def _identity(z):
+    return z
+
+
+def _blr_model(params):
+    """``(prior, slope, intercept, f, y)``: ``f = slope * x + intercept`` with
+    ``slope = GP(s_slope)`` and ``intercept = GP(s_intercept)``, ``y = f +
+    sqrt(noise) GP(Delta())``."""
+    with Measure() as prior:
+        slope = GP(torch.exp(params["log_s_slope"]))
+        intercept = GP(torch.exp(params["log_s_intercept"]))
+        f = slope * _identity + intercept
+        e = torch.exp(0.5 * params["log_noise"]) * GP(Delta())
+        y = f + e
+    return prior, slope, intercept, f, y
+
+
+@config.pin_matmul_precision
+def blr_logpdf(x, y, params, grad=False):
+    """Example 6's log marginal likelihood ``log p(y)``: its value, or
+    ``(value, grads)`` with ``grads`` its gradient with respect to each
+    log-parameter. ``y(x).var`` is a ``Woodbury(Diagonal, LowRank)`` of
+    rank 2, so this is O(N)."""
+
+    def fn(p):
+        prior, _, _, _, y_p = _blr_model(p)
+        return prior.logpdf(y_p(x), y)
+
+    return _value_and_grad(fn, params, grad)
+
+
+@config.pin_matmul_precision
+def blr_predict(x, y, params, n_new=1024):
+    """Example 6's posterior: the marginals ``(mean, var)`` of the slope and
+    the intercept at one point, and of ``f`` at ``n_new`` points on
+    linspace(0, 10), as a dict."""
+    with torch.no_grad():
+        prior, slope, intercept, f, y_p = _blr_model(params)
+        post = prior | (y_p(x), y)
+        zero = x.new_zeros(1)
+        x_new = torch.linspace(0.0, 10.0, n_new, dtype=x.dtype, device=x.device)
+        return {
+            "slope": post(slope)(zero).marginals(),
+            "intercept": post(intercept)(zero).marginals(),
+            "f": post(f)(x_new).marginals(),
+        }
+
+
+def decomposition_inputs(dtype=torch.float32, device=None):
+    """Example 2's model at the headline's size: :func:`n2000_inputs`'s ``x``
+    and ``y``, and ``log_ell_smooth = log 2``, ``log_ell_wiggly = log 0.5``,
+    ``log_noise = log 0.1``. Returns ``(x, y, params)``."""
+    x, y, _ = n2000_inputs(dtype, device)
+    return x, y, _log_params(dtype, x.device, log_ell_smooth=2.0, log_ell_wiggly=0.5,
+                             log_noise=0.1)
+
+
+def _decomposition_model(params):
+    """``(measure, f_smooth, f_wiggly, f, y)``: ``f = f_smooth + f_wiggly``
+    with ``f_smooth = GP(EQ().stretch(ell_smooth))`` and ``f_wiggly =
+    GP(RQ(0.1).stretch(ell_wiggly))``, ``y = f + GP(noise Delta())``."""
+    m = Measure()
+    f_smooth = GP(EQ().stretch(torch.exp(params["log_ell_smooth"])), measure=m)
+    f_wiggly = GP(RQ(0.1).stretch(torch.exp(params["log_ell_wiggly"])), measure=m)
+    e = GP(torch.exp(params["log_noise"]) * Delta(), measure=m)
+    f = f_smooth + f_wiggly
+    return m, f_smooth, f_wiggly, f, f + e
+
+
+@config.pin_matmul_precision
+def decomposition_logpdf(x, y, params, grad=False):
+    """Example 2's log marginal likelihood and decomposition: ``(value,
+    means)``, or ``(value, grads, means)`` with ``grad``, where ``grads``
+    is the gradient with respect to each log-parameter and ``means`` the
+    posterior marginal means of ``f_smooth``, ``f_wiggly`` and ``f`` at
+    ``x`` (keys ``"smooth"``, ``"wiggly"``, ``"f"``)."""
+
+    def fn(p):
+        m, _, _, _, y_p = _decomposition_model(p)
+        return m.logpdf(y_p(x), y)
+
+    out = _value_and_grad(fn, params, grad)
+    with torch.no_grad():
+        m, f_smooth, f_wiggly, f, y_p = _decomposition_model(params)
+        post = m | (y_p(x), y)
+        means = {k: post(p)(x).marginals()[0]
+                 for k, p in (("smooth", f_smooth), ("wiggly", f_wiggly), ("f", f))}
+    return (*out, means) if grad else (out, means)
+
+
+def derivative_inputs(n=2000, dtype=torch.float32, device=None):
+    """Example 5's data at ``n`` points: ``x`` on linspace(0, 5) and ``y =
+    -sin x``, made in float64 and cast to ``dtype``; and ``log_scale = log
+    0.7``, ``log_ell = log 1.5``, ``log_noise = log 0.01``. Returns ``(x, y,
+    params)``."""
+    dev = config.resolve_device(device)
+    x = np.linspace(0.0, 5.0, n)
+    npd = _np_dtype(dtype)
+    x, y = (torch.as_tensor(a.astype(npd), device=dev) for a in (x, -np.sin(x)))
+    return x, y, _log_params(dtype, dev, log_scale=0.7, log_ell=1.5, log_noise=0.01)
+
+
+def _derivative_model(params, like):
+    """``(measure, ddf)``: ``f = scale GP(EQ()).stretch(ell)``, ``df =
+    f.diff()``, ``ddf = df.diff()``, with ``f(0) = 1`` and ``df(0) = 0``
+    conditioned on."""
+    with Measure() as prior:
+        f = torch.exp(params["log_scale"]) * GP(EQ()).stretch(torch.exp(params["log_ell"]))
+        df = f.diff()
+        ddf = df.diff()
+    zero = like.new_zeros(1)
+    return prior | ((f(zero), like.new_ones(1)), (df(zero), like.new_zeros(1))), ddf
+
+
+@config.pin_matmul_precision
+def derivative_condition(x, y, params, grad=False):
+    """Example 5's model: the log-density of the observations ``ddf(x,
+    noise) = y`` after pinning ``f(0) = 1`` and ``df(0) = 0``, and
+    ``post(ddf)``'s marginals at ``x``. Returns ``(value, (mean, var))``, or
+    ``(value, grads, (mean, var))`` with ``grad``, ``grads`` the gradient
+    of the value with respect to each log-parameter."""
+
+    def fn(p):
+        prior2, ddf = _derivative_model(p, x)
+        return prior2.logpdf(ddf(x, torch.exp(p["log_noise"])), y)
+
+    out = _value_and_grad(fn, params, grad)
+    with torch.no_grad():
+        prior2, ddf = _derivative_model(params, x)
+        post = prior2 | (ddf(x, torch.exp(params["log_noise"])), y)
+        marg = post(ddf)(x).marginals()
+    return (*out, marg) if grad else (out, marg)
+
+
+#: Noise added to each factor of the Kronecker run.
+KRONECKER_NOISE = 0.1
+
+
+def kronecker_inputs(n1=1024, n2=1024, dtype=torch.float32, device=None):
+    """``bench.py``'s grid: the axes linspace(0, 10, n1) and linspace(0, 8,
+    n2), ``y`` a standard normal draw of ``n1 n2`` from a numpy
+    ``RandomState(1)``, ``log_ell1 = log_ell2 = 0``, and a mask of each
+    axis that drops 10% of its points (drawn from ``RandomState(2)``).
+    Returns ``(ax1, ax2, y, params, (mask1, mask2))``."""
+    dev = config.resolve_device(device)
+    npd = _np_dtype(dtype)
+    ax1 = np.linspace(0.0, 10.0, n1).astype(npd)
+    ax2 = np.linspace(0.0, 8.0, n2).astype(npd)
+    y = np.random.RandomState(1).randn(n1 * n2).astype(npd)
+    r = np.random.RandomState(2)
+    masks = []
+    for n in (n1, n2):
+        m = np.ones(n, dtype=bool)
+        m[r.choice(n, n // 10, replace=False)] = False
+        masks.append(torch.as_tensor(m, device=dev))
+    ax1, ax2, y = (torch.as_tensor(a, device=dev) for a in (ax1, ax2, y))
+    params = {k: torch.zeros((), dtype=dtype, device=dev) for k in ("log_ell1", "log_ell2")}
+    return ax1, ax2, y, params, tuple(masks)
+
+
+@config.pin_matmul_precision
+def kronecker_logpdf(ax1, ax2, y, params, grad=False, mask=None):
+    """``Normal(0, Kronecker(A + 0.1 I, B + 0.1 I)).logpdf(y)`` with ``A``
+    and ``B`` the Grams of ``EQ().stretch(exp(log_ell1))`` on ``ax1`` and
+    ``EQ().stretch(exp(log_ell2))`` on ``ax2``; under ``mask``, a pair of
+    boolean vectors (one per axis), the rows of the grid they drop are
+    marginalised out. Its value, or ``(value, grads)``."""
+
+    def fn(p):
+        factors = [
+            add(pairwise(EQ().stretch(torch.exp(p[k])), ax),
+                Diagonal(torch.full((ax.shape[0],), KRONECKER_NOISE, dtype=ax.dtype,
+                                    device=ax.device)))
+            for k, ax in (("log_ell1", ax1), ("log_ell2", ax2))
+        ]
+        return Normal(Kronecker(*factors)).logpdf(y, mask=mask)
+
+    return _value_and_grad(fn, params, grad)

@@ -1,17 +1,26 @@
 """Kernel expression algebra.
 
-Counterpart of ``stheno_tpu/kernels/kernel.py``, ported for the exact-GP
-path: the ``Kernel`` base and its algebra, Zero/One, EQ, RQ,
-Matérn-1/2, 3/2 and 5/2, Linear, tensor-product, Scaled/Sum/Product, and
-the input-wrapped kernels (Stretched, Shifted, Selected,
-InputTransformed, Periodic). Derivative kernels, Delta, Coregion and the
-other mlkernels kernels are not ported yet.
+Counterpart of ``stheno_tpu/kernels/kernel.py``: the ``Kernel`` base and
+its algebra, Zero/One, EQ, RQ, Matérn-1/2, 3/2 and 5/2, Linear, Delta,
+FixedDelta, Coregion, DecayingKernel, LogKernel, tensor-product,
+Scaled/Sum/Product, the input-wrapped kernels (Stretched, Shifted,
+Selected, InputTransformed, Periodic) and derivatives
+(:class:`DerivativeKernel`, ``k.diff``).
 
 ``pairwise(k, x, y)`` returns a *structured* matrix (Linear -> LowRank,
-One -> Constant, Zero -> Zero), so the linear algebra downstream can take
-closed forms. EQ, RQ and Matérn Grams of 2-D CUDA inputs go through the
-fused Gram kernel K1 (:func:`_fused_gram`); CPU inputs take
-:func:`pw_dists2`, as the JAX package does off the TPU.
+Delta of one input object -> Diagonal, One -> Constant, Zero -> Zero), so
+the linear algebra downstream can take closed forms. EQ, RQ and Matérn
+Grams of 2-D CUDA inputs go through the fused Gram kernel K1
+(:func:`_fused_gram`); CPU inputs take :func:`pw_dists2`, as the JAX
+package does off the TPU.
+
+Every kernel also evaluates one pair of input vectors (``_scalar``), the
+form that :class:`DerivativeKernel` differentiates with ``torch.func``
+where the JAX package uses ``jax.grad``; ``_scalar`` is written without
+in-place operations, host reads or branches on tensor values, so that
+``torch.func.grad`` and ``vmap`` can trace it. A derivative of a scaled or
+stretched EQ takes a closed form instead: factors times the base Gram,
+which K1 makes for CUDA inputs.
 
 Kernel parameters that are tensors are treated like traced values in the
 JAX package: they are never compared by value (that would synchronise
@@ -29,13 +38,16 @@ from .. import config
 from ..matrix import (
     Constant,
     Dense,
+    Diagonal,
     LowRank,
     Zero,
     add as mat_add,
+    dense as mat_dense,
     multiply as mat_multiply,
     scale as mat_scale,
     transpose as mat_transpose,
 )
+from ..matrix.ops import _ndim
 from ..ops.gram import gram
 from .util import as_fn_output
 
@@ -43,6 +55,7 @@ __all__ = [
     "Kernel",
     "ZeroKernel",
     "OneKernel",
+    "Coregion",
     "EQ",
     "RQ",
     "Exp",
@@ -50,6 +63,10 @@ __all__ = [
     "Matern32",
     "Matern52",
     "Linear",
+    "Delta",
+    "FixedDelta",
+    "DecayingKernel",
+    "LogKernel",
     "TensorProductKernel",
     "SumKernel",
     "ProductKernel",
@@ -59,8 +76,11 @@ __all__ = [
     "SelectedKernel",
     "InputTransformedKernel",
     "PeriodicKernel",
+    "DerivativeKernel",
     "pw_dists2",
     "ew_dists2",
+    "pw_sums2",
+    "ew_sums2",
 ]
 
 
@@ -91,6 +111,21 @@ def ew_dists2(x, y):
         return x.new_zeros(x.shape[:-1] + (1,))
     d = x - y
     return torch.sum(d * d, dim=-1, keepdim=True)
+
+
+def pw_sums2(x, y):
+    """Pairwise squared norms of sums ``||x_i + y_j||^2`` ``(..., n, m)``,
+    via the matmul identity with ``+2 x . y``."""
+    xn = torch.sum(x * x, dim=-1)
+    yn = torch.sum(y * y, dim=-1)
+    inner = x @ y.transpose(-1, -2)
+    return torch.clamp_min(xn[..., :, None] + yn[..., None, :] + 2 * inner, 0)
+
+
+def ew_sums2(x, y):
+    """Elementwise squared norms of sums ``(..., n, 1)``."""
+    s = x + y
+    return torch.sum(s * s, dim=-1, keepdim=True)
 
 
 def _safe_sqrt(d2):
@@ -132,6 +167,25 @@ def _param(p, like):
     return torch.as_tensor(p, dtype=like.dtype, device=like.device)
 
 
+def _param_tensor(p, like):
+    """A parameter as a tensor of ``like``'s dtype on its device (a tensor
+    is cast, keeping its graph)."""
+    if isinstance(p, torch.Tensor):
+        return p.to(dtype=like.dtype, device=like.device)
+    if np.ndim(p) == 0:
+        return config.as_scalar(p, like.dtype, like.device)
+    return torch.as_tensor(np.asarray(p), dtype=like.dtype, device=like.device)
+
+
+def _fn_scalar(f, v):
+    """A user function of inputs ``(n, d)`` at the one point ``v`` as a 0-d
+    tensor."""
+    out = f(v[None, :])
+    if not isinstance(out, torch.Tensor):
+        out = torch.as_tensor(out, dtype=v.dtype, device=v.device)
+    return out.reshape(())
+
+
 # ---------------------------------------------------------------------------
 # Base class.
 # ---------------------------------------------------------------------------
@@ -156,6 +210,13 @@ class Kernel:
 
     def _elwise(self, x, y):  # pragma: no cover - abstract
         raise NotImplementedError(f"elwise not implemented for {type(self).__name__}.")
+
+    def _scalar(self, x, y):  # pragma: no cover - abstract
+        """Evaluate on one pair of input vectors ``(d,)``: the form that
+        :class:`DerivativeKernel` differentiates."""
+        raise NotImplementedError(
+            f"scalar evaluation not implemented for {type(self).__name__}."
+        )
 
     # -- algebra ----------------------------------------------------------
 
@@ -218,7 +279,7 @@ class Kernel:
         return InputTransformedKernel(self, *_expand_two(fs))
 
     def diff(self, *dims):
-        raise NotImplementedError("Derivative kernels are not ported to stheno_torch yet.")
+        return DerivativeKernel(self, *_expand_two(dims, allow_single_none=True))
 
     def periodic(self, period=1):
         return PeriodicKernel(self, period)
@@ -248,9 +309,9 @@ class Kernel:
         return id(self)
 
 
-def _expand_two(args):
+def _expand_two(args, allow_single_none=False):
     if len(args) == 1:
-        if args[0] is None:
+        if args[0] is None and not allow_single_none:
             raise ValueError("Transform argument cannot be None.")
         return args[0], args[0]
     if len(args) == 2:
@@ -271,6 +332,9 @@ class ZeroKernel(Kernel):
 
     def _elwise(self, x, y):
         return x.new_zeros(x.shape[:-1] + (1,))
+
+    def _scalar(self, x, y):
+        return x.new_zeros(())
 
     @property
     def stationary(self):
@@ -294,6 +358,9 @@ class OneKernel(Kernel):
 
     def _elwise(self, x, y):
         return x.new_ones(x.shape[:-1] + (1,))
+
+    def _scalar(self, x, y):
+        return x.new_ones(())
 
     @property
     def stationary(self):
@@ -325,6 +392,10 @@ class _Stationary(Kernel):
 
     def _elwise(self, x, y):
         return self._g(ew_dists2(x, y))
+
+    def _scalar(self, x, y):
+        d = x - y
+        return self._g(torch.sum(d * d))
 
     @property
     def stationary(self):
@@ -422,11 +493,239 @@ class Linear(Kernel):
     def _elwise(self, x, y):
         return torch.sum(x * y, dim=-1, keepdim=True)
 
+    def _scalar(self, x, y):
+        return torch.sum(x * y)
+
     def _render(self, formatter):
         return "Linear()"
 
     def __eq__(self, other):
         return isinstance(other, Linear)
+
+    __hash__ = Kernel.__hash__
+
+
+def _task_index(v, t):
+    """Task indices of the first input column: rounded, clipped to
+    ``[0, t - 1]``, outside the graph."""
+    i = torch.round(v.detach().to(torch.float64)).long()
+    return torch.clamp(i, 0, t - 1)
+
+
+class Coregion(Kernel):
+    """Coregionalisation kernel over integer task indices in the first
+    input column: ``k(i, j) = B[i, j]`` with PSD ``B (tasks, tasks)``.
+    Differentiable with respect to ``B``; the indices are rounded and
+    clipped to ``[0, tasks - 1]`` alike in the Gram, the elementwise and
+    the scalar paths. With inputs ``(x, task)`` stacked as columns,
+    ``EQ().select([0]) * Coregion(B).select([1])`` is the intrinsic
+    coregionalisation model as a plain array-input kernel."""
+
+    def __init__(self, B):
+        self.B = B
+
+    def _eval_dtype(self, x):
+        """``B`` in the promotion of the input's and ``B``'s dtypes (a
+        floating one: integer task indices must not truncate ``B``)."""
+        B = self.B if isinstance(self.B, torch.Tensor) else torch.as_tensor(
+            np.asarray(self.B), device=x.device)
+        dt = torch.promote_types(x.dtype, B.dtype)
+        if not dt.is_floating_point:
+            dt = torch.promote_types(dt, torch.float32)
+        return B.to(dtype=dt, device=x.device), dt
+
+    @staticmethod
+    def _onehot(v, t, dt):
+        return (_task_index(v, t)[..., None] == torch.arange(t, device=v.device)).to(dt)
+
+    def _pairwise(self, x, y):
+        B, dt = self._eval_dtype(x)
+        t = B.shape[-1]
+        hi, hj = self._onehot(x[..., 0], t, dt), self._onehot(y[..., 0], t, dt)
+        return Dense((hi @ B) @ hj.transpose(-1, -2))
+
+    def _elwise(self, x, y):
+        B, dt = self._eval_dtype(x)
+        t = B.shape[-1]
+        hi, hj = self._onehot(x[..., 0], t, dt), self._onehot(y[..., 0], t, dt)
+        return torch.sum((hi @ B) * hj, dim=-1, keepdim=True)
+
+    def _scalar(self, x, y):
+        # Piecewise constant in the inputs (a zero input derivative, like
+        # Delta) and differentiable with respect to B.
+        B, dt = self._eval_dtype(x)
+        t = B.shape[-1]
+        return self._onehot(x[0], t, dt) @ B @ self._onehot(y[0], t, dt)
+
+    def _render(self, formatter):
+        return f"Coregion({formatter(self.B)})"
+
+    def __eq__(self, other):
+        return isinstance(other, Coregion) and _param_eq(self.B, other.B)
+
+    __hash__ = Kernel.__hash__
+
+
+class Delta(Kernel):
+    """Kronecker-delta kernel: 1 iff the two inputs are (numerically)
+    equal. When both arguments are *the same object*, the Gram is the
+    identity and is returned as :class:`Diagonal`; the input path keeps one
+    object for both arguments of ``k(x)`` (``kernels.eval.pairwise``), so
+    a noise process stays diagonal."""
+
+    def __init__(self, epsilon=1e-10):
+        self.epsilon = epsilon
+
+    def _pairwise(self, x, y):
+        if x is y:
+            return Diagonal(x.new_ones(x.shape[:-1]))
+        # Exact differences (the matmul identity's cancellation could
+        # exceed epsilon^2 for coincident points), one input dimension at a
+        # time so that the peak is O(n m), not O(n m d).
+        d2 = None
+        for j in range(x.shape[-1]):
+            diff = x[..., :, None, j] - y[..., None, :, j]
+            d2 = diff * diff if d2 is None else d2 + diff * diff
+        return Dense((d2 <= self.epsilon**2).to(x.dtype))
+
+    def _elwise(self, x, y):
+        if x is y:
+            return x.new_ones(x.shape[:-1] + (1,))
+        return (ew_dists2(x, y) <= self.epsilon**2).to(x.dtype)
+
+    def _scalar(self, x, y):
+        # Zero almost everywhere, with a zero derivative: derivative
+        # kernels of expressions with a noise term see a flat zero. The
+        # value at coincidence matches _elwise.
+        d2 = torch.sum((x - y) ** 2)
+        return (d2 <= self.epsilon**2).to(x.dtype).detach()
+
+    @property
+    def stationary(self):
+        return True
+
+    def _render(self, formatter):
+        return "Delta()"
+
+    def __eq__(self, other):
+        return isinstance(other, Delta) and _param_eq(self.epsilon, other.epsilon)
+
+    __hash__ = Kernel.__hash__
+
+
+class FixedDelta(Kernel):
+    """Kronecker-delta kernel with fixed per-point noises: the Gram is
+    ``Diagonal(noises)`` exactly when both arguments are the same object
+    with ``len(noises)`` points, and zero otherwise."""
+
+    def __init__(self, noises):
+        self.noises = noises if isinstance(noises, torch.Tensor) else config.as_tensor(
+            np.asarray(noises))
+
+    def _noises(self, x):
+        return self.noises.to(dtype=x.dtype, device=x.device)
+
+    def _pairwise(self, x, y):
+        n, m = x.shape[-2], y.shape[-2]
+        if x is y and n == self.noises.shape[-1]:
+            return Diagonal(self._noises(x).expand(x.shape[:-2] + (n,)))
+        return Zero(x.dtype, n, m, device=x.device)
+
+    def _elwise(self, x, y):
+        n = x.shape[-2]
+        if x is y and n == self.noises.shape[-1]:
+            return self._noises(x)[..., None].expand(x.shape[:-1] + (1,))
+        return x.new_zeros(x.shape[:-1] + (1,))
+
+    def _scalar(self, x, y):
+        # One pair cannot tell "the same collection of points": the value
+        # almost everywhere (zero), with a zero derivative.
+        return x.new_zeros(())
+
+    @property
+    def stationary(self):
+        return True
+
+    def _render(self, formatter):
+        return f"FixedDelta({formatter(self.noises)})"
+
+    def __eq__(self, other):
+        return isinstance(other, FixedDelta) and (
+            self.noises is other.noises
+            or (self.noises.shape == other.noises.shape
+                and bool(torch.equal(self.noises.cpu(), other.noises.cpu())))
+        )
+
+    __hash__ = Kernel.__hash__
+
+
+class DecayingKernel(Kernel):
+    """Decaying kernel ``k(x, y) = ||beta||^alpha / ||x + y + beta||^alpha``."""
+
+    def __init__(self, alpha, beta):
+        self.alpha = alpha
+        self.beta = beta
+
+    def _parts(self, x):
+        alpha = _param_tensor(self.alpha, x)
+        beta = _param_tensor(self.beta, x).expand(x.shape[-1:])
+        bn2 = torch.clamp_min(torch.sum(beta * beta), 1e-30)
+        return alpha, beta, bn2 ** (alpha / 2)
+
+    def _pairwise(self, x, y):
+        alpha, beta, raised = self._parts(x)
+        return Dense(raised / pw_sums2(x + beta, y) ** (alpha / 2))
+
+    def _elwise(self, x, y):
+        alpha, beta, raised = self._parts(x)
+        return raised / ew_sums2(x + beta, y) ** (alpha / 2)
+
+    def _scalar(self, x, y):
+        alpha, beta, raised = self._parts(x)
+        s = x + y + beta
+        return raised / torch.sum(s * s) ** (alpha / 2)
+
+    def _render(self, formatter):
+        return f"DecayingKernel({formatter(self.alpha)}, {formatter(self.beta)})"
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, DecayingKernel)
+            and _param_eq(self.alpha, other.alpha)
+            and _param_eq(self.beta, other.beta)
+        )
+
+    __hash__ = Kernel.__hash__
+
+
+class LogKernel(Kernel):
+    """Logarithmic kernel ``k(x, y) = log(1 + ||x - y||) / ||x - y||`` (1 in
+    the limit ``x -> y``)."""
+
+    @staticmethod
+    def _g(d2):
+        d = torch.clamp_min(_safe_sqrt(d2), 1e-10)
+        return torch.log1p(d) / d
+
+    def _pairwise(self, x, y):
+        return Dense(self._g(pw_dists2(x, y)))
+
+    def _elwise(self, x, y):
+        return self._g(ew_dists2(x, y))
+
+    def _scalar(self, x, y):
+        diff = x - y
+        return self._g(torch.sum(diff * diff))
+
+    @property
+    def stationary(self):
+        return True
+
+    def _render(self, formatter):
+        return "LogKernel()"
+
+    def __eq__(self, other):
+        return isinstance(other, LogKernel)
 
     __hash__ = Kernel.__hash__
 
@@ -451,6 +750,9 @@ class TensorProductKernel(Kernel):
 
     def _elwise(self, x, y):
         return as_fn_output(self.f(x), x.shape[-2]) * as_fn_output(self._g(y), y.shape[-2])
+
+    def _scalar(self, x, y):
+        return _fn_scalar(self.f, x) * _fn_scalar(self._g, y)
 
     def _render(self, formatter):
         name = getattr(self.f, "__name__", "<f>")
@@ -485,6 +787,9 @@ class _SwappedKernel(Kernel):
     def _elwise(self, x, y):
         return self.k._elwise(y, x)
 
+    def _scalar(self, x, y):
+        return self.k._scalar(y, x)
+
     @property
     def stationary(self):
         return self.k.stationary
@@ -508,6 +813,9 @@ class SumKernel(Kernel):
 
     def _elwise(self, x, y):
         return self.k1._elwise(x, y) + self.k2._elwise(x, y)
+
+    def _scalar(self, x, y):
+        return self.k1._scalar(x, y) + self.k2._scalar(x, y)
 
     @property
     def stationary(self):
@@ -536,6 +844,9 @@ class ProductKernel(Kernel):
 
     def _elwise(self, x, y):
         return self.k1._elwise(x, y) * self.k2._elwise(x, y)
+
+    def _scalar(self, x, y):
+        return self.k1._scalar(x, y) * self.k2._scalar(x, y)
 
     @property
     def stationary(self):
@@ -569,6 +880,9 @@ class ScaledKernel(Kernel):
 
     def _elwise(self, x, y):
         return self.k._elwise(x, y) * self.scale
+
+    def _scalar(self, x, y):
+        return self.k._scalar(x, y) * self.scale
 
     @property
     def stationary(self):
@@ -609,6 +923,12 @@ class _InputWrappedKernel(Kernel):
 
     def _elwise(self, x, y):
         return self.k._elwise(*self._warp_pair(x, y))
+
+    def _scalar(self, x, y):
+        return self.k._scalar(self._warp_vec(x, 1), self._warp_vec(y, 2))
+
+    def _warp_vec(self, v, which):
+        return self._warp(v[None, :], which)[0]
 
     @property
     def _sym(self):  # pragma: no cover - abstract
@@ -755,6 +1075,11 @@ class InputTransformedKernel(_InputWrappedKernel):
 
         return elwise(self.k, *self._warp_pair(x, y))
 
+    def _scalar(self, x, y):
+        fx = x if self.f1 is None else self.f1(x[None, :])[0]
+        fy = y if self.f2 is None else self.f2(y[None, :])[0]
+        return self.k._scalar(torch.atleast_1d(fx), torch.atleast_1d(fy))
+
     @property
     def _sym(self):
         return self.f1 is self.f2
@@ -803,6 +1128,152 @@ class PeriodicKernel(_InputWrappedKernel):
             isinstance(other, PeriodicKernel)
             and self.k == other.k
             and _param_eq(self.period, other.period)
+        )
+
+    __hash__ = Kernel.__hash__
+
+
+class DerivativeKernel(Kernel):
+    """Derivative of a kernel.
+
+    ``DerivativeKernel(k, d1, d2)`` differentiates argument 1 with respect
+    to input dimension ``d1`` and argument 2 with respect to ``d2``;
+    ``None`` leaves an argument undifferentiated (the cross-kernel
+    variant). A scaled or stretched EQ takes a closed form, factors times
+    the base Gram (from K1 for CUDA inputs); any other kernel is
+    differentiated through its ``_scalar`` by ``torch.func.grad`` under
+    ``torch.func.vmap``."""
+
+    def __init__(self, k, d1, d2):
+        self.k = k
+        self.d1 = d1
+        self.d2 = d2
+
+    def _deriv_scalar_fn(self):
+        from torch.func import grad
+
+        f = self.k._scalar
+        if self.d1 is not None:
+            d1, f1 = self.d1, f
+            f = lambda xv, yv: grad(f1, argnums=0)(xv, yv)[d1]  # noqa: E731
+        if self.d2 is not None:
+            d2, f2 = self.d2, f
+            f = lambda xv, yv: grad(f2, argnums=1)(xv, yv)[d2]  # noqa: E731
+        return f
+
+    def _scalar(self, x, y):
+        return self._deriv_scalar_fn()(x, y)
+
+    def _eq_parts(self, like):
+        """``(a1, a2)``, the per-dimension inverse stretches of each argument
+        (``None`` for 1), when the wrapped kernel is ``scale * exp(-0.5
+        ||a1 x - a2 y||^2)``, a scaled and stretched EQ; ``None`` when no
+        closed form applies. The scale needs no tracking: the factors
+        multiply the whole base Gram."""
+        k = self.k
+        a1 = a2 = None
+        while True:
+            if isinstance(k, ScaledKernel):
+                k = k.k
+            elif isinstance(k, StretchedKernel):
+                s1 = _param(k.s1, like)
+                s2 = s1 if k.s2 is k.s1 else _param(k.s2, like)
+                if _ndim(s1) > 1 or _ndim(s2) > 1:
+                    return None
+                a1 = 1.0 / s1 if a1 is None else a1 / s1
+                a2 = 1.0 / s2 if a2 is None else a2 / s2
+                k = k.k
+            elif isinstance(k, EQ):
+                return a1, a2
+            else:
+                return None
+
+    @staticmethod
+    def _coef(a, d):
+        if a is None:
+            return 1.0
+        return a if _ndim(a) == 0 else a[d]
+
+    def _closed_form_factors(self, x, y, pair):
+        """The derivative factors of a scaled or stretched EQ base, O(n m):
+        with ``u = a1 x``, ``v = a2 y`` and ``Delta = u - v``,
+
+            dk/dx_d1        = -a1_d1 Delta_d1 k
+            dk/dy_d2        = +a2_d2 Delta_d2 k
+            d2k/dx_d1 dy_d2 = a1_d1 a2_d2 (delta_{d1 d2} - Delta_d1 Delta_d2) k.
+
+        ``pair`` picks the pairwise (outer) or elementwise layout."""
+        parts = self._eq_parts(x)
+        if parts is None:
+            return None
+        a1, a2 = parts
+        coef = self._coef
+
+        def delta(d):
+            xd = coef(a1, d) * x[..., :, d]
+            yd = coef(a2, d) * y[..., :, d]
+            return xd[..., :, None] - yd[..., None, :] if pair else xd - yd
+
+        d1, d2 = self.d1, self.d2
+        if d1 is not None and d2 is not None:
+            dd = 1.0 if d1 == d2 else 0.0
+            return coef(a1, d1) * coef(a2, d2) * (dd - delta(d1) * delta(d2))
+        if d1 is not None:
+            return -coef(a1, d1) * delta(d1)
+        if d2 is not None:
+            return coef(a2, d2) * delta(d2)
+        return 1.0
+
+    @staticmethod
+    def _batched(fm, x, y):
+        """``fm`` mapped over the broadcast leading batch dimensions."""
+        from torch.func import vmap
+
+        b = torch.broadcast_shapes(x.shape[:-2], y.shape[:-2])
+        xb = x.expand(b + x.shape[-2:]).reshape((-1,) + x.shape[-2:])
+        yb = y.expand(b + y.shape[-2:]).reshape((-1,) + y.shape[-2:])
+        out = vmap(fm)(xb, yb)
+        return out.reshape(b + out.shape[1:])
+
+    def _pairwise(self, x, y):
+        from torch.func import vmap
+
+        factors = self._closed_form_factors(x, y, pair=True)
+        if factors is not None:
+            return Dense(factors * mat_dense(self.k._pairwise(x, y)))
+        fm = vmap(vmap(self._deriv_scalar_fn(), in_dims=(None, 0)), in_dims=(0, None))
+        if x.ndim > 2 or y.ndim > 2:
+            return Dense(self._batched(fm, x, y))
+        return Dense(fm(x, y))
+
+    def _elwise(self, x, y):
+        from torch.func import vmap
+
+        if y is not x:
+            y = y.expand(x.shape)
+        factors = self._closed_form_factors(x, y, pair=False)
+        if factors is not None:
+            if _ndim(factors) >= 1:
+                factors = factors[..., :, None]
+            return factors * self.k._elwise(x, y)
+        fv = vmap(self._deriv_scalar_fn())
+        if x.ndim > 2:
+            return self._batched(fv, x, y)[..., None]
+        return fv(x, y)[:, None]
+
+    @property
+    def stationary(self):
+        return self.k.stationary and self.d1 is not None and self.d2 is not None
+
+    def _render(self, formatter):
+        return f"d({self.d1}, {self.d2}) {self.k.display(formatter)}"
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, DerivativeKernel)
+            and self.k == other.k
+            and self.d1 == other.d1
+            and self.d2 == other.d2
         )
 
     __hash__ = Kernel.__hash__

@@ -3,6 +3,7 @@ from .types import (
     Constant,
     Dense,
     Diagonal,
+    Kronecker,
     LowRank,
     LowerTriangular,
     UpperTriangular,
@@ -24,6 +25,7 @@ __all__ = [
     "Constant",
     "Dense",
     "Diagonal",
+    "Kronecker",
     "LowRank",
     "LowerTriangular",
     "UpperTriangular",

@@ -1,13 +1,12 @@
 """Structure-aware linear algebra over the structured matrix types.
 
-Counterpart of ``stheno_tpu/matrix/ops.py``, ported for the exact-GP and
-pseudo-point paths: ``dense``, ``diag``, ``transpose``, ``add``,
-``scale``, ``multiply``, ``matmul``, ``matmul3``, ``matmul_diag``,
-``cholesky``, ``solve``, ``iqf``, ``iqf_diag``, ``logdet``, ``ratio``,
-``root``, ``trace``, ``sample`` and the construction helpers
-(``fill_diag``, ``eye_like``, ``block_diag``, ``block``, ``submatrix``,
-``shape_matrix``, ``dtype_of``). Structure dispatch is by ``isinstance``
-at call time.
+Counterpart of ``stheno_tpu/matrix/ops.py``: ``dense``, ``diag``,
+``transpose``, ``add``, ``scale``, ``multiply``, ``matmul``, ``matmul3``,
+``matmul_diag``, ``cholesky``, ``solve``, ``iqf``, ``iqf_diag``,
+``logdet``, ``ratio``, ``root``, ``trace``, ``sample`` and the
+construction helpers (``fill_diag``, ``eye_like``, ``block_diag``,
+``block``, ``submatrix``, ``shape_matrix``, ``dtype_of``). Structure
+dispatch is by ``isinstance`` at call time.
 
 The dense-Cholesky-backed reductions (``logdet``, ``iqf``, ``iqf_diag``,
 ``solve``, ``ratio``) are ``torch.autograd.Function``s whose backward
@@ -23,9 +22,17 @@ when grad mode is on and the matrix requires grad; the fast-path backend
 test is ``mat.is_cuda``; XLA's optimisation barrier and the forward-mode
 fallback have no PyTorch counterpart; the ``A^{-1}`` product of the
 logdet adjoint stays in full float32 (TF32 is no three-pass equivalent
-of the TPU's ``Precision.HIGH``). Woodbury and LowRank matrices are
-supported by the structural ops, but their closed-form solve/logdet
-paths are not ported yet: those reductions densify.
+of the TPU's ``Precision.HIGH``).
+
+A Woodbury matrix ``D + L M R^T`` never densifies: ``solve`` (and with it
+``iqf``, ``iqf_diag`` and ``ratio``) takes the Woodbury identity through
+the ``r x r`` capacitance ``M^{-1} + R^T D^{-1} L``, and ``logdet`` the
+matrix-determinant lemma, so a low-rank model with noise costs
+O(N r^2). Its N-long contractions run in chunks (``_contract``). A
+Kronecker matrix factors and solves factor by factor (the vec trick) and
+its log-determinant is ``rows(B) logdet(A) + rows(A) logdet(B)``. These
+closed forms are plain torch, differentiated by autograd, as they are
+plain ``jnp`` in the JAX package.
 """
 
 import torch
@@ -38,6 +45,7 @@ from .types import (
     Constant,
     Dense,
     Diagonal,
+    Kronecker,
     LowRank,
     LowerTriangular,
     UpperTriangular,
@@ -122,6 +130,10 @@ def dense(a):
         return left @ _t(a._right)
     if isinstance(a, Woodbury):
         return dense(a.diag) + dense(a.lr)
+    if isinstance(a, Kronecker):
+        batch = torch.broadcast_shapes(a.left.batch_shape, a.right.batch_shape)
+        prod = torch.einsum("...ij,...kl->...ikjl", dense(a.left), dense(a.right))
+        return prod.reshape(tuple(batch) + (a.rows, a.cols))
     raise TypeError(f"Cannot densify {type(a).__name__}.")
 
 
@@ -187,6 +199,8 @@ def transpose(a):
         return UpperTriangular(_t(a.mat))
     if isinstance(a, UpperTriangular):
         return LowerTriangular(_t(a.mat))
+    if isinstance(a, Kronecker):
+        return Kronecker(transpose(a.left), transpose(a.right))
     raise TypeError(f"Cannot transpose {type(a).__name__}.")
 
 
@@ -254,6 +268,8 @@ def scale(a, s):
         return Woodbury(scale(a.diag, s), scale(a.lr, s))
     if isinstance(a, (LowerTriangular, UpperTriangular)):
         return type(a)(a.mat * sm)
+    if isinstance(a, Kronecker):
+        return Kronecker(scale(a.left, s), a.right)
     raise TypeError(f"Cannot scale {type(a).__name__}.")
 
 
@@ -291,10 +307,7 @@ def add(a, b):
         left = torch.cat(_pad_batch(la.left, lb.left), dim=-1)
         if la.sym and lb.sym and la.middle is None and lb.middle is None:
             return LowRank(left)
-        ma, mb = _lr_middle(la), _lr_middle(lb)
-        middle = torch.block_diag(ma, mb) if ma.ndim == mb.ndim == 2 else None
-        if middle is None:
-            raise NotImplementedError("Batched low-rank sums are not ported yet.")
+        middle = _block_diag2(_lr_middle(la), _lr_middle(lb))
         right = None
         if not (la.sym and lb.sym):
             right = torch.cat(_pad_batch(la._right, lb._right), dim=-1)
@@ -314,6 +327,16 @@ def add(a, b):
     if isinstance(a, Woodbury) and isinstance(b, Woodbury):
         return Woodbury(add(a.diag, b.diag), add(a.lr, b.lr))
     return Dense(dense(a) + dense(b))
+
+
+def _block_diag2(ma, mb):
+    """``[[ma, 0], [0, mb]]`` over broadcast batch dimensions."""
+    batch = torch.broadcast_shapes(ma.shape[:-2], mb.shape[:-2])
+    ra, rb = ma.shape[-1], mb.shape[-1]
+    zeros = ma.new_zeros(batch + (ra, rb))
+    top = torch.cat([ma.expand(batch + ma.shape[-2:]), zeros], dim=-1)
+    bottom = torch.cat([_t(zeros), mb.expand(batch + mb.shape[-2:])], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def _pad_batch(x, y):
@@ -417,6 +440,8 @@ def matmul(a, b, tr_a=False, tr_b=False):
         return add(matmul(a.diag, b), matmul(a.lr, b))
     if isinstance(b, Woodbury):
         return add(matmul(a, b.diag), matmul(a, b.lr))
+    if isinstance(a, Kronecker) and isinstance(b, Kronecker):
+        return Kronecker(matmul(a.left, b.left), matmul(a.right, b.right))
     return Dense(dense(a) @ dense(b))
 
 
@@ -453,6 +478,27 @@ def _cached(a, key, compute):
     if key not in cache:
         cache[key] = compute()
     return cache[key]
+
+
+def _cached_if_constant(a, key, compute):
+    """Memoise ``compute()`` on ``a._cache`` only when no autograd graph
+    and no CUDA graph capture can hold it: a result that requires grad, or
+    one made while a graph is captured, is recomputed at each call (a
+    second backward through a cached graph would find it freed, and a
+    captured tensor is overwritten by every replay). The grad mode is part
+    of the key: a result made under ``torch.no_grad()`` holds no graph even
+    where its inputs require grad, and must not stand in for one made with
+    a graph."""
+    cache = getattr(a, "_cache", None)
+    if cache is None:
+        return compute()
+    key = (key, torch.is_grad_enabled())
+    if key in cache:
+        return cache[key]
+    value = compute()
+    if not config.capturing() and not any(t.requires_grad for t in value):
+        cache[key] = value
+    return value
 
 
 def adaptive_jitter_eps(mat, base):
@@ -534,6 +580,8 @@ def cholesky(a):
             return Diagonal(torch.sqrt(a.diag))
         if isinstance(a, Zero):
             return a
+        if isinstance(a, Kronecker):
+            return Kronecker(cholesky(a.left), cholesky(a.right))
         return _lower_with_inv(_chol_dense(dense(a)))
 
     key = ("cholesky", config.epsilon, config.adaptive_jitter, torch.is_grad_enabled())
@@ -564,6 +612,10 @@ def solve(a, b):
         return _solve_triangular(a, b, lower=False)
     if isinstance(a, Diagonal):
         return _arr(b) / a.diag[..., :, None]
+    if isinstance(a, Woodbury):
+        return _solve_woodbury(a, _arr(b))
+    if isinstance(a, Kronecker):
+        return _solve_kronecker(a, _arr(b))
     a = as_matrix(a)
     L = cholesky(a)
     if not isinstance(L, LowerTriangular):
@@ -573,6 +625,44 @@ def solve(a, b):
         y = _solve_triangular(L, b_arr, lower=True)
         return torch.linalg.solve_triangular(_t(L.mat), y, upper=True)
     return _SolveChol.apply(*_chol_arrays(a), b_arr)
+
+
+def _wb_core(a):
+    """``(D^{-1} L, R, core)`` of the Woodbury matrix ``a = D + L M R^T``,
+    with the capacitance ``core = M^{-1} + R^T D^{-1} L`` (solved by LU: the
+    middle need not be PSD). Cached on ``a`` when it holds no graph
+    (:func:`_cached_if_constant`)."""
+
+    def compute():
+        lr = a.lr
+        dinv_left = lr.left / a.diag.diag[..., :, None]
+        right = lr._right
+        core = torch.linalg.inv(_lr_middle(lr)) + _contract(_t(right), dinv_left)
+        return dinv_left, right, core
+
+    return _cached_if_constant(a, "wb_core", compute)
+
+
+def _solve_woodbury(a, b):
+    """``a^{-1} b`` by the Woodbury identity:
+    ``D^{-1} b - D^{-1} L core^{-1} R^T D^{-1} b``."""
+    dinv_left, right, core = _wb_core(a)
+    dinv_b = b / a.diag.diag[..., :, None]
+    rhs = _contract(_t(right), dinv_b)
+    return dinv_b - dinv_left @ torch.linalg.solve(core, rhs)
+
+
+def _solve_kronecker(a, b):
+    """``(A kron B)^{-1} b`` by the vec trick: with ``b`` read row-major as
+    ``X (rows(A), rows(B))`` per column, the solve is ``A^{-1} X B^{-T}``,
+    one solve by each factor."""
+    m_a, m_b = a.left.rows, a.right.rows
+    batch, cols = b.shape[:-2], b.shape[-1]
+    X = b.reshape(batch + (m_a, m_b, cols)).transpose(-3, -2)  # (..., m_b, m_a, cols)
+    X = solve(a.right, X.reshape(batch + (m_b, m_a * cols)))
+    X = X.reshape(batch + (m_b, m_a, cols)).transpose(-3, -2)  # (..., m_a, m_b, cols)
+    X = solve(a.left, X.reshape(batch + (m_a, m_b * cols)))
+    return X.reshape(batch + (m_a * m_b, cols))
 
 
 # --- Closed-form adjoints of the dense Cholesky-backed reductions ----------
@@ -711,7 +801,7 @@ def _as_col_operand(b):
     return b
 
 
-_CLOSED_FORM = (Diagonal, LowerTriangular, UpperTriangular)
+_CLOSED_FORM = (Diagonal, Woodbury, LowerTriangular, UpperTriangular)
 
 #: A contraction longer than ``_CHUNK`` runs in chunks of it (``_contract``).
 _CHUNK = 2048
@@ -783,13 +873,32 @@ def logdet(a):
         return _ext
     if isinstance(a, Diagonal):
         return torch.sum(torch.log(a.diag), dim=-1)
+    if isinstance(a, Woodbury):
+        return _logdet_woodbury(a)
     if isinstance(a, (LowerTriangular, UpperTriangular)):
         return torch.sum(torch.log(torch.diagonal(a.mat, dim1=-2, dim2=-1)), dim=-1)
+    if isinstance(a, Kronecker):
+        n, m = a.left.rows, a.right.rows
+        return m * logdet(a.left) + n * logdet(a.right)
     a = as_matrix(a)
     L = cholesky(a)
     if not isinstance(L, LowerTriangular):
         return 2 * torch.sum(torch.log(diag_of(L)), dim=-1)
     return _LogdetChol.apply(*_chol_arrays(a))
+
+
+def _logdet_woodbury(a):
+    """The matrix-determinant lemma: ``logdet(D + L M R^T) = logdet(D) +
+    logdet(I + M R^T D^{-1} L)``. The core need not be symmetric, so its
+    determinant is taken by LU (``slogdet``); a core whose determinant is
+    not positive makes the result NaN, on the device (no host sync)."""
+    d = a.diag.diag
+    lr = a.lr
+    core = _lr_middle(lr) @ _contract(_t(lr._right), lr.left / d[..., :, None])
+    core = core + torch.eye(core.shape[-1], dtype=core.dtype, device=core.device)
+    sign, ld_core = torch.linalg.slogdet(core)
+    ld_core = torch.where(sign > 0, ld_core, torch.full_like(ld_core, torch.nan))
+    return torch.sum(torch.log(d), dim=-1) + ld_core
 
 
 @config.pin_matmul_precision
@@ -960,4 +1069,9 @@ def submatrix(a, mask):
     if isinstance(a, Constant):
         return Constant(a.const, len(idx), len(idx))
     idx = idx.to(a.device)
+    if isinstance(a, LowRank):
+        right = None if a.sym else a._right[..., idx, :]
+        return LowRank(a.left[..., idx, :], right, a.middle)
+    if isinstance(a, Woodbury):
+        return Woodbury(submatrix(a.diag, mask), submatrix(a.lr, mask))
     return Dense(dense(a)[..., idx, :][..., :, idx])

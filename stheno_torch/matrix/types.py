@@ -1,8 +1,8 @@
 """Structured-matrix types.
 
-Counterpart of ``stheno_tpu/matrix/types.py`` (the subset the exact-GP
-path builds: Dense, Diagonal, Zero, Constant, LowRank, Woodbury and the
-triangular types). The JAX package registers these as pytrees so that
+Counterpart of ``stheno_tpu/matrix/types.py``: Dense, Diagonal, Zero,
+Constant, LowRank, Woodbury, Kronecker and the triangular types. The JAX
+package registers these as pytrees so that
 ``jit`` specialises on structure; in PyTorch they are plain objects
 holding tensors, and structure dispatch happens at call time. All types
 support leading batch dimensions on their tensors.
@@ -20,6 +20,7 @@ __all__ = [
     "Constant",
     "LowRank",
     "Woodbury",
+    "Kronecker",
     "LowerTriangular",
     "UpperTriangular",
     "is_structured",
@@ -264,6 +265,33 @@ class Woodbury(AbstractMatrix):
     @property
     def device(self):
         return self.diag.device
+
+
+class Kronecker(AbstractMatrix):
+    """``kron(left, right)`` of two structured matrices. Its vec convention
+    is row-major: row ``i * rows(right) + k`` of the product pairs row ``i``
+    of ``left`` with row ``k`` of ``right``."""
+
+    def __init__(self, left, right):
+        self.left = left
+        self.right = right
+        self._cache = {}
+
+    @property
+    def shape(self):
+        batch = torch.broadcast_shapes(self.left.batch_shape, self.right.batch_shape)
+        return tuple(batch) + (
+            self.left.rows * self.right.rows,
+            self.left.cols * self.right.cols,
+        )
+
+    @property
+    def dtype(self):
+        return self.left.dtype
+
+    @property
+    def device(self):
+        return self.left.device
 
 
 class _Triangular(AbstractMatrix):

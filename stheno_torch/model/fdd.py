@@ -11,6 +11,7 @@ import torch
 
 from .. import config
 from ..dist import Normal
+from ..dist.normal import _indented_kv
 from ..kernels import elwise, mean_eval, mean_var, mean_var_diag, pairwise
 from ..matrix import Dense, Diagonal, Zero, add, diag_of, fill_diag, is_structured, submatrix
 from ..mo import infer_size
@@ -100,9 +101,13 @@ class FDD(Normal):
             mean_var_diag=construct_mean_var_diag,
         )
 
-    def __repr__(self):
-        shape = tuple(self.x.shape) if isinstance(self.x, torch.Tensor) else "tuple"
-        return f"<FDD: process={self.p!r}, input={shape}, noise={self.noise!r}>"
+    def _render(self, fmt):
+        return (
+            "<FDD:\n"
+            + _indented_kv("process", fmt(self.p), suffix=",\n")
+            + _indented_kv("input", fmt(self.x), suffix=",\n")
+            + _indented_kv("noise", fmt(self.noise), suffix=">")
+        )
 
 
 def _take_x(kernel, x, mask):

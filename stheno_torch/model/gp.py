@@ -4,9 +4,13 @@ Counterpart of ``stheno_tpu/model/gp.py``. A ``GP`` owns no mean or
 kernel: it is a symbol whose statistics live in the measures it belongs
 to. Sums and products apply to every measure in the intersection group;
 ``cross`` makes the Cartesian product of processes. The input transforms
-of processes (shift, stretch, select, transform, diff) and
-``diff_approx`` are not ported yet.
+(shift, stretch, select, transform) and the derivatives (``diff``, and
+``diff_approx`` by central finite differences) apply likewise.
 """
+
+import math
+
+import numpy as np
 
 from ..dist import RandomProcess
 from ..kernels import OneKernel, OneMean, ZeroMean
@@ -131,6 +135,45 @@ class GP(RandomProcess):
     def __rmul__(self, other):
         return self.__mul__(other)
 
+    def shift(self, shift):
+        res = GP()
+        for measure in self._measures:
+            measure.shift(res, self, shift)
+        return res
+
+    def stretch(self, stretch):
+        res = GP()
+        for measure in self._measures:
+            measure.stretch(res, self, stretch)
+        return res
+
+    def transform(self, f):
+        res = GP()
+        for measure in self._measures:
+            measure.transform(res, self, f)
+        return res
+
+    def select(self, *dims):
+        res = GP()
+        for measure in self._measures:
+            measure.select(res, self, *dims)
+        return res
+
+    def diff(self, dim=0):
+        res = GP()
+        for measure in self._measures:
+            measure.diff(res, self, dim)
+        return res
+
+    def diff_approx(self, deriv=1, order=6):
+        """The ``deriv``-th derivative by central finite differences on an
+        ``order``-point stencil."""
+        grid, coefs, step = _central_fdm(order, deriv)
+        df = 0
+        for g, c in zip(grid, coefs):
+            df += float(c) * self.shift(-g * step)
+        return df / step**deriv
+
     @property
     def stationary(self):
         return self.kernel.stationary
@@ -144,3 +187,18 @@ class GP(RandomProcess):
         return self.display()
 
     __repr__ = __str__
+
+
+def _central_fdm(order, deriv):
+    """Symmetric finite-difference grid, coefficients and step size for the
+    ``deriv``-th derivative with an ``order``-point stencil."""
+    n = max(order, deriv + 1)
+    grid = np.arange(n, dtype=np.float64) - (n - 1) / 2.0
+    # Solve sum_i c_i g_i^k / k! = delta_{k, deriv}.
+    V = np.stack([grid**k / math.factorial(k) for k in range(n)])
+    rhs = np.zeros(n)
+    rhs[deriv] = 1.0
+    coefs = np.linalg.solve(V, rhs)
+    # The step that balances truncation against round-off.
+    step = (np.finfo(np.float64).eps * 1e8) ** (1.0 / n)
+    return grid, coefs, step

@@ -1,19 +1,20 @@
 """The ``Measure``: a joint Gaussian measure over a growing set of processes.
 
-Counterpart of ``stheno_tpu/model/measure.py``, ported for the exact-GP
-and pseudo-point paths: the process registry with lazily built mean and
-cross-kernel tables, sums and products (GP x GP by moment matching), the
-cross process, projection, exact and pseudo-point conditioning, joint
-sampling, and the joint ``logpdf`` (over one pair or several, and the
-ELBO of pseudo-observations). ``sample`` takes a ``torch.Generator``
-where the JAX package takes a key. The input transforms (shift, stretch,
-select, transform, diff) are not ported yet.
+Counterpart of ``stheno_tpu/model/measure.py``: the process registry
+with lazily built mean and cross-kernel tables, sums and products (GP x
+GP by moment matching), the input transforms (shift, stretch, select,
+transform) and derivatives of processes, the cross process, projection,
+exact and pseudo-point conditioning, joint sampling, and the joint
+``logpdf`` (over one pair or several, and the ELBO of
+pseudo-observations). ``sample`` takes a ``torch.Generator`` where the
+JAX package takes a key.
 """
 
 import numbers
 
 import torch
 
+from ..dist import Random
 from ..kernels import TensorProductKernel, ZeroKernel
 from ..kernels.kernel import Kernel, _SwappedKernel
 from ..kernels.mean import Mean
@@ -32,6 +33,11 @@ from .observations import (
 )
 
 __all__ = ["Measure"]
+
+
+def _transpose_kernel(k):
+    """``k`` with its arguments swapped: the default right rule."""
+    return _SwappedKernel(k)
 
 
 class Measure:
@@ -91,7 +97,7 @@ class Measure:
         self.kernels[p] = kernel
         self.kernels.add_left_rule(id(p), self._pids, left_rule)
         if right_rule is None:
-            right_rule = lambda i: _SwappedKernel(self.kernels[p, i])  # noqa: E731
+            right_rule = lambda i: _transpose_kernel(self.kernels[p, i])  # noqa: E731
         self.kernels.add_right_rule(id(p), self._pids, right_rule)
         # Add `p` only now: the rules above capture the pid set without `p`.
         self._add_p(p)
@@ -139,6 +145,8 @@ class Measure:
         if not isinstance(obj1, GP):
             obj1, obj2 = obj2, obj1
         p, other = obj1, obj2
+        if isinstance(other, Random):
+            raise TypeError(f"Cannot add a GP and a {type(other).__name__}.")
         return self._update(
             p_sum, self.means[p] + other, self.kernels[p], lambda j: self.kernels[p, j]
         )
@@ -162,6 +170,8 @@ class Measure:
         if not isinstance(obj1, GP):
             obj1, obj2 = obj2, obj1
         p, other = obj1, obj2
+        if isinstance(other, Random):
+            raise TypeError(f"Cannot multiply a GP and a {type(other).__name__}.")
         if callable(other) and not isinstance(other, (Kernel, Mean)):
             f = other
             return self._update(
@@ -175,6 +185,51 @@ class Measure:
             self.means[p] * other,
             self.kernels[p] * other**2,
             lambda j: self.kernels[p, j] * other,
+        )
+
+    def shift(self, p_shifted, p, shift):
+        """``p_shifted(x) = p(x - shift)``."""
+        return self._update(
+            p_shifted,
+            self.means[p].shift(shift),
+            self.kernels[p].shift(shift),
+            lambda j: self.kernels[p, j].shift(shift, 0),
+        )
+
+    def stretch(self, p_stretched, p, stretch):
+        """``p_stretched(x) = p(x / stretch)``."""
+        return self._update(
+            p_stretched,
+            self.means[p].stretch(stretch),
+            self.kernels[p].stretch(stretch),
+            lambda j: self.kernels[p, j].stretch(stretch, 1),
+        )
+
+    def select(self, p_selected, p, *dims):
+        """``p_selected(x) = p(x[:, dims])``."""
+        return self._update(
+            p_selected,
+            self.means[p].select(dims),
+            self.kernels[p].select(dims),
+            lambda j: self.kernels[p, j].select(dims, None),
+        )
+
+    def transform(self, p_transformed, p, f):
+        """``p_transformed(x) = p(f(x))``."""
+        return self._update(
+            p_transformed,
+            self.means[p].transform(f),
+            self.kernels[p].transform(f),
+            lambda j: self.kernels[p, j].transform(f, None),
+        )
+
+    def diff(self, p_diff, p, dim=0):
+        """``p_diff`` is the derivative of ``p`` in input dimension ``dim``."""
+        return self._update(
+            p_diff,
+            self.means[p].diff(dim),
+            self.kernels[p].diff(dim),
+            lambda j: self.kernels[p, j].diff(dim, None),
         )
 
     def cross(self, p_cross, *ps):

@@ -46,3 +46,42 @@ def both_impls(jax_config, impl):
     """Set the dense-Cholesky policy of both packages."""
     jax_config.set_cholesky_impl(impl)
     config.set_cholesky_impl(impl)
+
+
+class LargestTensor:
+    """Context manager that records the largest tensor created by any
+    operation run inside it (backward passes included), by the elements
+    its storage holds, so that a view, such as an ``expand``, counts as
+    the storage under it. ``numel`` is that size and ``op`` the operation
+    that made it.
+
+    It is how the tests hold a structured path to never densifying: a
+    tensor of N x N elements shows up here, where an attempt to allocate
+    one too large to exist could instead succeed under overcommit and then
+    end the test worker."""
+
+    def __init__(self):
+        self.numel, self.op = 0, None
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+
+        owner = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                for t in tree_leaves(out):
+                    if isinstance(t, torch.Tensor):
+                        n = t.untyped_storage().nbytes() // max(t.element_size(), 1)
+                        if n > owner.numel:
+                            owner.numel, owner.op = n, str(func)
+                return out
+
+        self._mode = _Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)

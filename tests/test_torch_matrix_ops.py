@@ -211,3 +211,197 @@ def test_dense_sample_is_the_jax_factor_times_the_same_normals():
     got = st.sample(torch.Generator().manual_seed(3), st.Dense(_t(A)), 2)
     L = np_(sj.dense(sj.cholesky(sj.Dense(jnp.asarray(A)))))
     np.testing.assert_allclose(np_(got), L @ np_(eps), rtol=1e-12)
+
+
+# --- Woodbury closed forms --------------------------------------------------------
+
+
+def _woodbury(M, arr, sym=True, seed=20, n=12, k=3):
+    r = np.random.RandomState(seed)
+    d, left, right = r.rand(n) + 1.0, r.randn(n, k), r.randn(n, k)
+    mid = r.randn(k, k) + 3 * np.eye(k)
+    if sym:
+        return M.Woodbury(M.Diagonal(arr(d)), M.LowRank(arr(left), None, arr(mid @ mid.T)))
+    return M.Woodbury(M.Diagonal(arr(d)), M.LowRank(arr(left), arr(right), arr(mid)))
+
+
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("op", ["solve", "iqf", "iqf_diag", "logdet", "ratio"])
+def test_woodbury_closed_forms_match_jax_and_dense(sym, op):
+    # The Woodbury identity and the determinant lemma, for a symmetric and
+    # a non-symmetric low-rank part (the capacitance pairs R^T D^{-1} with L).
+    b = np.random.RandomState(21).randn(12, 2)
+
+    def run(M, arr):
+        a = _woodbury(M, arr, sym)
+        return {"solve": lambda: M.solve(a, arr(b)),
+                "iqf": lambda: M.dense(M.iqf(a, arr(b))),
+                "iqf_diag": lambda: M.iqf_diag(a, arr(b)),
+                "logdet": lambda: M.logdet(a),
+                "ratio": lambda: M.ratio(M.Dense(arr(spd(12, 3))), a)}[op]()
+
+    got, want = run(st, _t), run(sj, jnp.asarray)
+    np.testing.assert_allclose(np_(got), np.asarray(want), rtol=1e-10, atol=1e-12)
+    W = np_(st.dense(_woodbury(st, _t, sym)))
+    ref = {"solve": lambda: np.linalg.solve(W, b), "iqf": lambda: b.T @ np.linalg.solve(W, b),
+           "iqf_diag": lambda: np.diag(b.T @ np.linalg.solve(W, b)),
+           "logdet": lambda: np.linalg.slogdet(W)[1],
+           "ratio": lambda: np.trace(np.linalg.solve(W, spd(12, 3)))}[op]()
+    np.testing.assert_allclose(np_(got), ref, rtol=1e-9)
+
+
+def test_woodbury_logpdf_gradients_match_jax():
+    # Autograd through the closed forms against jax.grad through the JAX
+    # package's plain jnp.
+    r = np.random.RandomState(22)
+    n = 30
+    d, left, b = r.rand(n) + 0.5, r.randn(n, 2), r.randn(n, 1)
+
+    def f(M, d, left, b):
+        a = M.Woodbury(M.Diagonal(d), M.LowRank(left))
+        return M.logdet(a) + M.iqf_diag(a, b)[0] + M.dense(M.iqf(a, b))[0, 0]
+
+    gj = jax.grad(lambda *a: f(sj, *a), argnums=(0, 1, 2))(*(jnp.asarray(v) for v in (d, left, b)))
+    ts = [_t(v).requires_grad_(True) for v in (d, left, b)]
+    f(st, *ts).backward()
+    for t, g in zip(ts, gj):
+        np.testing.assert_allclose(np_(t.grad), np.asarray(g), rtol=1e-9, atol=1e-12)
+
+
+def test_woodbury_logdet_of_indefinite_core_is_nan():
+    # det(I + M R^T D^{-1} L) <= 0: no real log-determinant, NaN on the
+    # device rather than the log of |det|.
+    a = st.Woodbury(st.Diagonal(_t(np.ones(3))), st.LowRank(_t(np.ones((3, 1))), None,
+                                                          _t(np.array([[-1.0]]))))
+    assert bool(torch.isnan(st.logdet(a)))
+
+
+def test_woodbury_core_cache_only_without_a_graph():
+    a = _woodbury(st, _t)
+    st.solve(a, _t(np.ones((12, 1))))
+    assert ("wb_core", True) in a._cache
+    b = _t(np.random.RandomState(25).randn(12, 1))
+    grads = []
+    for passes in (1, 2):
+        d = _t(np.arange(12.0) + 1.0).requires_grad_(True)
+        g = st.Woodbury(st.Diagonal(d), st.LowRank(_t(np.ones((12, 2)))))
+        for _ in range(passes):  # each pass builds and frees its own graph
+            st.iqf_diag(g, b)[0].backward()
+        assert ("wb_core", True) not in g._cache
+        grads.append(np_(d.grad))
+    np.testing.assert_allclose(grads[1], 2 * grads[0], rtol=1e-12)
+
+
+def test_woodbury_core_cached_without_grad_keeps_the_gradient():
+    # A core made under no_grad holds no graph; a later differentiated call
+    # on the same matrix must not take it, or the correction term's gradient
+    # in the diagonal and the middle is lost. The factors are constant, as
+    # in Bayesian linear regression, so nothing in the core requires grad.
+    r = np.random.RandomState(26)
+    b, left = _t(r.randn(12, 1)), _t(r.randn(12, 2))
+    arrays = [np.arange(12.0) + 1.0, spd(2, 27)]
+
+    def grads(warm):
+        leaves = [_t(v).requires_grad_(True) for v in arrays]
+        w = st.Woodbury(st.Diagonal(leaves[0]), st.LowRank(left, None, leaves[1]))
+        if warm:
+            with torch.no_grad():
+                st.solve(w, b)
+            assert w._cache  # the core made without a graph is kept
+        st.iqf_diag(w, b)[0].backward()
+        return [np_(t.grad) for t in leaves]
+
+    for got, want in zip(grads(True), grads(False)):
+        assert np.any(want != 0)
+        np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+def test_woodbury_contractions_run_in_chunks(monkeypatch):
+    # The N-long products of the capacitance and the right-hand side go
+    # through _contract: in chunks, the same float64 values.
+    monkeypatch.setattr(tops, "_CHUNK", 16)
+    a = _woodbury(st, _t, n=100)
+    b = np.random.RandomState(23).randn(100, 1)
+    want = sj.logdet(_woodbury(sj, jnp.asarray, n=100)) + sj.iqf_diag(
+        _woodbury(sj, jnp.asarray, n=100), jnp.asarray(b))[0]
+    np.testing.assert_allclose(float(st.logdet(a) + st.iqf_diag(a, _t(b))[0]), float(want),
+                               rtol=1e-12)
+
+
+def test_batched_lowrank_sum():
+    r = np.random.RandomState(24)
+    l1, l2 = r.randn(2, 5, 2), r.randn(5, 3)
+    m1 = np.stack([spd(2, 1), spd(2, 2)])
+
+    def run(M, arr):
+        return M.dense(M.add(M.LowRank(arr(l1), None, arr(m1)), M.LowRank(arr(l2), None,
+                                                                        arr(spd(3, 4)))))
+
+    got = np_(run(st, _t))
+    np.testing.assert_allclose(got, np.asarray(run(sj, jnp.asarray)), rtol=1e-12)
+    ref = l1 @ m1 @ np.swapaxes(l1, -1, -2) + l2 @ spd(3, 4) @ l2.T
+    np.testing.assert_allclose(got, ref, rtol=1e-12)
+
+
+def test_submatrix_keeps_lowrank_and_woodbury():
+    mask = np.array([True, False, True, True, False, True, True, True, False, True, True, True])
+    for sym in (True, False):
+        a = _woodbury(st, _t, sym)
+        for m in (a, a.lr):
+            s = st.submatrix(m, mask)
+            assert type(s) is type(m)
+            np.testing.assert_allclose(np_(st.dense(s)), np_(st.dense(m))[np.ix_(mask, mask)])
+
+
+# --- Kronecker ----------------------------------------------------------------------
+
+
+def _kron_factors(seed=50, na=3, nb=4):
+    r = np.random.RandomState(seed)
+    A, B = r.randn(na, na), r.randn(nb, nb)
+    return A @ A.T + na * np.eye(na), B @ B.T + nb * np.eye(nb)
+
+
+@pytest.mark.parametrize("op", ["solve", "logdet", "iqf", "iqf_diag", "cholesky", "dense",
+                                "transpose", "scale", "matmul"])
+def test_kronecker_ops_match_jax_and_dense(op):
+    # A != B and rows(A) != rows(B): a column-major vec trick would fail.
+    A, B = _kron_factors()
+    C, D = _kron_factors(seed=51)
+    b = np.random.RandomState(52).randn(12, 2)
+
+    def run(M, arr):
+        K = M.Kronecker(M.Dense(arr(A)), M.Dense(arr(B)))
+        return {"solve": lambda: M.solve(K, arr(b)), "logdet": lambda: M.logdet(K),
+                "iqf": lambda: M.dense(M.iqf(K, arr(b))), "iqf_diag": lambda: M.iqf_diag(K, arr(b)),
+                "cholesky": lambda: M.dense(M.cholesky(K)), "dense": lambda: M.dense(K),
+                "transpose": lambda: M.dense(M.transpose(M.Kronecker(M.Dense(arr(A[:, :2])),
+                                                                     M.Dense(arr(B))))),
+                "scale": lambda: M.dense(M.scale(K, 2.5)),
+                "matmul": lambda: M.dense(M.matmul(K, M.Kronecker(M.Dense(arr(C)),
+                                                                  M.Dense(arr(D)))))}[op]()
+
+    got, want = run(st, _t), run(sj, jnp.asarray)
+    np.testing.assert_allclose(np_(got), np.asarray(want), rtol=1e-10, atol=1e-12)
+    K = np.kron(A, B)
+    ref = {"solve": lambda: np.linalg.solve(K, b), "logdet": lambda: np.linalg.slogdet(K)[1],
+           "iqf": lambda: b.T @ np.linalg.solve(K, b),
+           "iqf_diag": lambda: np.diag(b.T @ np.linalg.solve(K, b)),
+           "cholesky": lambda: np.linalg.cholesky(K), "dense": lambda: K,
+           "transpose": lambda: np.kron(A[:, :2], B).T, "scale": lambda: 2.5 * K,
+           "matmul": lambda: K @ np.kron(C, D)}[op]()
+    np.testing.assert_allclose(np_(got), ref, rtol=1e-9, atol=1e-12)
+
+
+def test_kronecker_logpdf_gradient_matches_jax():
+    A, B = _kron_factors(seed=53, na=4, nb=3)
+    x = np.random.RandomState(54).randn(12, 1)
+
+    def f(M, A, B):
+        return M.Normal(M.Kronecker(M.Dense(A), M.Dense(B))).logpdf(x)
+
+    gj = jax.grad(lambda A, B: f(sj, A, B), argnums=(0, 1))(jnp.asarray(A), jnp.asarray(B))
+    tA, tB = _t(A).requires_grad_(True), _t(B).requires_grad_(True)
+    f(st, tA, tB).backward()
+    np.testing.assert_allclose(np_(tA.grad), np.asarray(gj[0]), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(np_(tB.grad), np.asarray(gj[1]), rtol=1e-9, atol=1e-12)
