@@ -176,6 +176,27 @@ JAX_F32_DSL = {
 }
 
 
+# The JAX package's own float32 error on item 8's paths, on the CPU
+# (scripts/jax_item8_f32_error.py, recorded in PERF.md): the pathwise draws
+# at N=262,144 from the same draws in both dtypes (largest error over the
+# largest float64 draw); the SVGP minibatch (4096 of N=10^6, M=512) ELBO's
+# relative error and its gradient's with respect to log s2, log ell and z
+# (z normwise); and the full-batch rho=1 step's ELBO at N=500,000 (the
+# largest N held there; 5.5e-5 at 250,000). Phase item8_path allows twice
+# the pathwise and full-batch errors; the minibatch ELBO takes the main
+# path's 1e-3, the larger. Float32 keeps no digit of the gradient, so that
+# is only held finite, and its errors, scaled to float64's unit roundoff,
+# set the gates of the card's float64 gradient against the CPU's.
+JAX_F32_ITEM8 = {
+    "pathwise_draws_rel": 7.74442266240203e-03,
+    "svgp_minibatch_elbo_rel": 8.56196214138845e-05,
+    "svgp_minibatch_grad_log_s2_rel": 2.195065726563069,
+    "svgp_minibatch_grad_log_ell_rel": 1.7805776425600566,
+    "svgp_minibatch_grad_z_rel": 201.78429295292173,
+    "svgp_full_elbo_rel": 5.089796589591074e-04,
+}
+
+
 class SmokeFailure(AssertionError):
     pass
 
@@ -1368,42 +1389,51 @@ def _k3_times():
     for tag, rows, p, cols in (("p17", x, 17, x), ("p64", x, 64, x), ("p256", x, 256, x),
                                ("p1", x, 1, x), ("query4096_p1", xq, 1, x),
                                ("p17_f64", x64, 17, x64), ("p1_f64", x64, 1, x64)):
-        dtype = rows.dtype
-        v = torch.randn(N_IT, p, generator=gen, device="cuda", dtype=dtype)
-        n, m, d = rows.shape[0], N_IT, 1
-
-        def library(rows=rows, v=v, cols=cols):
-            return torch.cat([torch.exp(-0.5 * torch.cdist(xb, cols).square()) @ v
-                              for xb in torch.split(rows, 8192)])
-
-        byts = (n * d + m * d + m * p + n * p) * rows.element_size()
-        if dtype == torch.float64:
-            b_ms, b_unit, dfma_ms = k3_f64_bound(byts, n, m, d, p)
-            extra = {"dfma_bound_ms": dfma_ms}
-        else:
-            b_ms, b_unit = mma_bound(byts, n, m, d, p, exps_per_s)
-            f_ms, f_by = bound(byts, n * m * (2 * d + 4 + 2 * p) + 2 * (n + m) * d, dtype)
-            extra = {"fp32_bound_ms": f_ms, "fp32_bound_by": f_by}
-        slow = n * p > 8192 * 64 or dtype == torch.float64
-        call = lambda rows=rows, v=v, cols=cols: K3.gram_matvec("eq", rows, cols, v)  # noqa: E731
-        shapes[tag] = {
-            "shape": [n, m, d, p],
-            "dtype": str(dtype),
-            "route": K3.route(n, m, p, dtype),
-            "ms": time_ms(call, reps=3, warmup=1),
-            "device_ms": device_ms(call, reps=1 if slow else 3),
-            "plain_ms": time_ms(lambda: K3.gram_matvec_plain("eq", rows, cols, v),
-                                reps=1 if slow else 3, warmup=1),
-            "library_ms": time_ms(library, reps=1 if slow else 3, warmup=1),
-            "bound_ms": b_ms,
-            "bound_unit": b_unit,
-            "bound_by": "bytes" if b_unit == "bytes" else "operations",
-            **extra,
-        }
+        v = torch.randn(N_IT, p, generator=gen, device="cuda", dtype=rows.dtype)
+        shapes[tag] = k3_shape_times(rows, cols, v, exps_per_s)
     rows = [{"name": name, **shapes[tag], "sm_clock_mhz": mhz}
             for name, tag in (("gram_matvec_mma", "p17"), ("gram_matvec_ffma", "p1"),
                               ("gram_matvec_dmma", "p17_f64"))]
     return rows, shapes
+
+
+def k3_shape_times(rows, cols, v, exps_per_s):
+    """K3 (eq) per call for ``rows`` by ``cols`` (d = 1) times ``v``, as
+    ``_k3_times`` describes: its route, CUDA-event and device times, plain
+    version, the 8192-row-block library sweep and bounds."""
+    from stheno_torch.ops import gram_matvec as K3
+
+    dtype = rows.dtype
+    n, m, d, p = rows.shape[0], cols.shape[0], 1, v.shape[1]
+
+    def library():
+        return torch.cat([torch.exp(-0.5 * torch.cdist(xb, cols).square()) @ v
+                          for xb in torch.split(rows, 8192)])
+
+    byts = (n * d + m * d + m * p + n * p) * rows.element_size()
+    if dtype == torch.float64:
+        b_ms, b_unit, dfma_ms = k3_f64_bound(byts, n, m, d, p)
+        extra = {"dfma_bound_ms": dfma_ms}
+    else:
+        b_ms, b_unit = mma_bound(byts, n, m, d, p, exps_per_s)
+        f_ms, f_by = bound(byts, n * m * (2 * d + 4 + 2 * p) + 2 * (n + m) * d, dtype)
+        extra = {"fp32_bound_ms": f_ms, "fp32_bound_by": f_by}
+    slow = n * p > 8192 * 64 or dtype == torch.float64
+    call = lambda: K3.gram_matvec("eq", rows, cols, v)  # noqa: E731
+    return {
+        "shape": [n, m, d, p],
+        "dtype": str(dtype),
+        "route": K3.route(n, m, p, dtype),
+        "ms": time_ms(call, reps=3, warmup=1),
+        "device_ms": device_ms(call, reps=1 if slow else 3),
+        "plain_ms": time_ms(lambda: K3.gram_matvec_plain("eq", rows, cols, v),
+                            reps=1 if slow else 3, warmup=1),
+        "library_ms": time_ms(library, reps=1 if slow else 3, warmup=1),
+        "bound_ms": b_ms,
+        "bound_unit": b_unit,
+        "bound_by": "bytes" if b_unit == "bytes" else "operations",
+        **extra,
+    }
 
 
 def k3_f64_bound(bytes_moved, n, m, d, p):
@@ -2154,7 +2184,8 @@ def _sparse_pred_rels(pred, ref):
 
 def k1_sparse_times(zs, xs):
     """K1 at the sparse path's cross Gram, ``zs (512, 1)`` by ``xs (10^6,
-    1)`` float32 (z / ell and x / ell), against its plain version within
+    1)`` float32 (z / ell and x / ell; SVGP's minibatch passes 4096 rows of
+    x), against its plain version within
     ``_gram_atol``; its CUDA-event time (5 calls back to back, median of
     20), device time, plain version, ``exp(-0.5 cdist^2)`` and bound
     (inputs read once, the 2.05 GB output written once)."""
@@ -2162,7 +2193,7 @@ def k1_sparse_times(zs, xs):
 
     n, m = zs.shape[0], xs.shape[0]
     K, P = K1.gram("eq", zs, xs), K1.gram_plain("eq", zs, xs)
-    err, over = _hold(K, P, _gram_atol("eq", zs, xs), "gram eq 512x1 by 10^6x1")
+    err, over = _hold(K, P, _gram_atol("eq", zs, xs), f"gram eq {n}x1 by {m}x1")
     del K, P
     b_ms, b_by = bound((n + m + n * m) * 4, n * m * (2 + 4), torch.float32)
     call = lambda: K1.gram("eq", zs, xs)  # noqa: E731
@@ -2193,11 +2224,11 @@ def k1_bwd_sparse_times(zs, xs):
     got = KB.gram_bwd("eq", zs, xs, gbar)
     again = KB.gram_bwd("eq", zs, xs, gbar)
     ref = KB.gram_bwd_plain("eq", zs, xs, gbar)
-    check(all(torch.equal(a, b) for a, b in zip(got[:2], again[:2])),
-          "gram_bwd 512x1 by 10^6x1: two runs differ")
+    tag = f"gram_bwd eq {n}x1 by {m}x1"
+    check(all(torch.equal(a, b) for a, b in zip(got[:2], again[:2])), f"{tag}: two runs differ")
     tx, ty, _ = _bwd_tols("eq", zs, xs, gbar, 1.0, block=32)
-    ex, ox = _hold(got[0], ref[0], tx, "gram_bwd eq 512x1 by 10^6x1 d/dx")
-    ey, oy = _hold(got[1], ref[1], ty, "gram_bwd eq 512x1 by 10^6x1 d/dy")
+    ex, ox = _hold(got[0], ref[0], tx, f"{tag} d/dx")
+    ey, oy = _hold(got[1], ref[1], ty, f"{tag} d/dy")
     del got, again, ref, tx, ty
     zg, xg = zs.clone().requires_grad_(True), xs.clone().requires_grad_(True)
     K = K1.gram("eq", zg, xg)
@@ -2390,31 +2421,41 @@ def _own_peak(fn):
     return torch.cuda.max_memory_allocated() - base
 
 
-def _traced_dsl(label, fn):
-    """One traced run of the float32 step ``fn`` (``trace``): its K1,
-    K1-backward and K2 launches on the device must equal the wrappers'
-    counts (K2: ``K2_PER_TILE`` per tile). Returns the profile's summary."""
+def _traced_exact(label, fn, kernels):
+    """One traced run of ``fn`` (``trace``): for each ``(device kernel,
+    wrapper, per launch)`` of ``kernels``, the device launches must equal
+    the wrapper's count times ``per launch`` (the device launches one
+    wrapper call makes). Returns the profile's summary."""
     def want(b, n):
-        return (_traced(b, "gram_kernel") == n["gram"]
-                and _traced(b, "gram_bwd_kernel") == n["gram_bwd"]
-                and all(_traced(b, k) == c * n["chol_tile"] for k, c in K2_PER_TILE.items()))
+        return all(_traced(b, k) == c * n[w] for k, w, c in kernels)
 
     t = trace(label, fn, want)
     by_name, launches = t["by_name"], t["launches"]
-    traced = {"gram": _traced(by_name, "gram_kernel"),
-              "gram_bwd": _traced(by_name, "gram_bwd_kernel"),
-              **{f"chol_tile_{k}": _traced(by_name, k) for k in K2_PER_TILE}}
+    traced = {k: _traced(by_name, k) for k, _, _ in kernels}
+    wrappers = {w: launches[w] for _, w, _ in kernels}
     check(want(by_name, launches),
-          f"{label}: traced launches {traced} against the wrappers' "
-          f"{ {k: launches[k] for k in ('gram', 'gram_bwd', 'chol_tile')} } (clock lead "
+          f"{label}: traced launches {traced} against the wrappers' {wrappers} (clock lead "
           f"{t['lead_us']} us; {sum(c for c, _ in by_name.values())} device records; refused "
           f"takes {t['refused']})")
     return {"span_ms": t["span_us"] / 1e3, "head_spins_us": t["head_us"],
             "device_busy_ms": t["busy_us"] / 1e3,
             "device_busy_share": t["busy_us"] / t["span_us"], "clock_lead_us": t["lead_us"],
             "refused_traces": t["refused"], "traced_launches": traced,
-            "wrapper_launches": {k: launches[k] for k in ("gram", "gram_bwd", "chol_tile")},
+            "wrapper_launches": wrappers,
             "device_launches": sum(c for c, _ in by_name.values()), "kernels": _top(by_name, 8)}
+
+
+#: K1's and K1-backward's device kernels, their wrappers' counts and the
+#: device launches of one wrapper call (``_traced_exact``).
+K1_KERNELS = (("gram_kernel", "gram", 1), ("gram_bwd_kernel", "gram_bwd", 1))
+
+
+def _traced_dsl(label, fn):
+    """One traced run of the float32 step ``fn`` (``_traced_exact``): its
+    K1, K1-backward and K2 launches on the device must equal the wrappers'
+    counts (K2: ``K2_PER_TILE`` per tile)."""
+    return _traced_exact(label, fn, K1_KERNELS + tuple(
+        (k, "chol_tile", c) for k, c in K2_PER_TILE.items()))
 
 
 def _blr_exact(x, y, params):
@@ -2453,6 +2494,7 @@ def _k1_rq_dsl(x, alpha):
     b_ms, b_by = bound((2 * n + n * n) * 4, 12 * n * n, torch.float32)
     fwd = {"kind": "rq", "shape": [n, n, 1], "max_abs_err": err, "of_tol": over,
            "ms": time_ms(lambda: K1.gram("rq", x, x, alpha), inner=20),
+           "device_ms": device_ms_per_call(lambda: K1.gram("rq", x, x, alpha)),
            "plain_ms": time_ms(lambda: K1.gram_plain("rq", x, x, alpha), inner=5),
            "library_ms": time_ms(lambda: lib(x), inner=5), "bound_ms": b_ms, "bound_by": b_by}
     gbar = k1_cotangent(n)
@@ -2490,6 +2532,7 @@ def _k2_kron_dsl(A):
 
     b_ms, b_by = bound(3 * n * n * 4, 2 * n**3 / 3, torch.float32)
     return {"shape": [n], "max_abs_err": err, "ms": time_ms(lambda: K2.chol_tile(A)),
+            "device_ms": device_ms(lambda: K2.chol_tile(A)),
             "plain_ms": time_ms(lambda: K2.chol_tile_plain(A), reps=5, warmup=1),
             "library_ms": time_ms(library), "bound_ms": b_ms, "bound_by": b_by}
 
@@ -2685,6 +2728,281 @@ def phase_dsl_path(smi):
     ]
 
 
+# ---------------------------------------------------------------------------
+# Item 8: pathwise posterior draws and SVGP (bench.py:bench_pathwise_262k,
+# the sparse path's N=10^6 data), and derivatives of a conditioned process.
+
+
+def _k3_item8_times(x, xq, v):
+    """K3's FFMA route at the pathwise path's two shapes, ``x (262,144, 1)``
+    square at p = 8 (a CG sweep) and ``xq (4096, 1)`` by ``x`` at p = 8 (the
+    evaluation's cross term): each held against its plain version
+    (``_gmv_rtol`` of ``|G| @ |v|``, as phase gram_matvec), then timed by
+    ``k3_shape_times``."""
+    from stheno_torch.ops import gram_matvec as K3
+
+    exps_per_s, mhz = sfu_exps_per_s()
+    out = {}
+    for tag, rows in (("cg_262144_p8", x), ("eval_4096_p8", xq)):
+        got = K3.gram_matvec("eq", rows, x, v)
+        ref = K3.gram_matvec_plain("eq", rows, x, v)
+        rtol = _gmv_rtol(x.shape[0], rows.dtype)
+        rel = float(((got - ref).abs() / _gmv_atol_scale("eq", rows, x, v).clamp_min(1e-30)).max())
+        check(rel <= rtol, f"gram_matvec eq {tag}: error {rel} of |G||v| > {rtol}")
+        out[tag] = {"max_abs_err": max_err(got, ref), "max_rel_err_of_scale": rel, "rtol": rtol,
+                    **k3_shape_times(rows, x, v, exps_per_s), "sm_clock_mhz": mhz}
+        del got, ref
+    return out
+
+
+#: K3's three routes' device kernels, their wrappers' counts and the
+#: device launches of one wrapper call (``_traced_exact``).
+K3_KERNELS = (("gmv_kernel", "gram_matvec_ffma", 1), ("gmv_mma_kernel", "gram_matvec_mma", 1),
+              ("gmv_dmma_kernel", "gram_matvec_dmma", 1))
+
+
+def phase_item8_path(smi):
+    """Item 8 through the user's entry points (``stheno_torch.entry``) and
+    the modelling DSL, on the card, in float32 unless stated:
+
+    (a) pathwise draws at ``bench_pathwise_262k``'s size (N=262,144, EQ,
+        noise 0.1, 8 draws, 2048 features, the whitened CG at tol 1e-4,
+        preconditioner rank 64, blocks of 8192): the CG's residual gated at
+        bench.py's 1e-4, the build's seconds (host clock around a
+        synchronised build, median of 3 after the first), the evaluation at
+        4096 points (CUDA events, median of 20 after 3 warm-ups; traced: one
+        FFMA K3 launch and no K1), the draws finite, and against a float64
+        build on the card from the same draws (cast up) within twice the
+        JAX package's own float32 error (``JAX_F32_ITEM8``); K3's FFMA route
+        at the CG's and the evaluation's shapes beside its bound;
+    (b) pathwise with the dense solver at N=2000: the build's time and its
+        K1 and K2 launches, the draws against the same draws through the
+        port in float64 on the CPU at the main path's 1e-3;
+    (c) SVGP on the sparse path's N=10^6, M=512 data: the minibatch (4096)
+        ELBO against float64 on the card for the same batch and state
+        (the main path's 1e-3), its float32 gradient with respect to (log
+        s2, log ell, z) finite (the JAX package's keeps no digit), the
+        card's float64 value and gradient against the port's float64 on
+        the CPU (``_svgp_f64_limit``), one natural-gradient
+        step at that batch, timed; at full batch, a ``rho = 1`` step and the
+        ELBO in float64 against the port's collapsed VFE ELBO
+        (``entry.sparse_elbo``) under the same jitter (rel 1e-6), and in
+        float32 against float64 (within twice the JAX package's float32
+        error where that is finite, else finite); each step's time, busy
+        share, own peak memory and K1 and K1-backward launches (traced); K1
+        and its backward at the minibatch's 512 x 4096 Gram;
+    (d) derivative conditioning (``tests/model/test_cases.py``'s story) at
+        N=2000 in float64: the posterior mean of ``f.diff(0)`` after
+        conditioning on sin within 1e-3 of cos, its time and launches.
+
+    Every traced count equals the wrappers'. Each part prints its line as
+    it ends, and the gates one line at the close."""
+    from stheno_torch import EQ, GP
+    from stheno_torch import entry as E
+    from stheno_torch.model import pathwise as TP
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gates = []
+
+    def part(name, **numbers):
+        emit({"phase": "item8_path", "part": name, "nvidia_smi": smi, **numbers})
+
+    def gate(what, got, limit):
+        gates.append({"what": what, "got": got, "limit": limit})
+        check(got <= limit, f"item8_path {what}: {got} exceeds {limit}")
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(0)
+
+    # (a) Pathwise at N=262,144.
+    x, y = E.pathwise_262k_inputs()
+    x_new = torch.linspace(-1.0, 11.0, 4096, device="cuda")
+    (fn, info), counts = _launched(lambda: E.pathwise_build(x, y, gen()))
+    pw = {"n": x.shape[0], "build_launches": counts, "cg_iters": info["iters"],
+          "cg_rel_residual": float(info["rel_residual"])}
+    gate("pathwise CG relative residual", pw["cg_rel_residual"], 1e-4)
+    builds = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        E.pathwise_build(x, y, gen())
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+    pw["build_s"], pw["build_s_samples"] = statistics.median(builds), builds
+    draws = fn(x_new)
+    check(draws.shape == (4096, 8) and bool(torch.isfinite(draws).all()),
+          f"pathwise draws: shape {tuple(draws.shape)} or not finite")
+    pw["eval_4096x8_ms"] = time_ms(lambda: fn(x_new))
+    pw["eval_profile"] = _traced_exact("pathwise_eval_4096x8", lambda: fn(x_new),
+                                       K1_KERNELS + K3_KERNELS)
+    ev = pw["eval_profile"]["wrapper_launches"]
+    check(ev["gram_matvec_ffma"] == 1 and ev["gram"] == 0 and ev["gram_matvec_mma"] == 0
+          and ev["gram_matvec_dmma"] == 0,
+          f"the evaluation's launches {ev}: one FFMA K3 and nothing else")
+    pw["v5e_tpu"] = {"pathwise_build_n262144_s": 2.41, "pathwise_n262144_eval4096x8_s": 0.003,
+                     "source": "BENCH_r05.json, TPU v5e"}
+    opts = dict(num_features=2048, solver="cg", block=8192, cg_tol=1e-4, max_cg_iters=200,
+                precond_rank=64, compensated="auto")
+    same = TP._draw(EQ(), gen(), x.shape[0], 1, torch.float32, num_samples=8, num_features=2048)
+    up = (same[0].double(), same[1].double(), same[2].double())
+    fn64, info64 = TP._build(EQ(), x.double(), y.double(), 0.1, up, **opts)
+    ref = fn64(x_new.double())
+    pw["cg_f64"] = {"iters": info64["iters"], "rel_residual": float(info64["rel_residual"])}
+    pw["draws_rel_f64"] = max_err(draws, ref) / float(ref.abs().max())
+    gate("pathwise float32 draws against float64 (same draws)", pw["draws_rel_f64"],
+         2 * JAX_F32_ITEM8["pathwise_draws_rel"])
+    del fn64, ref, up, same
+    gc.collect()
+    torch.cuda.empty_cache()
+    v8 = torch.randn(x.shape[0], 8, generator=gen(), device="cuda")
+    part("pathwise_n262144", **pw,
+         gram_matvec_ffma=_k3_item8_times(x[:, None], x_new[:, None], v8))
+    del fn, draws, x, y, v8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) Pathwise with the dense solver at N=2000.
+    x, y = E.pathwise_262k_inputs(n=2000)
+    xq = torch.linspace(-1.0, 11.0, 500, device="cuda")
+    (fn, _), counts = _launched(lambda: E.pathwise_build(x, y, gen(), solver="chol"))
+    check(counts["gram"] >= 1, f"the dense pathwise build's launches {counts}")
+    same = TP._draw(EQ(), gen(), 2000, 1, torch.float32, num_samples=8, num_features=2048)
+    cpu64 = tuple(t.double().cpu() for t in same)
+    fn_cpu, _ = TP._build(EQ(), x.double().cpu(), y.double().cpu(), 0.1, cpu64,
+                          **{**opts, "solver": "chol"})
+    got, ref = fn(xq), fn_cpu(xq.double().cpu())
+    check(bool(torch.isfinite(got).all()), "dense pathwise draws not finite")
+    chol = {"n": 2000, "launches": counts, "draws_max_abs_err": max_err(got.cpu(), ref),
+            "draws_max_abs_f64": float(ref.abs().max()),
+            "build_ms": time_ms(lambda: E.pathwise_build(x, y, gen(), solver="chol"), reps=5)}
+    gate("dense pathwise draws against float64 on the CPU", chol["draws_max_abs_err"],
+         1e-3 * max(1.0, chol["draws_max_abs_f64"]))
+    part("pathwise_chol_n2000", **chol)
+
+    # (c) SVGP at N=10^6, M=512.
+    x, y, theta, params = E.svgp_1m_inputs()
+    dev64 = lambda d: {k: v.double() for k, v in d.items()}  # noqa: E731
+    x64, y64, th64, p64 = x.double(), y.double(), dev64(theta), dev64(params)
+    one = torch.ones((), device="cuda")
+    eps32 = E.sparse_jitter(params["z"][:, 0], one)
+    eps64 = E.sparse_jitter(p64["z"][:, 0], one.double())
+    state64 = E.svgp_1m_natgrad(x64, y64, th64, p64, rho=1.0, jitter=eps32)
+    state32 = {k: v.float() for k, v in state64.items()}
+    step = lambda: E.svgp_1m_step(x, y, theta, state32, grad=True, jitter=eps32)  # noqa: E731
+    (v32, g32), counts = _launched(step)
+    check(counts["gram"] >= 1 and counts["gram_bwd"] >= 1, f"the SVGP step's launches {counts}")
+    v64, g64 = E.svgp_1m_step(x64, y64, th64, state64, grad=True, jitter=eps32)
+    mb = {"batch": 4096, "jitter": eps32, "launches": counts, "elbo": float(v32),
+          "elbo_f64": float(v64), "elbo_rel": _rel(v32, v64),
+          "grad_f64": {k: float(g64[k]) for k in ("log_s2", "log_ell")},
+          "grad_z_f64_norm": float(torch.linalg.norm(g64["z"]))}
+    for k in ("log_s2", "log_ell"):
+        mb[f"grad_{k}_rel"] = _rel(g32[k], g64[k])
+    mb["grad_z_rel"] = float(torch.linalg.norm(g32["z"].double() - g64["z"])
+                             / torch.linalg.norm(g64["z"]))
+    check(bool(torch.isfinite(v32)) and all(bool(torch.isfinite(t).all()) for t in g32.values()),
+          "the SVGP minibatch ELBO or gradient is not finite")
+    gate("SVGP minibatch float32 ELBO rel", mb["elbo_rel"], 1e-3)
+    # The float32 gradient keeps no digit in the JAX package either (its
+    # error is 2.2, 1.8 and 202 relative): only its finiteness is gated
+    # above. The card's float64 value and gradient are held against the
+    # port's float64 on the CPU for the same batch and state instead.
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}  # noqa: E731
+    vc, gc64 = E.svgp_1m_step(x64.cpu(), y64.cpu(), cpu(th64), cpu(state64), grad=True,
+                              jitter=eps32)
+    mb["f64_card_vs_cpu"] = {"elbo_rel": _rel(v64.cpu(), vc),
+                             **{f"grad_{k}_rel": _rel(g64[k].cpu(), gc64[k])
+                                for k in ("log_s2", "log_ell")},
+                             "grad_z_rel": float(torch.linalg.norm(g64["z"].cpu() - gc64["z"])
+                                                 / torch.linalg.norm(gc64["z"]))}
+    for k in ("elbo", "grad_log_s2", "grad_log_ell", "grad_z"):
+        gate(f"SVGP minibatch float64 {k} on the card against the CPU",
+             mb["f64_card_vs_cpu"][f"{k}_rel"], _svgp_f64_limit(k))
+    mb["value_grad_ms"] = time_ms(step, reps=5)
+    mb["value_grad_peak_bytes"] = _own_peak(step)
+    mb["profile"] = _traced_exact("svgp_minibatch_value_grad", step, K1_KERNELS)
+    nat = lambda: E.svgp_1m_natgrad(x, y, theta, state32, rho=0.3, jitter=eps32)  # noqa: E731
+    (_, counts) = _launched(nat)
+    mb["natgrad_launches"] = counts
+    mb["natgrad_ms"] = time_ms(nat, reps=5)
+    mb["natgrad_profile"] = _traced_exact("svgp_minibatch_natgrad", nat, K1_KERNELS)
+    del state64, g64
+    part("svgp_minibatch", **mb)
+
+    full = {"n": x.shape[0]}
+    pf64 = E.svgp_1m_natgrad(x64, y64, th64, p64, batch=None, rho=1.0, jitter=eps64)
+    e64 = E.svgp_1m_step(x64, y64, th64, pf64, batch=None, jitter=eps64)
+    vfe64 = E.sparse_elbo(x64, y64, p64["z"][:, 0], one.double(), jitter=eps64)
+    full.update(jitter_f64=eps64, elbo_f64=float(e64), vfe_f64=float(vfe64),
+                identity_rel_f64=_rel(e64, vfe64))
+    gate("SVGP full-batch rho=1 ELBO against the collapsed VFE (float64)",
+         full["identity_rel_f64"], 1e-6)
+    del pf64
+    gc.collect()
+    torch.cuda.empty_cache()
+    nat_full = lambda: E.svgp_1m_natgrad(x, y, theta, params, batch=None, rho=1.0,  # noqa: E731
+                                         jitter=eps32)
+    pf32, counts = _launched(nat_full)
+    e32 = E.svgp_1m_step(x, y, theta, pf32, batch=None, jitter=eps32)
+    pf64 = E.svgp_1m_natgrad(x64, y64, th64, p64, batch=None, rho=1.0, jitter=eps32)
+    e64b = E.svgp_1m_step(x64, y64, th64, pf64, batch=None, jitter=eps32)
+    full.update(jitter_f32=eps32, natgrad_launches=counts, elbo_f32=float(e32),
+                elbo_f64_same_jitter=float(e64b), elbo_rel_f32=_rel(e32, e64b))
+    check(bool(torch.isfinite(e32)), "the float32 full-batch SVGP ELBO is not finite")
+    if math.isfinite(JAX_F32_ITEM8["svgp_full_elbo_rel"]):
+        gate("SVGP full-batch float32 ELBO against float64", full["elbo_rel_f32"],
+             2 * JAX_F32_ITEM8["svgp_full_elbo_rel"])
+    del pf64, x64, y64, p64, th64
+    gc.collect()
+    torch.cuda.empty_cache()
+    val_full = lambda: E.svgp_1m_step(x, y, theta, pf32, batch=None, jitter=eps32)  # noqa: E731
+    full["natgrad_ms"] = time_ms(nat_full, reps=3, warmup=1)
+    full["elbo_ms"] = time_ms(val_full, reps=3, warmup=1)
+    full["natgrad_peak_bytes"] = _own_peak(nat_full)
+    full["elbo_peak_bytes"] = _own_peak(val_full)
+    full["natgrad_profile"] = _traced_exact("svgp_full_natgrad", nat_full, K1_KERNELS)
+    full["elbo_profile"] = _traced_exact("svgp_full_elbo", val_full, K1_KERNELS)
+    part("svgp_full_batch", **full)
+    zs = params["z"]
+    xb = E._svgp_batch(x, y, 4096)[0]
+    part("gram_svgp_512x4096", gram=k1_sparse_times(zs, xb), gram_bwd=k1_bwd_sparse_times(zs, xb))
+    del x, y, pf32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) F2: the derivative of a conditioned process, N=2000, float64.
+    xd = torch.linspace(0.0, 6.0, 2000, device="cuda", dtype=torch.float64)
+    x_check = torch.linspace(1.0, 5.0, 2000, device="cuda", dtype=torch.float64)
+
+    def derivative():
+        f = GP(EQ())
+        post = f.measure.condition(f(xd, 1e-8), torch.sin(xd))
+        return post(f.diff(0))(x_check).marginals()
+
+    (mean, var), counts = _launched(derivative)
+    check(bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all()),
+          "the derivative's posterior marginals are not finite")
+    der = {"n": 2000, "launches": counts,
+           "mean_max_abs_err_vs_cos": max_err(mean, torch.cos(x_check)),
+           "var_max": float(var.max()), "ms": time_ms(derivative, reps=3, warmup=1),
+           "peak_bytes": _own_peak(derivative)}
+    gate("F2: posterior mean of f.diff(0) against cos", der["mean_max_abs_err_vs_cos"], 1e-3)
+    der["profile"] = _traced_exact("derivative_conditioning_n2000", derivative, K1_KERNELS)
+    part("derivative_conditioning_n2000", **der)
+    emit({"phase": "item8_path_gates", "nvidia_smi": smi, "gates": gates})
+
+
+def _svgp_f64_limit(what):
+    """The gate of the card's float64 SVGP minibatch ``what`` (the ELBO,
+    or the gradient's log_s2, log_ell or z entry, z's normwise) against
+    the port's float64 on the CPU: twice the JAX package's own float32
+    error scaled down by the ratio of the unit roundoffs (2^-29), and no
+    less than 1e-8."""
+    key = "svgp_minibatch_elbo_rel" if what == "elbo" else f"svgp_minibatch_{what}_rel"
+    return max(1e-8, 2 * JAX_F32_ITEM8[key] * 2.0 ** -29)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU.", file=sys.stderr)
@@ -2742,6 +3060,7 @@ def _run_phases():
     idle = [k["name"] for k in dsl if k["launches"] < 1]
     check(not idle, f"kernels that the DSL paths never launched: {idle}")
     kernels.extend(dsl)
+    run("item8_path", phase_item8_path, smi)
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     # The card's name and power limit again, beside the kernels' numbers.
     print(smi, flush=True)

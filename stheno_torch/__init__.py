@@ -14,8 +14,9 @@ DTC with their ELBO and posterior, several observed processes through
 ``combine`` and the cross process, sampling), and the rest of the
 modelling DSL (input transforms and derivatives of processes, Delta and
 the other kernels and means, ``Normal``'s divergences and affine
-arithmetic, the Woodbury and Kronecker closed forms); ``ROADMAP.md``
-lists what is still to be ported.
+arithmetic, the Woodbury and Kronecker closed forms), and stochastic
+variational GPs (SVGP), random-feature maps and pathwise posterior draws;
+``ROADMAP.md`` lists what is still to be ported.
 """
 
 from . import config

@@ -9,7 +9,9 @@ same way: :func:`precond_state_from_jax` takes the numpy arrays of an
 eig-preconditioner state ``(U, lam)`` and :func:`variance_cache_from_jax`
 those of a ``VarianceCache``. A fitted sparse posterior crosses with
 :func:`pseudo_obs_state_from_jax` (the ``K_z``, ``mu`` and ``A`` of a
-JAX ``PseudoObs``, installed in a port one's caches). An optimisation
+JAX ``PseudoObs``, installed in a port one's caches). SVGP parameters
+cross with :func:`svgp_params_from_jax` (the ``z``, ``q_mu`` and
+``q_sqrt`` of ``svgp_init``'s pytree). An optimisation
 crosses mid-way with
 :func:`vars_from_jax` (the latent values of a JAX ``Vars``) and
 :func:`adam_state_from_jax` (optax's Adam state) into
@@ -29,6 +31,7 @@ __all__ = [
     "vars_from_jax",
     "adam_state_from_jax",
     "pseudo_obs_state_from_jax",
+    "svgp_params_from_jax",
 ]
 
 
@@ -109,3 +112,10 @@ def pseudo_obs_state_from_jax(obs, measure, K_z, mu, A, device=None, dtype=None)
     obs._mu[key] = array_from_jax(mu, device, dtype)
     obs._A[key] = Dense(array_from_jax(A, device, dtype))
     return obs
+
+
+def svgp_params_from_jax(params, device=None, dtype=None):
+    """The port's SVGP parameters ``{"z", "q_mu", "q_sqrt"}`` from the
+    numpy arrays of the JAX package's (``svgp_init``'s pytree, or a trained
+    one, through ``np.asarray``)."""
+    return {k: array_from_jax(params[k], device, dtype) for k in ("z", "q_mu", "q_sqrt")}

@@ -45,13 +45,23 @@ the model of ``bench.py:bench_n2000``:
   (``examples/example5_integration.py``), :func:`derivative_inputs` and
   :func:`derivative_condition`; and a ``Normal`` with a ``Kronecker``
   variance on ``bench.py``'s 1024 x 1024 grid, :func:`kronecker_inputs`
-  and :func:`kronecker_logpdf`, with or without a mask of each axis.
+  and :func:`kronecker_logpdf`, with or without a mask of each axis;
+- pathwise posterior draws at ``bench.py:bench_pathwise_262k``'s size:
+  :func:`pathwise_262k_inputs` makes its data and :func:`pathwise_build`
+  the 8 function draws from one whitened CG solve (or a dense one);
+- SVGP on the data of ``bench_dist_elbo_1m`` (N=10^6, M=512):
+  :func:`svgp_1m_inputs`, :func:`svgp_1m_step` (a minibatch ELBO, or its
+  value and gradient with respect to the log-hyperparameters and the
+  inducing inputs) and :func:`svgp_1m_natgrad` (one natural-gradient
+  step), the minibatch drawn once by a numpy ``RandomState(0)`` as
+  ``examples/example14_svgp.py`` draws its batches.
 
 Raw inputs go to ``device`` (default ``config.default_device``, the card);
 tensors keep their own device.
 """
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -61,7 +71,17 @@ from . import iterative as it
 from .dist import Normal
 from .kernels import EQ, RQ, Delta, pairwise
 from .matrix import Diagonal, Kronecker, adaptive_jitter_eps, add, dense
-from .model import GP, Measure, PseudoObs, PseudoObsDTC, PseudoObsFITC
+from .model import (
+    GP,
+    Measure,
+    PseudoObs,
+    PseudoObsDTC,
+    PseudoObsFITC,
+    pathwise_sampler,
+    svgp_elbo,
+    svgp_init,
+    svgp_natgrad_step,
+)
 from .opt import AdamDriver, Vars, sample_nuts
 
 __all__ = [
@@ -99,6 +119,13 @@ __all__ = [
     "derivative_condition",
     "kronecker_inputs",
     "kronecker_logpdf",
+    "PATHWISE_NOISE",
+    "pathwise_262k_inputs",
+    "pathwise_build",
+    "svgp_kernel",
+    "svgp_1m_inputs",
+    "svgp_1m_step",
+    "svgp_1m_natgrad",
 ]
 
 
@@ -660,3 +687,93 @@ def kronecker_logpdf(ax1, ax2, y, params, grad=False, mask=None):
         return Normal(Kronecker(*factors)).logpdf(y, mask=mask)
 
     return _value_and_grad(fn, params, grad)
+
+
+# ---------------------------------------------------------------------------
+# Pathwise draws (bench.py:bench_pathwise_262k) and SVGP on the sparse
+# path's N=10^6 data.
+
+#: Observation-noise variance of the pathwise draws.
+PATHWISE_NOISE = 0.1
+
+
+def pathwise_262k_inputs(n=262_144, dtype=torch.float32, device=None, seed=0):
+    """``bench_pathwise_262k``'s data (that of :func:`iterative_inputs`):
+    ``n`` sorted uniform ``x`` on [0, 10] and ``y = sin x + 0.1 noise``
+    from a numpy ``RandomState(seed)``. Returns ``(x, y)``."""
+    x, y, _ = iterative_inputs(n, device=device, dtype=dtype, seed=seed)
+    return x, y
+
+
+def pathwise_build(x, y, generator, *, solver="cg", block=8192):
+    """``bench_pathwise_262k``'s build: 8 posterior function draws of
+    ``GP(EQ())`` under noise 0.1 from ``generator``, with 2048 random
+    features and, for ``solver="cg"``, the whitened CG at tol 1e-4 (at most
+    200 iterations) under a rank-64 preconditioner. Returns ``(sample_fn,
+    cg_info)``."""
+    with torch.no_grad():
+        fn, _, info = pathwise_sampler(
+            EQ(), x, y, PATHWISE_NOISE, generator, num_samples=8, num_features=2048,
+            solver=solver, block=block, cg_tol=1e-4, max_cg_iters=200, precond_rank=64,
+            return_info=True,
+        )
+    return fn, info
+
+
+def svgp_kernel(theta):
+    """``exp(log_s2) * EQ().stretch(exp(log_ell))``."""
+    return torch.exp(theta["log_s2"]) * EQ().stretch(torch.exp(theta["log_ell"]))
+
+
+def svgp_1m_inputs(dtype=torch.float32, device=None, *, n=1_000_000, m=512, seed=1):
+    """``(x, y, theta, params)``: the data of :func:`sparse_1m_inputs`,
+    ``theta = {log_s2: 0, log_ell: 0}`` and ``svgp_init``'s parameters at
+    its inducing inputs."""
+    x, y, z, _ = sparse_1m_inputs(dtype, device, n=n, m=m, seed=seed)
+    theta = {k: torch.zeros((), dtype=dtype, device=x.device) for k in ("log_s2", "log_ell")}
+    return x, y, theta, svgp_init(EQ(), z)
+
+
+@functools.lru_cache(maxsize=8)
+def _svgp_indices(n, batch, device):
+    """``batch`` of ``range(n)`` without replacement from a numpy
+    ``RandomState(0)``, on ``device``: drawn once (the draw permutes all of
+    ``range(n)`` on the host), since every call would draw the same."""
+    idx = np.random.RandomState(0).choice(n, size=batch, replace=False)
+    return torch.as_tensor(idx, device=device)
+
+
+def _svgp_batch(x, y, batch):
+    """The minibatch ``(x_b (B, 1), y_b)`` at :func:`_svgp_indices`; all of
+    the data when ``batch`` is None."""
+    if batch is not None:
+        idx = _svgp_indices(x.shape[0], batch, x.device)
+        x, y = x[idx], y[idx]
+    return x[:, None], y
+
+
+@config.pin_matmul_precision
+def svgp_1m_step(x, y, theta, params, *, batch=4096, grad=False, jitter=None):
+    """The SVGP ELBO of :func:`svgp_kernel` under noise 0.1 on one minibatch
+    (``batch`` None: all of the data), its value or ``(value, grads)`` with
+    ``grads`` the gradient with respect to ``log_s2``, ``log_ell`` and
+    ``z``. ``jitter`` fixes the inducing Gram's jitter (default: the
+    adaptive probe, as :func:`sparse_elbo`)."""
+    xb, yb = _svgp_batch(x, y, batch)
+
+    def fn(p):
+        return svgp_elbo(svgp_kernel(p), {**params, "z": p["z"]}, xb, yb, SPARSE_NOISE,
+                         x.shape[0])
+
+    with _jitter(jitter):
+        return _value_and_grad(fn, {**theta, "z": params["z"]}, grad)
+
+
+@config.pin_matmul_precision
+def svgp_1m_natgrad(x, y, theta, params, *, batch=4096, rho=1.0, jitter=None):
+    """One natural-gradient step of step size ``rho`` on the minibatch of
+    :func:`svgp_1m_step`: the new parameters."""
+    xb, yb = _svgp_batch(x, y, batch)
+    with _jitter(jitter), torch.no_grad():
+        return svgp_natgrad_step(svgp_kernel(theta), params, xb, yb, SPARSE_NOISE, x.shape[0],
+                                 rho)

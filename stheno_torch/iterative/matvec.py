@@ -55,10 +55,11 @@ _FULL_PRECISION = (None, "high", "float32", "highest")
 _LOW_PRECISION = ("default", "bfloat16", "tensorfloat32")
 
 
-def not_ported(what):
-    """The error of an option this port does not have yet."""
+def not_ported(what, item=9):
+    """The error of an option this port does not have yet, naming the
+    ``ROADMAP.md`` item that ports it."""
     return NotImplementedError(
-        f"{what} is not ported to stheno_torch yet (see ROADMAP.md, queue 1 item 9)."
+        f"{what} is not ported to stheno_torch yet (see ROADMAP.md, queue 1 item {item})."
     )
 
 

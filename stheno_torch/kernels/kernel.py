@@ -28,6 +28,7 @@ with the card, and ``s2 == 1`` would drop the scaling and with it the
 gradient with respect to ``s2``).
 """
 
+import contextlib
 import math
 import numbers
 
@@ -1133,6 +1134,34 @@ class PeriodicKernel(_InputWrappedKernel):
     __hash__ = Kernel.__hash__
 
 
+@contextlib.contextmanager
+def prime_scalar(obj):
+    """A block within which ``obj._scalar``, and that of every kernel and
+    mean it holds, reads inputs made before a ``torch.func`` transform
+    runs it: an object with such inputs (the posterior objects) defines
+    ``_scalar_inputs``, whose value is left on it until the block ends. A
+    tensor made inside a transform is a wrapper of it, and one made for
+    this evaluation must not stand in for a later one under another grad
+    mode or jitter."""
+    primed = []
+    _prime(obj, primed)
+    try:
+        yield
+    finally:
+        for o in primed:
+            del o.__dict__["_scalar_primed"]
+
+
+def _prime(obj, primed):
+    inputs = getattr(obj, "_scalar_inputs", None)
+    if inputs is not None and "_scalar_primed" not in obj.__dict__:
+        obj.__dict__["_scalar_primed"] = inputs()
+        primed.append(obj)
+    for v in vars(obj).values():
+        if hasattr(v, "_scalar"):
+            _prime(v, primed)
+
+
 class DerivativeKernel(Kernel):
     """Derivative of a kernel.
 
@@ -1242,9 +1271,10 @@ class DerivativeKernel(Kernel):
         if factors is not None:
             return Dense(factors * mat_dense(self.k._pairwise(x, y)))
         fm = vmap(vmap(self._deriv_scalar_fn(), in_dims=(None, 0)), in_dims=(0, None))
-        if x.ndim > 2 or y.ndim > 2:
-            return Dense(self._batched(fm, x, y))
-        return Dense(fm(x, y))
+        with prime_scalar(self.k):
+            if x.ndim > 2 or y.ndim > 2:
+                return Dense(self._batched(fm, x, y))
+            return Dense(fm(x, y))
 
     def _elwise(self, x, y):
         from torch.func import vmap
@@ -1257,9 +1287,10 @@ class DerivativeKernel(Kernel):
                 factors = factors[..., :, None]
             return factors * self.k._elwise(x, y)
         fv = vmap(self._deriv_scalar_fn())
-        if x.ndim > 2:
-            return self._batched(fv, x, y)[..., None]
-        return fv(x, y)[:, None]
+        with prime_scalar(self.k):
+            if x.ndim > 2:
+                return self._batched(fv, x, y)[..., None]
+            return fv(x, y)[:, None]
 
     @property
     def stationary(self):

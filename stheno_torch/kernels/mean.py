@@ -389,9 +389,12 @@ class DerivativeMean(Mean):
     def _eval(self, x):
         from torch.func import vmap
 
+        from .kernel import prime_scalar
+
         if x.ndim > 2:
             raise NotImplementedError("Batched inputs are not supported for derivative means.")
-        return vmap(self._scalar)(x)[:, None]
+        with prime_scalar(self.m):
+            return vmap(self._scalar)(x)[:, None]
 
     def _scalar(self, x):
         from torch.func import grad

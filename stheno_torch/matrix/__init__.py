@@ -15,6 +15,7 @@ from .extend import (
     clear_rules,
     dispatch_extension,
     extension_rule,
+    register_matrix_type,
     register_rule,
 )
 from .ops import *  # noqa: F401,F403
@@ -32,6 +33,7 @@ __all__ = [
     "Woodbury",
     "Zero",
     "is_structured",
+    "register_matrix_type",
     "register_rule",
     "extension_rule",
     "dispatch_extension",

@@ -537,7 +537,10 @@ def _auto_policy_use_fast(mat):
 
 
 def _chol_dense(mat):
-    """Jittered dense Cholesky: ``(L, Linv_or_None)``."""
+    """Jittered dense Cholesky of the symmetric part of ``mat`` (as
+    ``jnp.linalg.cholesky`` factors it; a symmetric matrix passes through
+    bit for bit): ``(L, Linv_or_None)``."""
+    mat = _sym(mat)
     n = mat.shape[-1]
     eps = config.jitter(mat.dtype)
     adaptive = config.adaptive_jitter

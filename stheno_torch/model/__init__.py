@@ -1,6 +1,8 @@
 from .fdd import FDD, noise_as_matrix, take
 from .gp import GP, assert_same_measure, cross, intersection_measure_group
 from .measure import Measure
+from .pathwise import pathwise_sampler
+from .svgp import svgp_elbo, svgp_init, svgp_natgrad_step, svgp_predict
 from .observations import (
     AbstractObservations,
     AbstractPseudoObservations,
@@ -26,6 +28,11 @@ __all__ = [
     "assert_same_measure",
     "intersection_measure_group",
     "Measure",
+    "pathwise_sampler",
+    "svgp_init",
+    "svgp_elbo",
+    "svgp_predict",
+    "svgp_natgrad_step",
     "combine",
     "AbstractObservations",
     "Observations",
