@@ -34,7 +34,18 @@ on the card, and drives the port's paths through their entry points:
   and masked, against float64 on the card within twice the JAX package's
   own float32 error; example 2's decomposition and example 5's
   derivative model at N=2000 against float64 on the CPU; K1 (rq), its
-  backward and K2 at their shapes.
+  backward and K2 at their shapes;
+- item 9 (phase ``item9_path``): the structured grids of
+  ``bench.py:bench_structured_grids`` (the circulant NLML and gradient at
+  N=2^20 and its posterior, the exact Kronecker NLML and gradient on the
+  1024 x 1024 grid), each against float64 on the card within twice the
+  JAX package's own float32 error; the compensated (small-noise) operator
+  of ``bench_compensated_262k``, K3's float64 route on promoted inputs and
+  the double-float tiles, against a float64 direct-difference reference,
+  and its representer-weights solve at noise 0.01 gated at bench.py's true
+  residual; the slice products' exactness; the tile options (bfloat16
+  tiles from K1's float32-in, bfloat16-out instance, the bfloat16-basis
+  variance cache, the symmetric sweep).
 
 The training step's surrogate, its Gram term's value and gradient, is
 one launch of the fused Gram-gradient kernel (``csrc/gram_matvec_vjp.cu``),
@@ -63,6 +74,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -137,6 +149,34 @@ KERNELS = {
         "source": "stheno_torch/ops/csrc/chol_tile.cu",
         "replaces": "stheno_tpu/ops/pallas_chol.py:112",
     },
+    # Item 9 (phase item9_path): K1 and its backward at a Kronecker factor,
+    # K1 at the grid variance's cross Gram, K3 at the grid mean's cross
+    # product, K3's float64 route as the compensated operator, and K1's
+    # float32-in, bfloat16-out tile.
+    "gram_kron": {
+        "source": "stheno_torch/ops/csrc/gram.cu",
+        "replaces": "stheno_tpu/ops/gram.py:92",
+    },
+    "gram_bwd_kron": {
+        "source": "stheno_torch/ops/csrc/gram_bwd.cu",
+        "replaces": "stheno_tpu/ops/gram.py:198",
+    },
+    "gram_grid_var": {
+        "source": "stheno_torch/ops/csrc/gram.cu",
+        "replaces": "stheno_tpu/ops/gram.py:92",
+    },
+    "gram_matvec_grid_mean": {
+        "source": "stheno_torch/ops/csrc/gram_matvec.cu",
+        "replaces": "stheno_tpu/ops/gram_matvec.py:53",
+    },
+    "gram_matvec_compensated": {
+        "source": "stheno_torch/ops/csrc/gram_matvec_f64.cu",
+        "replaces": "stheno_tpu/ops/gram_matvec.py:53",
+    },
+    "gram_bf16_tiles": {
+        "source": "stheno_torch/ops/csrc/gram.cu",
+        "replaces": "stheno_tpu/ops/gram.py:92",
+    },
 }
 
 # The matrix-free path's size (bench.py:bench_iterative_262k).
@@ -194,6 +234,28 @@ JAX_F32_ITEM8 = {
     "svgp_minibatch_grad_log_ell_rel": 1.7805776425600566,
     "svgp_minibatch_grad_z_rel": 201.78429295292173,
     "svgp_full_elbo_rel": 5.089796589591074e-04,
+}
+
+
+# The JAX package's own float32 error on the structured grids, on the CPU
+# (scripts/jax_item9_f32_error.py, recorded in PERF.md): the N=2^20
+# circulant step's NLML value and gradient (normwise, with respect to log
+# s2 and log ell), float32 against float64 from the same probes, and the
+# 1024 x 1024 Kronecker step's; and the grid posterior's mean at 4096
+# points, largest error over the largest float64 value. Phase item9_path
+# allows twice each. At the grid's settings the JAX package's CG stops at
+# 100 iterations short of tol 1e-2 in both dtypes (relative residual 0.109
+# in float32, 0.063 in float64), and float32 keeps almost no digit of
+# either gradient. Its float32 posterior variance keeps none (error 1.0 of
+# the largest float64 variance: float32's reduction exceeds the prior, and
+# the clamp gives 0), so the port's is held finite and nonnegative only,
+# and the posterior is gated in float64 at N=4096 against the dense GP.
+JAX_F32_ITEM9 = {
+    "grid_value_rel": 4.3947666746793206e-04,
+    "grid_grad_rel": 6.205276198546918e-01,
+    "kron_value_rel": 7.476384907853471e-05,
+    "kron_grad_rel": 9.940651953351669e-01,
+    "grid_mean_rel": 1.893446987080664e-01,
 }
 
 
@@ -1397,10 +1459,11 @@ def _k3_times():
     return rows, shapes
 
 
-def k3_shape_times(rows, cols, v, exps_per_s):
+def k3_shape_times(rows, cols, v, exps_per_s, block=None):
     """K3 (eq) per call for ``rows`` by ``cols`` (d = 1) times ``v``, as
     ``_k3_times`` describes: its route, CUDA-event and device times, plain
-    version, the 8192-row-block library sweep and bounds."""
+    version, the 8192-row-block library sweep and bounds (``block``: the
+    plain version's and the library sweep's row block instead)."""
     from stheno_torch.ops import gram_matvec as K3
 
     dtype = rows.dtype
@@ -1408,7 +1471,7 @@ def k3_shape_times(rows, cols, v, exps_per_s):
 
     def library():
         return torch.cat([torch.exp(-0.5 * torch.cdist(xb, cols).square()) @ v
-                          for xb in torch.split(rows, 8192)])
+                          for xb in torch.split(rows, block or 8192)])
 
     byts = (n * d + m * d + m * p + n * p) * rows.element_size()
     if dtype == torch.float64:
@@ -1426,7 +1489,8 @@ def k3_shape_times(rows, cols, v, exps_per_s):
         "route": K3.route(n, m, p, dtype),
         "ms": time_ms(call, reps=3, warmup=1),
         "device_ms": device_ms(call, reps=1 if slow else 3),
-        "plain_ms": time_ms(lambda: K3.gram_matvec_plain("eq", rows, cols, v),
+        "plain_ms": time_ms(lambda: K3.gram_matvec_plain("eq", rows, cols, v,
+                                                         block=block or 4096),
                             reps=1 if slow else 3, warmup=1),
         "library_ms": time_ms(library, reps=1 if slow else 3, warmup=1),
         "bound_ms": b_ms,
@@ -3003,6 +3067,531 @@ def _svgp_f64_limit(what):
     return max(1e-8, 2 * JAX_F32_ITEM8[key] * 2.0 ** -29)
 
 
+# ---------------------------------------------------------------------------
+# Item 9: the structured-grid (circulant FFT) and Kronecker paths of
+# bench.py:bench_structured_grids, the small-noise (compensated) operator of
+# bench_compensated_262k, and the tile options.
+
+
+def _grid_value_grad(axis, y, params, u, om):
+    """``grid_iterative_nlml``'s step (``entry.grid_nlml_1m_step``'s
+    settings) on given probes ``u`` and ``om``: the NLML core with the FFT
+    matvec, so a float32 and a float64 run share their probes."""
+    from stheno_torch import entry as E
+    from stheno_torch.iterative import nlml as NL
+    from stheno_torch.iterative import toeplitz as TZ
+
+    shape = (axis.shape[0],)
+
+    def mv(k, xx, v, nz):
+        return TZ.grid_matvec(k, TZ._axes_from_coords(xx, shape), v, noise=nz)
+
+    def fn(p):
+        return NL._nlml(p, y, E.GRID_NOISE, TZ.grid_coords((axis,)), u, om, None, E.grid_kernel,
+                        1e-2, 100, 20, 64, "eig", 1, matvec_fn=mv)[0]
+
+    return E._value_and_grad(fn, params, True)
+
+
+def _f64_direct_rows(x, v, rows, noise, gram):
+    """``(G + noise I) v`` on the first ``rows`` rows, in float64, by direct
+    differencing: ``gram(d2)`` of ``d2 = (x_i - x_j)^2``, 512 rows at once."""
+    xd, vd = x.double(), v.double()
+    out = []
+    for r0 in range(0, rows, 512):
+        d = xd[r0:r0 + 512, None] - xd[None, :]
+        out.append(gram(d * d) @ vd + noise * vd[r0:r0 + 512])
+    return torch.cat(out)
+
+
+def _slice_exactness():
+    """The Ozaki split's slice products on the card, at the largest
+    magnitudes ``split_two_slices`` allows (entries 128 times their
+    power-of-two scale, some rows and columns all 128, so partial sums reach
+    2^23 over a 512-wide block): the route the code takes (float32 storage,
+    full-float32 products, ``compensated._exact_slice_matmul``) held bitwise
+    against float64 products of the same slices; bfloat16 storage through
+    ``torch.bmm`` (whose result is bfloat16) and ``aten::bmm.dtype`` with a
+    float32 output recorded beside it."""
+    from stheno_torch.iterative import compensated as CP
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    m, c, p = 256, 8192, 8
+    A = torch.randint(-128, 129, (m, c), generator=gen, device="cuda").float()
+    B = torch.randint(-128, 129, (c, p), generator=gen, device="cuda").float()
+    A[:8], A[8:16], B[:, :4] = 128.0, -128.0, 128.0
+    A = A * torch.ldexp(torch.ones(m, 1, device="cuda"),
+                        torch.randint(-40, 40, (m, 1), generator=gen, device="cuda"))
+    B = B * torch.ldexp(torch.ones(1, p, device="cuda"),
+                        torch.randint(-40, 40, (1, p), generator=gen, device="cuda"))
+    blocks = lambda t, dt: (t.to(dt).reshape(m, -1, 512).transpose(0, 1),  # noqa: E731
+                            B.to(dt).reshape(-1, 512, p))
+    exact = torch.bmm(*blocks(A, torch.float64))
+    out = {"shape": [m, c, p], "sub": 512, "largest_partial_sum": 2.0**23}
+    out["float32_parts_bitwise"] = bool(torch.equal(torch.bmm(*blocks(A, torch.float32)).double(),
+                                                    exact))
+    hi, lo = CP._exact_slice_matmul(A, B, 512)
+    out["float32_pair_exact"] = bool(torch.equal(hi.double() + lo.double(), exact.sum(0)))
+    bf = torch.bmm(*blocks(A, torch.bfloat16))
+    out["bfloat16_bmm_dtype"] = str(bf.dtype)
+    out["bfloat16_bmm_bitwise"] = bool(torch.equal(bf.double(), exact))
+    try:
+        od = torch.ops.aten.bmm.dtype(*blocks(A, torch.bfloat16), torch.float32)
+        out["bmm_dtype_float32_bitwise"] = bool(torch.equal(od.double(), exact))
+    except (AttributeError, RuntimeError) as e:
+        out["bmm_dtype_float32_bitwise"] = f"not available ({type(e).__name__})"
+    check(out["float32_parts_bitwise"] and out["float32_pair_exact"],
+          f"the float32 slice products are not exact on this card: {out}")
+    return out
+
+
+def _bf16_tile_plain(x, v, params, rows=2048):
+    """The plain version of the bfloat16-tile matvec on its first ``rows``
+    rows: the float32 plain tile rounded once to bfloat16, times ``v``
+    rounded, summed in float32; and its tolerance against the card, entry
+    by entry: the two tiles within ``_gram_atol`` plus one bfloat16 rounding
+    (``_bf16_tol``) of each other, times ``|v|``, plus the float32 sums'
+    order (``_gmv_rtol`` of the scale)."""
+    from stheno_torch.ops import gram as K1
+
+    xw = (x / torch.exp(params["log_ell"]))[:, None].contiguous()
+    G = K1.gram_plain("eq", xw[:rows], xw)
+    vb = v.to(torch.bfloat16).float()
+    ref = G.to(torch.bfloat16).float() @ vb
+    atol = _gram_atol("eq", xw, xw)
+    scale = G.abs() @ vb.abs()
+    tol = (atol + 2.0**-7 * (G.abs() + atol)) @ vb.abs() + _gmv_rtol(x.shape[0], v.dtype) * scale
+    return ref, tol
+
+
+def _k1_bf16_tile_times(xb, x):
+    """K1's float32-in, bfloat16-out instance at the tile option's tile,
+    ``xb (8192, 1)`` by ``x (262,144, 1)``: against its plain version (the
+    float32 plain tile rounded once, ``_bf16_tol`` of ``_gram_atol``), its
+    CUDA-event and device times, the plain version, ``exp(-0.5 cdist^2)``
+    cast to bfloat16, and the bound (the float32 inputs read once, the
+    bfloat16 tile written once)."""
+    from stheno_torch.ops import gram as K1
+
+    n, m = xb.shape[0], x.shape[0]
+    call = lambda: K1.gram("eq", xb, x, out_dtype=torch.bfloat16)  # noqa: E731
+    plain = lambda: K1.gram_plain("eq", xb, x).to(torch.bfloat16)  # noqa: E731
+    K = call()
+    check(K.dtype == torch.bfloat16, f"the bfloat16 tile's dtype {K.dtype}")
+    # Held in chunks of 1024 rows: the whole tile's float64 differences
+    # would take about 70 GB.
+    atol, held = _gram_atol("eq", xb, x), []
+    for r0 in range(0, n, 1024):
+        P = K1.gram_plain("eq", xb[r0:r0 + 1024], x).to(torch.bfloat16)
+        held.append(_hold(K[r0:r0 + 1024], P, _bf16_tol(atol, P), "gram eq f32 -> bf16 tile"))
+        del P
+    err, over = max(e for e, _ in held), max(o for _, o in held)
+    del K
+    b_ms, b_by = bound((n + m) * 4 + n * m * 2, n * m * 6, torch.float32)
+    return {"shape": [n, m, 1], "dtype": "float32 -> torch.bfloat16", "max_abs_err": err,
+            "of_tol": over, "ms": time_ms(call, inner=5),
+            "device_ms": device_ms_per_call(call, inner=5),
+            "plain_ms": time_ms(plain, reps=5, warmup=1),
+            "library_ms": time_ms(
+                lambda: torch.exp(-0.5 * torch.cdist(xb, x).square()).to(torch.bfloat16), reps=5),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _k3_item9_times(rows, cols, v, tag, exps_per_s, block=4096):
+    """K3 (eq, d = 1) at an item-9 shape: held against its plain version
+    (``_gmv_rtol`` of ``|G| @ |v|``, as phase gram_matvec), then timed by
+    ``k3_shape_times`` (the plain version and library sweep in row blocks of
+    ``block``)."""
+    from stheno_torch.ops import gram_matvec as K3
+
+    got = K3.gram_matvec("eq", rows, cols, v)
+    ref = torch.cat([K3.gram_matvec_plain("eq", rb, cols, v) for rb in torch.split(rows, block)])
+    rtol = _gmv_rtol(cols.shape[0], rows.dtype)
+    scale = torch.cat([_gmv_atol_scale("eq", rb, cols, v) for rb in torch.split(rows, block)])
+    rel = float(((got - ref).abs() / scale.clamp_min(1e-30)).max())
+    check(rel <= rtol, f"gram_matvec eq {tag}: error {rel} of |G||v| > {rtol}")
+    out = {"max_abs_err": max_err(got, ref), "max_rel_err_of_scale": rel, "rtol": rtol}
+    del got, ref, scale
+    return {**out, **k3_shape_times(rows, cols, v, exps_per_s, block=block)}
+
+
+def phase_item9_path(smi):
+    """Item 9 through the user's entry points (``stheno_torch.entry``), on
+    the card, in float32 unless stated (one JSON line per part, then the
+    gates):
+
+    (a) the circulant grid of ``bench_structured_grids``: the N=2^20 NLML
+        value and gradient (the step's settings: 8 probes, CG tol 1e-2 at
+        most 100 iterations, rank 64), traced (no K1 or K3: FFTs only),
+        timed (median of 3) and its own peak memory read; against float64
+        on the card from the same probes (drawn in float64, cast down, the
+        core of ``grid_iterative_nlml``), value and gradient within twice
+        the JAX package's own float32 error (``JAX_F32_ITEM9``); at N=4096
+        (rank 256, 16 probes, tol 1e-8) the float64 step against the dense
+        GP's exact logpdf
+        (``tests/test_toeplitz.py``'s bounds: value rtol 2e-3, gradient
+        rtol 0.25 with atol 0.5); the posterior mean at 4096 points (K3)
+        against float64 on the card within twice the JAX package's float32
+        error, the variance at 512 (K1 cross Grams) held finite and
+        nonnegative (float32 keeps no digit of it in either package), and
+        at N=4096 in float64 the posterior at 128 points against the dense
+        GP's marginals (mean rtol 1e-6, variance 1e-4, atol 1e-8);
+    (b) the Kronecker 1024 x 1024 grid: value and gradient traced, timed,
+        peak memory, against float64 on the card within twice the JAX
+        package's float32 error; ``eigh``'s and a mode product's time
+        beside K1's at the factor; the exact posterior at 4096 points;
+    (c) the compensated operator: the slice products' exactness
+        (``_slice_exactness``); ``compensated_matvec8_262k`` (K3's float64
+        route), timed once after a warm call and traced, against a float64
+        direct-difference reference on 8192 rows (3e-7 of the largest
+        entry, ``tests/test_compensated.py``'s bound), its own peak
+        memory; the double-float route for ``EQ() + 0.5 Matern32()`` at
+        N=65,536, p=8, timed and gated the same way; the small-noise weights
+        at N=262,144 (true residual <= 1e-4, ``bench.py``'s gate), the
+        plain float32 path's residual beside it; pathwise draws at n=512,
+        noise 1e-5 through the compensated solve within 0.05 of ``y``;
+    (d) the tile options: ``kernel_matvec(tile_dtype=bf16)`` at N=262,144,
+        p=17 against its plain version (the same rounded tiles) and
+        against float32 (bfloat16's 2^-6 of the largest float32 entry);
+        ``variance_cache(basis_tile_dtype=bf16)`` at ``bench.py``'s
+        settings, timed, its variance within 5e-4 of the float32 basis's
+        (``bench.py:373``); ``symmetric=True`` at N=65,536 against the row
+        sweep (``_gmv_rtol`` of ``|G| @ |v|``).
+
+    Every traced K1, K1-backward and K3 count equals the wrappers'. Returns
+    the kernels line's rows: K1 at the Kronecker factor and at the grid
+    variance's 2^20 x 512 cross Gram, K1's backward at the factor, K3 at
+    the grid mean's 4096 x 2^20, p=1, K3's float64 route at the compensated
+    matvec's 262,144^2, p=8, and K1's bfloat16 tile at the tile option's
+    8192 x 262,144."""
+    from stheno_torch import EQ, GP, Matern32
+    from stheno_torch import entry as E
+    from stheno_torch import iterative as it
+    from stheno_torch.iterative import kron as KR
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gates, path, pending = [], {}, []
+    kernels_all = K1_KERNELS + K3_KERNELS
+
+    def part(name, **numbers):
+        # The part's numbers first, then its gates: a failed gate's line
+        # still carries every number beside it.
+        emit({"phase": "item9_path", "part": name, "nvidia_smi": smi, **numbers})
+        for what, got, limit in pending:
+            check(got <= limit, f"item9_path {what}: {got} exceeds {limit}")
+        pending.clear()
+
+    def gate(what, got, limit):
+        gates.append({"what": what, "got": got, "limit": limit})
+        pending.append((what, got, limit))
+
+    def gen(seed=0):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def synced_s(fn, reps=3):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return statistics.median(out), out
+
+    # (a) The circulant grid, N=2^20.
+    axis, y, params = E.grid_1m_inputs()
+    n = axis.shape[0]
+    step = lambda: E.grid_nlml_1m_step(axis, y, params, gen())  # noqa: E731
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        (v32, g32), counts = _launched(step)
+    grid = {"n": n, "launches": counts, "value": float(v32),
+            "grad": {k: float(t) for k, t in g32.items()},
+            "warnings": sorted({str(w.message)[:160] for w in rec})}
+    check(bool(torch.isfinite(v32)) and all(bool(torch.isfinite(t)) for t in g32.values()),
+          "the grid NLML or its gradient is not finite")
+    grid["value_grad_s"], grid["value_grad_s_samples"] = synced_s(step)
+    grid["value_grad_peak_bytes"] = _own_peak(step)
+    grid["profile"] = _traced_exact("grid_nlml_1m_value_grad", step, kernels_all)
+    u64 = torch.randn(n, 8, generator=gen(1), device="cuda", dtype=torch.float64)
+    om64 = torch.randn(n, 64, generator=gen(1), device="cuda", dtype=torch.float64)
+    f32 = _grid_value_grad(axis, y, params, u64.float(), om64.float())
+    a64, y64, p64 = E.grid_1m_inputs(dtype=torch.float64)
+    f64 = _grid_value_grad(a64, y64, p64, u64, om64)
+    grid["same_probes"] = {"value_f32": float(f32[0]), "value_f64": float(f64[0]),
+                           "value_rel": _rel(f32[0], f64[0]),
+                           "grad_f64": {k: float(t) for k, t in f64[1].items()}}
+    grid["same_probes"]["grad_rel"], grid["same_probes"]["grad_rel_each"] = _grad_rel(f32[1],
+                                                                                      f64[1])
+    gate("grid N=2^20 value (same probes) against float64", grid["same_probes"]["value_rel"],
+         2 * JAX_F32_ITEM9["grid_value_rel"])
+    gate("grid N=2^20 gradient (same probes) against float64", grid["same_probes"]["grad_rel"],
+         2 * JAX_F32_ITEM9["grid_grad_rel"])
+    del u64, om64, a64, y64, f64
+    # The float64 step against the dense GP at N=4096.
+    a4, y4, p4 = E.grid_1m_inputs(n=4096, dtype=torch.float64)
+    v4, g4 = E.grid_nlml_1m_step(a4, y4, p4, gen(), num_probes=16, cg_tol=1e-8,
+                                 max_cg_iters=500, slq_steps=30, precond_rank=256)
+    leaves = {k: t.clone().requires_grad_(True) for k, t in p4.items()}
+    with torch.enable_grad():
+        f = GP(E.grid_kernel(leaves))
+        dense_v = -f.measure.logpdf(f(a4, E.GRID_NOISE), y4)
+        dense_g = dict(zip(leaves, torch.autograd.grad(dense_v, list(leaves.values()))))
+    grid["n4096_f64"] = {"value": float(v4), "dense_value": float(dense_v.detach()),
+                         "value_rel": _rel(v4, dense_v),
+                         "grad": {k: float(t) for k, t in g4.items()},
+                         "dense_grad": {k: float(t) for k, t in dense_g.items()}}
+    gate("grid N=4096 float64 value against the dense logpdf", grid["n4096_f64"]["value_rel"],
+         2e-3)
+    for k in g4:
+        gate(f"grid N=4096 float64 gradient {k} against the dense one",
+             abs(float(g4[k]) - float(dense_g[k])), 0.5 + 0.25 * abs(float(dense_g[k])))
+    # The posterior on the grid.
+    post = lambda: E.grid_posterior_1m(axis, y, params)  # noqa: E731
+    (mean, var, minfo), counts = _launched(post)
+    path["grid_posterior"] = counts
+    a64, y64, p64 = E.grid_1m_inputs(dtype=torch.float64)
+    mean64, var64, minfo64 = E.grid_posterior_1m(a64, y64, p64, chunk=128)
+    check(bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all())
+          and mean.shape == (4096,) and var.shape == (512,), "the grid posterior's shapes")
+    check(bool((var >= 0).all()), "the grid posterior variance is negative")
+    gp = {"launches": counts, "mean_cg_iters": minfo["iters"],
+          "mean_cg_rel_residual": float(minfo["rel_residual"]),
+          "mean_cg_iters_f64": minfo64["iters"],
+          "mean_rel": max_err(mean, mean64) / float(mean64.abs().max()),
+          "mean_f64_max": float(mean64.abs().max()),
+          "var_rel": max_err(var, var64) / float(var64.abs().max()),
+          "var_f64_max": float(var64.abs().max())}
+    gate("grid posterior mean against float64", gp["mean_rel"],
+         2 * JAX_F32_ITEM9["grid_mean_rel"])
+    del a64, y64, mean64, var64
+    # The posterior in float64 at N=4096 against the dense GP's marginals
+    # (tests/test_toeplitz.py's bounds: mean rtol 1e-6, variance 1e-4).
+    xn4 = torch.linspace(0.5, 99.5, 128, dtype=torch.float64, device="cuda")
+    with torch.no_grad():
+        m4 = it.grid_posterior_mean(E.grid_kernel, p4, a4, y4, E.GRID_NOISE, xn4, cg_tol=1e-10,
+                                    precond_rank=256)[0]
+        s4 = it.grid_posterior_var(E.grid_kernel, p4, a4, y4, E.GRID_NOISE, xn4, cg_tol=1e-10,
+                                   precond_rank=256)
+        f = GP(E.grid_kernel(p4))
+        dm, dv = (f | (f(a4, E.GRID_NOISE), y4))(xn4).marginals()
+    gp["n4096_f64"] = {"mean_max_abs_err": max_err(m4, dm), "var_max_abs_err": max_err(s4, dv)}
+    gate("grid N=4096 float64 posterior mean against the dense one, of its tolerance",
+         float(((m4 - dm).abs() / (1e-6 * dm.abs() + 1e-8)).max()), 1.0)
+    gate("grid N=4096 float64 posterior variance against the dense one, of its tolerance",
+         float(((s4 - dv).abs() / (1e-4 * dv.abs() + 1e-8)).max()), 1.0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gp["s"], gp["s_samples"] = synced_s(post, reps=1)
+    gp["peak_bytes"] = _own_peak(post)
+    gp["profile"] = _traced_exact("grid_posterior_1m", post, kernels_all)
+    grid["posterior"] = gp
+    exps_per_s, mhz = sfu_exps_per_s()
+    xq = torch.linspace(0.0, 100.0, 4096, device="cuda")[:, None]
+    rows = {"gram_matvec_grid_mean": _k3_item9_times(
+        xq, axis[:, None], torch.randn(n, 1, generator=gen(2), device="cuda"),
+        "grid mean 4096 x 2^20 p=1", exps_per_s, block=1024),
+        "gram_grid_var": k1_sparse_times(axis[:, None],
+                                         torch.linspace(0.0, 100.0, 512, device="cuda")[:, None])}
+    rows["gram_matvec_grid_mean"]["sm_clock_mhz"] = mhz
+    part("grid_n1048576", **grid)
+    del axis, y, mean, var
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) The Kronecker grid, 1024 x 1024.
+    ax1, ax2, yk, pk = E.kron_1m_inputs()
+    kstep = lambda: E.kron_nlml_1m_step(ax1, ax2, yk, pk)  # noqa: E731
+    (kv, kg), counts = _launched(kstep)
+    path["kron"] = counts
+    check(counts["gram"] == 2 and counts["gram_bwd"] == 2, f"the Kronecker step's launches {counts}")
+    k64 = E.kron_nlml_1m_step(ax1.double(), ax2.double(), yk.double(),
+                              {k: t.double() for k, t in pk.items()})
+    kr = {"n": [1024, 1024], "launches": counts, "value": float(kv), "value_f64": float(k64[0]),
+          "value_rel": _rel(kv, k64[0]), "grad_f64": {k: float(t) for k, t in k64[1].items()}}
+    kr["grad_rel"], kr["grad_rel_each"] = _grad_rel(kg, k64[1])
+    gate("Kronecker value against float64", kr["value_rel"], 2 * JAX_F32_ITEM9["kron_value_rel"])
+    gate("Kronecker gradient against float64", kr["grad_rel"], 2 * JAX_F32_ITEM9["kron_grad_rel"])
+    kr["value_grad_s"], kr["value_grad_s_samples"] = synced_s(kstep)
+    kr["value_grad_peak_bytes"] = _own_peak(kstep)
+    kr["profile"] = _traced_exact("kron_1m_value_grad", kstep, kernels_all)
+    K = KR.kron_gram_factors(E.kron_kernels(pk), (ax1, ax2))[0]
+    T = yk.reshape(1024, 1024)
+    kr["eigh_1024_ms"] = time_ms(lambda: torch.linalg.eigh(K), reps=5)
+    kr["mode_product_1024_ms"] = time_ms(lambda: KR._mode_apply(K, T, 1), reps=5)
+    (km, kvar), counts = _launched(lambda: E.kron_posterior_1m(ax1, ax2, yk, pk))
+    check(bool(torch.isfinite(km).all()) and bool((kvar >= 0).all()),
+          "the Kronecker posterior is not finite")
+    kr["posterior_4096"] = {"launches": counts,
+                            "ms": time_ms(lambda: E.kron_posterior_1m(ax1, ax2, yk, pk), reps=3)}
+    xs = (ax1 / torch.exp(pk["log_ell1"]))[:, None].contiguous()
+    rows["gram_kron"] = k1_sparse_times(xs, xs.clone())
+    rows["gram_bwd_kron"] = k1_bwd_sparse_times(xs, xs.clone())
+    kr["gram_factor_ms"] = rows["gram_kron"]["ms"]
+    part("kron_1024x1024", **kr)
+    del K, T
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) The compensated operator.
+    part("slice_products", **_slice_exactness())
+    x, yc, v = E.compensated_262k_inputs()
+    mv8 = lambda: E.compensated_matvec8_262k(x, v)  # noqa: E731
+    got, counts = _launched(mv8)
+    path["compensated"] = counts
+    check(counts["gram_matvec_dmma"] == 1 and counts["gram"] == 0,
+          f"the compensated matvec's launches {counts}: one float64 K3")
+    eq = lambda d2: torch.exp(-0.5 * d2)  # noqa: E731
+    ref = _f64_direct_rows(x, v, 8192, E.SMALL_NOISE, eq)
+    comp = {"n": x.shape[0], "p": 8, "launches": counts,
+            "rel_err_8192_rows": max_err(got[:8192], ref) / float(ref.abs().max())}
+    gate("compensated matvec8 (K3 float64 route) against float64", comp["rel_err_8192_rows"],
+         3e-7)
+    comp["ms"] = time_ms(mv8, reps=1, warmup=1)
+    comp["peak_bytes"] = _own_peak(mv8)
+    comp["profile"] = _traced_exact("compensated_matvec8_262k", mv8, kernels_all)
+    del got, ref
+    x65, v65 = x[::4].contiguous(), v[::4].contiguous()
+    k2 = EQ() + 0.5 * Matern32()
+    r3 = math.sqrt(3.0)
+    k2_gram = lambda d2: (torch.exp(-0.5 * d2)  # noqa: E731
+                          + 0.5 * (1 + r3 * d2.sqrt()) * torch.exp(-r3 * d2.sqrt()))
+    with torch.no_grad():
+        df = lambda: it.kernel_matvec(k2, x65, v65, noise=E.SMALL_NOISE, block=8192,  # noqa: E731
+                                      compensated=True)
+        got, counts = _launched(df)
+        ref = _f64_direct_rows(x65, v65, 8192, E.SMALL_NOISE, k2_gram)
+        dfr = {"n": x65.shape[0], "p": 8, "kernel": "EQ() + 0.5 * Matern32()",
+               "launches": counts,
+               "rel_err_8192_rows": max_err(got[:8192], ref) / float(ref.abs().max())}
+        gate("compensated matvec (double-float tiles) against float64",
+             dfr["rel_err_8192_rows"], 3e-7)
+        dfr["ms"] = time_ms(df, reps=1, warmup=0)
+        dfr["peak_bytes"] = _own_peak(df)
+        del got, ref
+    comp["double_float_route_n65536"] = dfr
+    t0 = time.perf_counter()
+    alpha, info, res = E.smallnoise_weights_262k(x, yc, gen(1))
+    torch.cuda.synchronize()
+    sn = {"n": x.shape[0], "s": time.perf_counter() - t0, "cg_iters": info["iters"],
+          "cg_rel_residual": float(info["rel_residual"]), "true_residual": float(res)}
+    gate("small-noise weights' true residual (compensated operator)", sn["true_residual"], 1e-4)
+    with torch.no_grad():
+        state = it.eig_precond_state(lambda p_: EQ(), None, x, 256, gen(1), block=8192)
+        plain, pinfo = it.posterior_weights(lambda p_: EQ(), None, x, yc, E.SMALL_NOISE,
+                                            cg_tol=1e-5, max_cg_iters=40, precond_state=state,
+                                            block=8192, compensated=False)
+        pres = yc - it.kernel_matvec(EQ(), x, plain, noise=E.SMALL_NOISE, block=8192,
+                                     compensated=True)
+    sn["plain_f32"] = {"cg_iters": pinfo["iters"],
+                       "true_residual": float(torch.linalg.vector_norm(pres)
+                                              / torch.linalg.vector_norm(yc))}
+    comp["smallnoise_weights"] = sn
+    del alpha, state, plain, pres
+    xs = torch.sort(torch.rand(512, generator=gen(6), device="cuda"))[0] * 10
+    from stheno_torch import pathwise_sampler
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fn, _, pinfo = pathwise_sampler(EQ(), xs, torch.sin(xs), 1e-5, gen(), num_samples=4,
+                                        num_features=2048, solver="cg", cg_tol=1e-8,
+                                        max_cg_iters=600, precond_rank=128, compensated=True,
+                                        return_info=True)
+    comp["pathwise_n512"] = {"cg_iters": pinfo["iters"],
+                             "cg_rel_residual": float(pinfo["rel_residual"]),
+                             "interp_max_abs_err": max_err(fn(xs), torch.sin(xs)[:, None]
+                                                           .expand(512, 4))}
+    gate("compensated pathwise draws interpolate y (n=512, noise 1e-5)",
+         comp["pathwise_n512"]["interp_max_abs_err"], 0.05)
+    x64 = x.double()[:, None]
+    rows["gram_matvec_compensated"] = _k3_item9_times(
+        x64, x64, v.double(), "compensated 262,144^2 p=8 f64", exps_per_s)
+    part("compensated", **comp)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) The tile options.
+    xi, yi, pi = E.iterative_inputs()
+    v17 = torch.randn(xi.shape[0], 17, generator=gen(3), device="cuda")
+    kt = E.iterative_kernel(pi)
+    kb = EQ().stretch(torch.exp(pi["log_ell"]))
+    tiles = {}
+    with torch.no_grad():
+        bf = lambda: it.kernel_matvec(kb, xi, v17, block=8192,  # noqa: E731
+                                      tile_dtype=torch.bfloat16)
+        got, counts = _launched(bf)
+        path["bf16_tiles"] = counts
+        check(counts["gram"] == 32, f"the bfloat16-tile matvec's launches {counts}")
+        ref, tol = _bf16_tile_plain(xi, v17, pi)
+        f32 = it.kernel_matvec(kb, xi, v17, block=8192)
+        over = float(((got[:2048] - ref).abs() / tol).max())
+        tiles["bf16_matvec"] = {"n": xi.shape[0], "p": 17, "launches": counts,
+                                "max_abs_err_vs_plain_2048_rows": max_err(got[:2048], ref),
+                                "of_tol_vs_plain": over,
+                                "rel_err_vs_float32": max_err(got, f32)
+                                / float(f32.abs().max()),
+                                "ms": time_ms(bf, reps=3, warmup=1),
+                                "float32_ms": time_ms(
+                                    lambda: it.kernel_matvec(kb, xi, v17, block=8192), reps=3,
+                                    warmup=1)}
+        gate("bfloat16-tile matvec against its plain version (2048 rows), of its tolerance",
+             over, 1.0)
+        gate("bfloat16-tile matvec against float32", tiles["bf16_matvec"]["rel_err_vs_float32"],
+             2.0**-6)
+        tiles["bf16_matvec"]["profile"] = _traced_exact("bf16_tile_matvec_262k", bf, kernels_all)
+        del got, ref, f32
+    rows["gram_bf16_tiles"] = _k1_bf16_tile_times(
+        (xi[:8192] / torch.exp(pi["log_ell"]))[:, None].contiguous(),
+        (xi / torch.exp(pi["log_ell"]))[:, None].contiguous())
+    cache_bf = lambda: E.serving_variance_cache(xi, pi, gen(11),  # noqa: E731
+                                                basis_tile_dtype=torch.bfloat16)
+    c16 = cache_bf()
+    c32 = E.serving_variance_cache(xi, pi, gen(11))
+    xv = torch.linspace(0.0, 10.0, 2048, device="cuda")
+    agree = max_err(E.serving_var(xi, pi, c16, xv), E.serving_var(xi, pi, c32, xv))
+    tiles["bf16_basis_cache"] = {"rank": 256, "agree_max_abs": agree}
+    gate("bfloat16-basis cache's variance against the float32 basis's", agree, 5e-4)
+    del c16, c32
+    tiles["bf16_basis_cache"]["build_s"], tiles["bf16_basis_cache"]["build_s_samples"] = \
+        synced_s(cache_bf, reps=1)
+    tiles["bf16_basis_cache"]["float32_build_s"] = synced_s(
+        lambda: E.serving_variance_cache(xi, pi, gen(11)), reps=1)[0]
+    x65 = xi[::4].contiguous()
+    v8 = torch.randn(x65.shape[0], 8, generator=gen(4), device="cuda")
+    with torch.no_grad():
+        sym = it.kernel_matvec(kt, x65, v8, block=8192, symmetric=True)
+        row = it.kernel_matvec(kt, x65, v8, block=8192)
+        scale = it.kernel_matvec(kt, x65, v8.abs(), block=8192)
+        rel = float(((sym - row).abs() / scale.clamp_min(1e-30)).max())
+        tiles["symmetric_n65536"] = {
+            "rel_err_of_scale": rel, "rtol": _gmv_rtol(x65.shape[0], torch.float32),
+            "ms": time_ms(lambda: it.kernel_matvec(kt, x65, v8, block=8192, symmetric=True),
+                          reps=3, warmup=1),
+            "row_sweep_ms": time_ms(lambda: it.kernel_matvec(kt, x65, v8, block=8192), reps=3,
+                                    warmup=1)}
+    gate("symmetric sweep against the row sweep (N=65,536)", rel,
+         _gmv_rtol(x65.shape[0], torch.float32))
+    part("tile_options", **tiles)
+    part("kernels", **rows)
+    emit({"phase": "item9_path_gates", "nvidia_smi": smi, "gates": gates,
+          "path_launches": path})
+    launches = {
+        "gram_kron": path["kron"]["gram"], "gram_bwd_kron": path["kron"]["gram_bwd"],
+        "gram_grid_var": path["grid_posterior"]["gram"],
+        "gram_matvec_grid_mean": path["grid_posterior"]["gram_matvec_ffma"],
+        "gram_matvec_compensated": path["compensated"]["gram_matvec_dmma"],
+        "gram_bf16_tiles": path["bf16_tiles"]["gram"],
+    }
+    return [
+        {"name": name, "route": "cuda", "source": KERNELS[name]["source"],
+         "replaces": KERNELS[name]["replaces"], "launches": launches[name],
+         **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")}}
+        for name in launches
+    ]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU.", file=sys.stderr)
@@ -3061,6 +3650,10 @@ def _run_phases():
     check(not idle, f"kernels that the DSL paths never launched: {idle}")
     kernels.extend(dsl)
     run("item8_path", phase_item8_path, smi)
+    item9 = run("item9_path", phase_item9_path, smi)
+    idle = [k["name"] for k in item9 if k["launches"] < 1]
+    check(not idle, f"kernels that item 9's paths never launched: {idle}")
+    kernels.extend(item9)
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     # The card's name and power limit again, beside the kernels' numbers.
     print(smi, flush=True)

@@ -31,6 +31,7 @@ __all__ = [
     "set_matmul_precision",
     "matmul_precision_ctx",
     "pin_matmul_precision",
+    "tf32_products",
     "accurate_dists",
     "accurate_dists_enabled",
     "default_device",
@@ -137,6 +138,19 @@ def matmul_precision_ctx():
         yield
     finally:
         _set_float32_flags(*prev)
+
+
+@contextlib.contextmanager
+def tf32_products():
+    """Context manager: TF32 allowed in cuBLAS's float32 products (the
+    TPU's ``"tensorfloat32"`` tile products, ``iterative.kernel_matvec``),
+    the caller's flag restored on exit."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def pin_matmul_precision(fn):

@@ -54,7 +54,19 @@ the model of ``bench.py:bench_n2000``:
   value and gradient with respect to the log-hyperparameters and the
   inducing inputs) and :func:`svgp_1m_natgrad` (one natural-gradient
   step), the minibatch drawn once by a numpy ``RandomState(0)`` as
-  ``examples/example14_svgp.py`` draws its batches.
+  ``examples/example14_svgp.py`` draws its batches;
+- the structured grids of ``bench.py:bench_structured_grids``: the
+  circulant path on the uniform N=2^20 grid, :func:`grid_1m_inputs`,
+  :func:`grid_nlml_1m_step` (the stochastic NLML and its gradient) and
+  :func:`grid_posterior_1m` (mean at 4096 points, variance at 512), and the
+  Kronecker path on the 1024 x 1024 grid, :func:`kron_1m_inputs`,
+  :func:`kron_nlml_1m_step` (the exact NLML and its gradient) and
+  :func:`kron_posterior_1m`;
+- the small-noise operator of ``bench.py:bench_compensated_262k``:
+  :func:`compensated_262k_inputs`, :func:`compensated_matvec8_262k` (the
+  compensated matvec of 8 right-hand sides at noise 0.01) and
+  :func:`smallnoise_weights_262k` (the compensated representer-weights
+  solve and its true residual through the compensated operator).
 
 Raw inputs go to ``device`` (default ``config.default_device``, the card);
 tensors keep their own device.
@@ -118,6 +130,19 @@ __all__ = [
     "derivative_inputs",
     "derivative_condition",
     "kronecker_inputs",
+    "GRID_NOISE",
+    "grid_kernel",
+    "grid_1m_inputs",
+    "grid_nlml_1m_step",
+    "grid_posterior_1m",
+    "kron_kernels",
+    "kron_1m_inputs",
+    "kron_nlml_1m_step",
+    "kron_posterior_1m",
+    "SMALL_NOISE",
+    "compensated_262k_inputs",
+    "compensated_matvec8_262k",
+    "smallnoise_weights_262k",
     "kronecker_logpdf",
     "PATHWISE_NOISE",
     "pathwise_262k_inputs",
@@ -271,12 +296,13 @@ def serving_mean(x, params, alpha, x_new, *, block=8192):
 
 def serving_variance_cache(x, params, generator, *, noise=ITERATIVE_NOISE, rank=256,
                            power_iters=2, refine=True, cg_tol=1e-3, max_cg_iters=20,
-                           block=4096):
-    """The amortised variance cache of the benchmark's settings."""
+                           block=4096, basis_tile_dtype=None):
+    """The amortised variance cache of the benchmark's settings
+    (``basis_tile_dtype=torch.bfloat16``: its bfloat16-basis build)."""
     return it.variance_cache(
         iterative_kernel, params, x, noise, rank=rank, generator=generator,
         power_iters=power_iters, refine=refine, cg_tol=cg_tol, max_cg_iters=max_cg_iters,
-        block=block,
+        block=block, basis_tile_dtype=basis_tile_dtype,
     )
 
 
@@ -777,3 +803,146 @@ def svgp_1m_natgrad(x, y, theta, params, *, batch=4096, rho=1.0, jitter=None):
     with _jitter(jitter), torch.no_grad():
         return svgp_natgrad_step(svgp_kernel(theta), params, xb, yb, SPARSE_NOISE, x.shape[0],
                                  rho)
+
+
+# ---------------------------------------------------------------------------
+# Structured grids (bench.py:bench_structured_grids) and the small-noise
+# operator (bench.py:bench_compensated_262k).
+
+#: Observation-noise variance of the grid and Kronecker paths.
+GRID_NOISE = 0.1
+
+
+def grid_kernel(params):
+    """``exp(log_s2) * EQ().stretch(exp(log_ell))``."""
+    return torch.exp(params["log_s2"]) * EQ().stretch(torch.exp(params["log_ell"]))
+
+
+def grid_1m_inputs(n=1 << 20, dtype=torch.float32, device=None):
+    """``bench_structured_grids``'s uniform grid: the axis linspace(0, 100,
+    n), ``y = sin(axis) + 0.1 eps`` with ``eps`` from a numpy
+    ``RandomState(0)``, ``log_s2 = log_ell = 0``. Returns ``(axis, y,
+    params)``."""
+    dev = config.resolve_device(device)
+    npd = _np_dtype(dtype)
+    axis = torch.linspace(0.0, 100.0, n, dtype=dtype, device=dev)
+    eps = torch.as_tensor(np.random.RandomState(0).randn(n).astype(npd), device=dev)
+    params = {k: torch.zeros((), dtype=dtype, device=dev) for k in ("log_s2", "log_ell")}
+    return axis, torch.sin(axis) + 0.1 * eps, params
+
+
+def grid_nlml_1m_step(axis, y, params, generator, *, num_probes=8, cg_tol=1e-2,
+                      max_cg_iters=100, slq_steps=20, precond_rank=64):
+    """The benchmark's step: ``grid_iterative_nlml`` of :func:`grid_kernel`
+    under noise 0.1 with its settings (8 probes, CG tol 1e-2 and at most
+    100 iterations, 20 SLQ steps, rank 64): ``(value, grads)``."""
+
+    def fn(p):
+        return it.grid_iterative_nlml(
+            grid_kernel, p, axis, y, GRID_NOISE, generator, num_probes=num_probes,
+            cg_tol=cg_tol, max_cg_iters=max_cg_iters, slq_steps=slq_steps,
+            precond_rank=precond_rank,
+        )
+
+    return _value_and_grad(fn, params, True)
+
+
+def grid_posterior_1m(axis, y, params, *, n_mean=4096, n_var=512, chunk=512):
+    """The posterior on the grid: the mean at ``n_mean`` points and the
+    variance at ``n_var`` points of linspace(0, 100) (CG tol 1e-5, at most
+    300 iterations; rank 256: about 160 eigenvalues of the grid's Gram
+    exceed the noise, sqrt(2 pi) (N / 100) exp(-(pi k / 100)^2 / 2) > 0.1,
+    so the training step's rank 64 would leave the whitened operator's
+    condition near 3e4). Returns ``(mean, var, mean_info)``."""
+    x_mean = torch.linspace(0.0, 100.0, n_mean, dtype=y.dtype, device=y.device)
+    x_var = torch.linspace(0.0, 100.0, n_var, dtype=y.dtype, device=y.device)
+    opts = dict(cg_tol=1e-5, max_cg_iters=300, precond_rank=256, block=8192)
+    mean, info = it.grid_posterior_mean(grid_kernel, params, axis, y, GRID_NOISE, x_mean,
+                                        **opts)
+    var = it.grid_posterior_var(grid_kernel, params, axis, y, GRID_NOISE, x_var, chunk=chunk,
+                                **opts)
+    return mean, var, info
+
+
+def kron_kernels(params):
+    """The per-axis kernels ``(exp(log_s2) * EQ().stretch(exp(log_ell1)),
+    EQ().stretch(exp(log_ell2)))``."""
+    return (torch.exp(params["log_s2"]) * EQ().stretch(torch.exp(params["log_ell1"])),
+            EQ().stretch(torch.exp(params["log_ell2"])))
+
+
+def kron_1m_inputs(n1=1024, n2=1024, dtype=torch.float32, device=None):
+    """``bench_structured_grids``'s tensor grid: the axes linspace(0, 10,
+    n1) and linspace(0, 8, n2), ``y`` a standard normal draw of ``n1 n2``
+    from a numpy ``RandomState(1)``, ``log_s2 = log_ell1 = log_ell2 = 0``.
+    Returns ``(ax1, ax2, y, params)``."""
+    dev = config.resolve_device(device)
+    npd = _np_dtype(dtype)
+    ax1 = torch.linspace(0.0, 10.0, n1, dtype=dtype, device=dev)
+    ax2 = torch.linspace(0.0, 8.0, n2, dtype=dtype, device=dev)
+    y = torch.as_tensor(np.random.RandomState(1).randn(n1 * n2).astype(npd), device=dev)
+    params = {k: torch.zeros((), dtype=dtype, device=dev)
+              for k in ("log_s2", "log_ell1", "log_ell2")}
+    return ax1, ax2, y, params
+
+
+def kron_nlml_1m_step(ax1, ax2, y, params):
+    """The benchmark's step: ``kron_nlml`` of :func:`kron_kernels` under
+    noise 0.1: ``(value, grads)``."""
+    return _value_and_grad(lambda p: it.kron_nlml(kron_kernels, p, (ax1, ax2), y, GRID_NOISE),
+                           params, True)
+
+
+def kron_posterior_1m(ax1, ax2, y, params, *, n_new=4096):
+    """The exact posterior ``(mean, var)`` at ``n_new`` points drawn
+    uniformly over the grid's box from a numpy ``RandomState(3)``."""
+    r = np.random.RandomState(3)
+    xn = r.rand(n_new, 2) * np.array([float(ax1[-1]), float(ax2[-1])])
+    xn = torch.as_tensor(xn.astype(_np_dtype(y.dtype)), device=y.device)
+    with torch.no_grad():
+        return it.kron_posterior(kron_kernels, params, (ax1, ax2), y, GRID_NOISE, xn)
+
+
+#: Observation-noise variance of the small-noise runs: ten times below the
+#: plain float32 path's practical boundary at N=262,144.
+SMALL_NOISE = 0.01
+
+
+def _eq_only(params):
+    return EQ()
+
+
+def compensated_262k_inputs(n=262_144, dtype=torch.float32, device=None):
+    """``bench_compensated_262k``'s data, drawn in its order from one numpy
+    ``RandomState(0)``: ``x`` sorted uniform on [0, 10], ``y = sin x + 0.1
+    eps`` and ``v (n, 8)`` standard normal. Returns ``(x, y, v)``."""
+    dev = config.resolve_device(device)
+    npd = _np_dtype(dtype)
+    r = np.random.RandomState(0)
+    x = torch.as_tensor(np.sort(r.rand(n).astype(npd)) * 10, device=dev)
+    y = torch.sin(x) + 0.1 * torch.as_tensor(r.randn(n).astype(npd), device=dev)
+    v = torch.as_tensor(r.randn(n, 8).astype(npd), device=dev)
+    return x, y, v
+
+
+def compensated_matvec8_262k(x, v):
+    """``(EQ Gram + 0.01 I) @ v`` through the compensated operator."""
+    with torch.no_grad():
+        return it.kernel_matvec(EQ(), x, v, noise=SMALL_NOISE, block=8192, compensated=True)
+
+
+def smallnoise_weights_262k(x, y, generator, *, rank=256):
+    """The benchmark's small-noise solve: a rank-256 eig state of the EQ
+    Gram from ``generator``, the representer weights at noise 0.01 by the
+    compensated whitened CG (tol 1e-5, at most 40 iterations), and the true
+    relative residual ``||y - (K + 0.01 I) alpha|| / ||y||`` through the
+    compensated operator. Returns ``(alpha, info, true_residual)``."""
+    with torch.no_grad():
+        state = it.eig_precond_state(_eq_only, None, x, rank, generator, block=8192)
+        alpha, info = it.posterior_weights(
+            _eq_only, None, x, y, SMALL_NOISE, cg_tol=1e-5, max_cg_iters=40,
+            precond_state=state, block=8192, compensated=True,
+        )
+        resid = y - it.kernel_matvec(EQ(), x, alpha, noise=SMALL_NOISE, block=8192,
+                                     compensated=True)
+        return alpha, info, torch.linalg.vector_norm(resid) / torch.linalg.vector_norm(y)

@@ -1,11 +1,18 @@
 """The matrix-free (iterative) exact-GP path: Gram matvecs, batched CG,
 stochastic Lanczos quadrature, preconditioners, the stochastic NLML and
-the amortised posterior. Counterpart of ``stheno_tpu/iterative``; the
-structured-grid (``toeplitz``), Kronecker (``kron``) and two-float
-compensated paths are not ported yet (``ROADMAP.md``)."""
+the amortised posterior, the structured-grid (``toeplitz``: circulant FFT
+matvecs) and Kronecker (``kron``: exact eigenbasis solves) paths, and the
+two-float compensated operator of small-noise solves (``compensated``).
+Counterpart of ``stheno_tpu/iterative``."""
 
 from .cg import batched_cg
-from .compensated import AUTO_WALL_FACTOR, plain_noise_wall, resolve_compensated
+from .compensated import (
+    AUTO_WALL_FACTOR,
+    compensated_matmul,
+    df32_pairwise,
+    plain_noise_wall,
+    resolve_compensated,
+)
 from .matvec import kernel_matvec
 from .nlml import (
     cached_posterior_mean,
@@ -30,10 +37,21 @@ from .variance import (
     cached_posterior_var,
     variance_cache,
 )
+from .toeplitz import (
+    circulant_spectrum,
+    grid_coords,
+    grid_iterative_nlml,
+    grid_matvec,
+    grid_posterior_mean,
+    grid_posterior_var,
+)
+from .kron import kron_gram_factors, kron_matvec, kron_nlml, kron_posterior
 
 __all__ = [
     "batched_cg",
     "AUTO_WALL_FACTOR",
+    "compensated_matmul",
+    "df32_pairwise",
     "plain_noise_wall",
     "resolve_compensated",
     "kernel_matvec",
@@ -55,4 +73,14 @@ __all__ = [
     "cached_posterior_mean_var",
     "lanczos",
     "slq_logdet",
+    "circulant_spectrum",
+    "grid_coords",
+    "grid_iterative_nlml",
+    "grid_matvec",
+    "grid_posterior_mean",
+    "grid_posterior_var",
+    "kron_gram_factors",
+    "kron_matvec",
+    "kron_nlml",
+    "kron_posterior",
 ]

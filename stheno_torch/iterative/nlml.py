@@ -24,9 +24,15 @@ fused Gram-gradient kernel (``ops/gram_matvec_vjp.py:_GramBilinearFn``)
 gives the surrogate's Gram term and its gradients together, with no K3
 sweep and no Gram tile; for any other expression the checkpointed
 blocked sweep (K1 tiles on the card).
-JAX ``key``s become ``torch.Generator``s. The compensated two-float
-branches are not ported: where the policy resolves to them, the port
-raises ``NotImplementedError``.
+The core takes the JAX package's hooks: ``matvec_fn(k, x, v, noise)``
+replaces the Gram matvec everywhere (the preconditioner build, the CG and
+SLQ solves, and the surrogate, whose bilinear form becomes ``sum(A *
+matvec_fn(...))``, differentiated by autograd): the grid path
+(``toeplitz.py``) passes its FFT matvec. ``fwd_matvec_fn`` replaces it in
+the forward solves only (the compensated operator), and
+``surrogate_matvec_fn`` in the surrogate only (``surrogate_tile_dtype``).
+Without them the core runs exactly the fused default path above.
+JAX ``key``s become ``torch.Generator``s.
 """
 
 import math
@@ -40,7 +46,7 @@ from ..kernels.util import uprank
 from ..matrix import dense
 from .cg import batched_cg
 from .compensated import resolve_compensated
-from .matvec import _kernel_bilinear, kernel_matvec, not_ported
+from .matvec import _kernel_bilinear, kernel_matvec
 from .pchol import (
     eig_preconditioner_factors,
     eig_preconditioner_ops,
@@ -64,6 +70,8 @@ _LOG_2_PI = math.log(2 * math.pi)
 
 
 def _detached(params):
+    if not isinstance(params, dict):
+        return params
     return {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in params.items()}
 
 
@@ -127,8 +135,12 @@ class _Config:
     solve's health dict it hands back."""
 
     def __init__(self, names, kernel_fn, block, cg_tol, max_cg_iters, quad_steps,
-                 precond_rank, precond_method, precond_power_iters):
+                 precond_rank, precond_method, precond_power_iters, matvec_fn=None,
+                 fwd_matvec_fn=None, surrogate_matvec_fn=None):
         self.names = names
+        self.matvec_fn = matvec_fn
+        self.fwd_matvec_fn = fwd_matvec_fn
+        self.surrogate_matvec_fn = surrogate_matvec_fn
         self.kernel_fn = kernel_fn
         self.block = block
         self.cg_tol = cg_tol
@@ -139,12 +151,19 @@ class _Config:
         self.precond_power_iters = precond_power_iters
         self.health = None
 
+    def matvec(self, k, x, v, noise):
+        """The Gram matvec: ``matvec_fn``, or the blocked/fused one."""
+        if self.matvec_fn is not None:
+            return self.matvec_fn(k, x, v, noise)
+        return kernel_matvec(k, x, v, noise=noise, block=self.block)
+
 
 def _nlml_forward(cfg, params, y, noise, x, u, om, pstate):
     """The forward solve: ``(nlml, health, alpha, U, w)``; no autograd."""
     n = x.shape[0]
     k = cfg.kernel_fn(params)
-    mv = lambda v: kernel_matvec(k, x, v, noise=noise, block=cfg.block)  # noqa: E731
+    fwd = cfg.fwd_matvec_fn or cfg.matvec
+    mv = lambda v: fwd(k, x, v, noise)  # noqa: E731
     steps = min(cfg.quad_steps, cfg.max_cg_iters)
     use_eig = pstate is not None or (
         cfg.precond_method == "eig" and bool(cfg.precond_rank) and cfg.precond_rank > 0
@@ -158,7 +177,7 @@ def _nlml_forward(cfg, params, y, noise, x, u, om, pstate):
             Ue, lam = pstate
         else:
             Ue, lam = eig_preconditioner_factors(
-                lambda v: kernel_matvec(k, x, v, block=cfg.block), om, cfg.precond_power_iters
+                lambda v: cfg.matvec(k, x, v, None), om, cfg.precond_power_iters
             )
         _, _, apply_half_inv, logdet_p = eig_preconditioner_ops(Ue, lam, noise, n)
         mv_white = lambda v: apply_half_inv(mv(apply_half_inv(v)))  # noqa: E731
@@ -203,7 +222,9 @@ def _nlml_forward(cfg, params, y, noise, x, u, om, pstate):
             f"stheno_torch.iterative: CG STALLED - rel residual {float(rel):.3e} > tol "
             f"{cfg.cg_tol:.1e} after {info['iters']} iterations; the NLML value and its "
             "gradients are unreliable. Raise max_cg_iters, the preconditioner rank or "
-            "the noise floor.",
+            "the noise floor"
+            + ("." if cfg.fwd_matvec_fn is not None else
+               ", or switch the solve onto the two-float matvec (compensated=True)."),
             RuntimeWarning,
             stacklevel=4,
         )
@@ -219,7 +240,12 @@ def _surrogate_grads(cfg, leaves, noise, x, U, w, alpha, need):
     (``matvec._kernel_bilinear``): the same function, summed in another
     order.
 
-    Float32 inputs are swept in float64. A fused-form kernel builds no
+    With ``cfg.matvec_fn`` or ``cfg.surrogate_matvec_fn`` the bilinear
+    form is ``sum(A' * matvec_fn(k, x, V, noise))`` through autograd. A
+    rounded-tile surrogate (``surrogate_matvec_fn``) runs in the input
+    dtype, as in the JAX package: its tiles' rounding is far above any
+    summation error. Otherwise float32 inputs are swept in float64. A
+    fused-form kernel builds no
     tile and runs no forward sweep (one launch of the fused Gram-gradient
     kernel for the value and the gradients); the row block, halved so that
     a tile takes the same bytes, only matters for the blocked sweep of
@@ -232,7 +258,9 @@ def _surrogate_grads(cfg, leaves, noise, x, U, w, alpha, need):
     same float32 solves 0.5%. The solves and their forward sweeps stay in
     the input dtype."""
     p = w.shape[1]
-    wide = torch.float64 if x.dtype == torch.float32 else x.dtype
+    smv = cfg.surrogate_matvec_fn or cfg.matvec_fn
+    wide = (torch.float64 if x.dtype == torch.float32 and cfg.surrogate_matvec_fn is None
+            else x.dtype)
     block = max(1, cfg.block * x.element_size() // (torch.finfo(wide).bits // 8))
     inputs = [
         t.detach().to(wide).requires_grad_(bool(nd))
@@ -244,7 +272,10 @@ def _surrogate_grads(cfg, leaves, noise, x, U, w, alpha, need):
         k = cfg.kernel_fn(dict(zip(cfg.names, leaves_d)))
         A = 0.5 * torch.cat([U / p, -alpha[:, None]], dim=1)
         V = torch.cat([w, alpha[:, None]], dim=1)
-        surrogate = _kernel_bilinear(k, x_d, A, V, noise=noise_d, block=block)
+        if smv is None:
+            surrogate = _kernel_bilinear(k, x_d, A, V, noise=noise_d, block=block)
+        else:
+            surrogate = torch.sum(A * smv(k, x_d, V, noise_d))
         targets = [t for t in inputs if t.requires_grad]
         grads = iter(torch.autograd.grad(surrogate, targets, allow_unused=True))
     out = []
@@ -287,13 +318,16 @@ class _NLMLFunction(torch.autograd.Function):
 
 
 def _nlml(params, y, noise, x, u, om, pstate, kernel_fn, cg_tol, max_cg_iters, quad_steps,
-          precond_rank, precond_method="pivoted", precond_power_iters=1, *, block=4096):
+          precond_rank, precond_method="pivoted", precond_power_iters=1, *, block=4096,
+          matvec_fn=None, fwd_matvec_fn=None, surrogate_matvec_fn=None):
     """Shared stochastic-NLML core: ``(nlml, health)``, differentiable with
     respect to the tensors in ``params``, ``y``, ``noise`` and ``x``.
 
     ``u (n, p)`` are standard-normal probes and ``om (n, r)`` the subspace
     start block of a fresh eig preconditioner (``None`` otherwise);
-    ``pstate`` an optional prebuilt ``(U, lam)``, held constant."""
+    ``pstate`` an optional prebuilt ``(U, lam)``, held constant.
+    ``matvec_fn``, ``fwd_matvec_fn`` and ``surrogate_matvec_fn`` are the
+    hooks of the module docstring."""
     names = list(params)
     leaves = [
         v if isinstance(v, torch.Tensor) else torch.as_tensor(v, dtype=y.dtype, device=y.device)
@@ -301,7 +335,8 @@ def _nlml(params, y, noise, x, u, om, pstate, kernel_fn, cg_tol, max_cg_iters, q
     ]
     noise = torch.as_tensor(noise, dtype=y.dtype, device=y.device)
     cfg = _Config(names, kernel_fn, block, cg_tol, max_cg_iters, quad_steps, precond_rank,
-                  precond_method, precond_power_iters)
+                  precond_method, precond_power_iters, matvec_fn, fwd_matvec_fn,
+                  surrogate_matvec_fn)
     state_U, state_lam = (None, None) if pstate is None else (
         pstate[0].detach(), pstate[1].detach())
     val = _NLMLFunction.apply(cfg, y, noise, x, u.detach(),
@@ -343,13 +378,18 @@ def iterative_nlml(
     also returns ``{"cg_iters", "cg_rel_residual", "cg_converged"}``; a
     stalled CG warns whatever ``return_info`` is.
 
-    ``compensated``: the two-float policy; ``"auto"`` decides by value
-    from ``precond_state``'s Ritz values (``False`` without a state). Where
-    it resolves to ``True`` this raises ``NotImplementedError``, as does
-    ``surrogate_tile_dtype``: neither is ported.
+    ``compensated``: the two-float policy of the forward CG and logdet
+    solves (``compensated.py``); ``"auto"`` decides by value from
+    ``precond_state``'s Ritz values (``False`` without a state). The
+    backward surrogate stays on the plain differentiable matvec.
+
+    ``surrogate_tile_dtype``: the dtype the backward surrogate's Gram tiles
+    are rounded to (``kernel_matvec(tile_dtype=...)``); the forward solves
+    keep the input dtype. The JAX package measured it and rejected it for
+    training at N=262,144 (a gradient bias correlated with the tiles'
+    structure, about 1000 times the probe noise); it is for small-N
+    experiments.
     """
-    if surrogate_tile_dtype is not None:
-        raise not_ported("iterative_nlml(surrogate_tile_dtype=...)")
     x = uprank(x)
     n = x.shape[0]
     u = _randn((n, num_probes), generator, y)
@@ -357,17 +397,23 @@ def iterative_nlml(
     if precond_state is None and precond_method == "eig" and precond_rank and precond_rank > 0:
         om = _randn((n, min(precond_rank, n)), generator, y)
     lam = precond_state[1] if precond_state is not None else torch.zeros(1)
+    fwd_matvec_fn = surrogate_matvec_fn = None
     if resolve_compensated(compensated, noise, lam, n, y.dtype, True):
-        raise not_ported("iterative_nlml with the compensated (two-float) forward solve")
+        def fwd_matvec_fn(k, xx, v, nz):
+            return kernel_matvec(k, xx, v, noise=nz, block=block, compensated=True)
+    if surrogate_tile_dtype is not None:
+        def surrogate_matvec_fn(k, xx, v, nz):
+            return kernel_matvec(k, xx, v, noise=nz, block=block, tile_dtype=surrogate_tile_dtype)
     val, info = _nlml(
         params, y, noise, x, u, om, precond_state, kernel_fn, cg_tol, max_cg_iters,
         slq_steps, precond_rank, precond_method, precond_power_iters, block=block,
+        fwd_matvec_fn=fwd_matvec_fn, surrogate_matvec_fn=surrogate_matvec_fn,
     )
     return (val, info) if return_info else val
 
 
-def _compensated_matvec_missing(v):
-    raise not_ported("The compensated (two-float) matvec")
+def _compensated_mv(k, x, block):
+    return lambda v: kernel_matvec(k, x, v, block=block, compensated=True)
 
 
 @config.pin_matmul_precision
@@ -387,7 +433,7 @@ def posterior_weights(kernel_fn, params, x, y, noise, *, cg_tol=1e-6, max_cg_ite
             solver = make_whitened_solver(
                 lambda v: kernel_matvec(k, x, v, block=block), x.shape[0], noise,
                 precond_rank, dtype=y.dtype, state=precond_state,
-                mv_raw_comp=_compensated_matvec_missing, compensated=compensated,
+                mv_raw_comp=_compensated_mv(k, x, block), compensated=compensated,
             )
             return solver(y, tol=cg_tol, max_iters=max_cg_iters)
         mv = lambda v: kernel_matvec(k, x, v, noise=noise, block=block)  # noqa: E731
@@ -444,7 +490,7 @@ def iterative_posterior_var(kernel_fn, params, x, y, noise, x_new, *, cg_tol=1e-
             solver = make_whitened_solver(
                 lambda v: kernel_matvec(k, x_arr, v, block=block), x_arr.shape[0], noise,
                 precond_rank, dtype=xn.dtype, state=precond_state,
-                mv_raw_comp=_compensated_matvec_missing, compensated=compensated,
+                mv_raw_comp=_compensated_mv(k, x_arr, block), compensated=compensated,
             )
         else:
             mv = lambda v: kernel_matvec(k, x_arr, v, noise=noise, block=block)  # noqa: E731

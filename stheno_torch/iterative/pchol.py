@@ -3,10 +3,12 @@ Woodbury inverse, and the subspace-iteration eig preconditioner with the
 whitened solver built on it.
 
 Counterpart of ``stheno_tpu/iterative/pchol.py``. JAX ``key``s become
-``torch.Generator``s. Only the plain path of the whitened solver is
-ported: the segmented, host-driven CG of the JAX package exists for the
-compensated two-float matvec, which waits for a later slice
-(``compensated=True`` raises ``NotImplementedError``).
+``torch.Generator``s. The whitened solver's compensated branch (the
+small-noise escape of ``compensated.py``) keeps the JAX package's
+segmented CG, warm restarts every ``segment_iters`` iterations: the JAX
+package segments to bound each device program, and the restarts change
+the iterates, so the port keeps them for its iterates and iteration
+counts to be the JAX package's.
 """
 
 import torch
@@ -16,8 +18,7 @@ from ..kernels.eval import elwise, pairwise
 from ..kernels.util import uprank
 from ..matrix import dense
 from .cg import batched_cg
-from .compensated import resolve_compensated
-from .matvec import not_ported
+from .compensated import f64_scaled_apply, resolve_compensated
 
 __all__ = [
     "pivoted_cholesky",
@@ -100,17 +101,30 @@ def eig_preconditioner_ops(U, lam, noise, n, *, compensated=False):
     """Preconditioner ops for ``P = noise I + U diag(lam) U^T`` with
     orthonormal ``U (n, r)``: ``(apply_P_inv, apply_P_half,
     apply_P_half_inv, logdet_P)``, each exact in the eigenbasis (two
-    ``(n, r)`` products per application). ``compensated=True`` is not
-    ported."""
-    if compensated:
-        raise not_ported("eig_preconditioner_ops(compensated=True)")
+    ``(n, r)`` products per application).
+
+    ``compensated=True`` applies each through
+    ``compensated.f64_scaled_apply``: at small noise the plain
+    ``apply_half_inv`` cancels ``sqrt((lam + noise) / noise)`` digits
+    between its base and correction terms, which caps the whitened CG's
+    true residual whatever the Gram matvec's accuracy. Float64 products of
+    the promoted operands compute the JAX package's two-float application
+    (``compensated.compensated_scaled_apply``, ported beside it) to about
+    1e-16; ``scripts/torch_item9.py`` measured them at 0.79 against 235 ms
+    at rank 256 and N=262,144 on the H100 (``PERF.md``)."""
     noise = torch.as_tensor(noise, dtype=lam.dtype, device=lam.device)
     dsum = lam + noise
     r = lam.shape[0]
     sqrt_noise = torch.sqrt(noise)
-    apply_inv = _scaled_apply(U, -(lam / (noise * dsum)), 1.0 / noise)
-    apply_half = _scaled_apply(U, torch.sqrt(dsum) - sqrt_noise, sqrt_noise)
-    apply_half_inv = _scaled_apply(U, 1.0 / torch.sqrt(dsum) - 1.0 / sqrt_noise, 1.0 / sqrt_noise)
+    if compensated:
+        def scaled(coeff, base):
+            return lambda v: f64_scaled_apply(U, coeff, base, v)
+    else:
+        def scaled(coeff, base):
+            return _scaled_apply(U, coeff, base)
+    apply_inv = scaled(-(lam / (noise * dsum)), 1.0 / noise)
+    apply_half = scaled(torch.sqrt(dsum) - sqrt_noise, sqrt_noise)
+    apply_half_inv = scaled(1.0 / torch.sqrt(dsum) - 1.0 / sqrt_noise, 1.0 / sqrt_noise)
     logdet_p = torch.sum(torch.log(dsum)) + (n - r) * torch.log(noise)
     return apply_inv, apply_half, apply_half_inv, logdet_p
 
@@ -140,7 +154,7 @@ def _device_of(*candidates):
 
 def make_whitened_solver(
     mv_raw, n, noise, rank, generator=None, *, power_iters=1, dtype=None,
-    state=None, mv_raw_comp=None, compensated="auto",
+    state=None, mv_raw_comp=None, compensated="auto", comp_refine=1,
 ):
     """Split-preconditioned CG solves of ``(K + noise I) X = B``, the
     solve path shared by the matrix-free posteriors.
@@ -153,14 +167,19 @@ def make_whitened_solver(
     seed; the preconditioner affects only the convergence speed). ``tol``
     is the relative residual of the whitened system; ``true_residual=True``
     adds ``info["rel_residual_true"]`` of the unwhitened one (one more
-    sweep).
+    sweep, through the compensated operator on a compensated solve).
 
-    ``compensated``: the policy of ``compensated.resolve_compensated``
-    (``mv_raw_comp`` says whether a compensated matvec exists on the
-    caller's path). Where it resolves to ``True`` this raises
-    ``NotImplementedError``: the two-float path is not ported yet, nor are
-    its options (``comp_refine``, the solve's ``segment_iters``). Requires
-    scalar ``noise``."""
+    ``mv_raw_comp`` applies ``K`` through the compensated matvec;
+    ``compensated`` (``"auto"``, ``True``, ``False``) is the policy of
+    ``compensated.resolve_compensated``, decided from the state's top Ritz
+    value. The preconditioner build always runs ``mv_raw``. A compensated
+    solve applies the preconditioner through the compensated ops, runs its
+    CG in warm-started segments of ``segment_iters`` iterations (a
+    ``solve`` keyword, default 6; the JAX package's, kept for its
+    iterates) and appends ``comp_refine`` refinement passes: the true
+    residual through the compensated operator, a correction solve, the
+    correction added. ``solve.compensated`` says which matvec the CG runs
+    on. Requires scalar ``noise``."""
     noise = torch.as_tensor(noise, device=_device_of(noise, state[0] if state else None))
     if noise.ndim != 0:
         raise ValueError(
@@ -179,19 +198,47 @@ def make_whitened_solver(
             (n, min(rank, n)), generator=generator, dtype=dtype, device=noise.device
         )
         U, lam = eig_preconditioner_factors(mv_raw, om, power_iters)
-    if resolve_compensated(compensated, noise, lam, n, dtype, mv_raw_comp is not None):
-        raise not_ported("The compensated (two-float) whitened solve")
-    _, _, phi, _ = eig_preconditioner_ops(U, lam, noise, n)
+    use_comp = resolve_compensated(compensated, noise, lam, n, dtype, mv_raw_comp is not None)
+    mv_use = mv_raw_comp if use_comp else mv_raw
+    _, _, phi, _ = eig_preconditioner_ops(U, lam, noise, n, compensated=use_comp)
 
     def mv_white(v):
         pv = phi(v)
-        return phi(mv_raw(pv) + noise * pv)
+        return phi(mv_use(pv) + noise * pv)
 
-    def solve(rhs, *, tol=1e-6, max_iters=1000, true_residual=False, **cg_kwargs):
-        sol, info = batched_cg(mv_white, phi(rhs), tol=tol, max_iters=max_iters, **cg_kwargs)
+    def mv_full(v):
+        return mv_use(v) + noise * v
+
+    @config.pin_matmul_precision
+    def solve(rhs, *, tol=1e-6, max_iters=1000, true_residual=False, segment_iters=6,
+              **cg_kwargs):
+        segmented = use_comp and segment_iters and not cg_kwargs.get("track_tridiag")
+
+        def cg(b_white, budget):
+            if not segmented:
+                return batched_cg(mv_white, b_white, tol=tol, max_iters=budget, **cg_kwargs)
+            x, done = None, 0
+            while True:
+                x, info = batched_cg(mv_white, b_white, tol=tol, max_iters=segment_iters,
+                                     x0=x, **cg_kwargs)
+                it = int(info["iters"])
+                done += it
+                if float(info["rel_residual"]) <= tol or it == 0 or done >= budget:
+                    return x, dict(info, iters=done)
+
+        sol, info = cg(phi(rhs), max_iters)
         sol = phi(sol)
+        if use_comp:
+            # Iterative refinement: the compensated operator gives the true
+            # residual to about eps ||rhs||, so each pass contracts the error
+            # by the solve's own accuracy.
+            for _ in range(comp_refine):
+                dw, info_r = cg(phi(rhs - mv_full(sol)), max_iters)
+                sol = sol + phi(dw)
+                info = dict(info, iters=info["iters"] + info_r["iters"],
+                            rel_residual=info_r["rel_residual"])
         if true_residual:
-            r = rhs - (mv_raw(sol) + noise * sol)
+            r = rhs - mv_full(sol)
             r2 = r[:, None] if r.ndim == 1 else r
             b2 = rhs[:, None] if rhs.ndim == 1 else rhs
             info["rel_residual_true"] = torch.max(
@@ -200,5 +247,5 @@ def make_whitened_solver(
             )
         return sol, info
 
-    solve.compensated = False  # Which matvec the CG runs on.
+    solve.compensated = use_comp  # Which matvec the CG runs on.
     return solve

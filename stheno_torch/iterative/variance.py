@@ -10,8 +10,9 @@ the per-point variance into GEMM work:
 with ``c = U^T k_*``, ``e = k_* - U c``, ``S = (K + s2 I)^{-1} U`` and
 ``M = U^T S``. The in-span terms are exact; the out-of-span residual is
 bounded with ``tau``, the smallest captured Ritz value (never overstating
-the reduction). ``basis_tile_dtype`` (low-precision sweeps of the basis
-build) is not ported.
+the reduction). ``basis_tile_dtype`` rounds the Gram tiles of the basis
+build's subspace sweeps only (``kernel_matvec(tile_dtype=...)``); the
+refinement CG always runs the full-precision operator.
 """
 
 import warnings
@@ -24,7 +25,7 @@ from ..kernels.eval import elwise, pairwise
 from ..kernels.util import uprank
 from ..matrix import dense
 from .cg import batched_cg
-from .matvec import kernel_matvec, not_ported
+from .matvec import kernel_matvec
 from .pchol import eig_preconditioner_factors, eig_preconditioner_ops
 
 __all__ = [
@@ -94,20 +95,24 @@ def variance_cache(
         cg_tol, max_cg_iters: the refinement solve's tolerance and cap.
         block: row-block size of the Gram sweeps.
         tail: ``"conservative"`` (``tau = min(lam)``) or ``"zero"``.
-        basis_tile_dtype: not ported (must be ``None``).
+        basis_tile_dtype: optional dtype the Gram tiles of the subspace
+            sweeps are rounded to (e.g. ``torch.bfloat16``): the basis is
+            self-correcting (QR) and the refinement runs full-precision
+            tiles. The JAX package measured it as an end-to-end loss on the
+            TPU at N=262,144 (the refinement CG ran to its cap). Unused
+            when ``precond_state`` supplies the whole basis.
 
     Returns:
         :class:`VarianceCache`.
     """
-    if basis_tile_dtype is not None:
-        raise not_ported("variance_cache(basis_tile_dtype=...)")
     with torch.no_grad():
         x = uprank(x)
         n = x.shape[0]
         noise = torch.as_tensor(noise, dtype=x.dtype, device=x.device)
-        k = kernel_fn({key: v.detach() if isinstance(v, torch.Tensor) else v
-                       for key, v in params.items()})
+        k = kernel_fn(params)
         mv = lambda v: kernel_matvec(k, x, v, block=block)  # noqa: E731
+        mv_basis = mv if basis_tile_dtype is None else (
+            lambda v: kernel_matvec(k, x, v, block=block, tile_dtype=basis_tile_dtype))
         if precond_state is not None:
             U, lam = precond_state
             r0 = U.shape[-1]
@@ -124,7 +129,7 @@ def variance_cache(
                     extra = torch.randn((n, min(rank, n) - r0), generator=generator,
                                         dtype=x.dtype, device=x.device)
                     U, lam = eig_preconditioner_factors(
-                        mv, torch.cat([U, extra], dim=1), power_iters
+                        mv_basis, torch.cat([U, extra], dim=1), power_iters
                     )
         else:
             if generator is None:
@@ -134,7 +139,7 @@ def variance_cache(
                 )
             om = torch.randn((n, min(rank, n)), generator=generator, dtype=x.dtype,
                              device=x.device)
-            U, lam = eig_preconditioner_factors(mv, om, power_iters)
+            U, lam = eig_preconditioner_factors(mv_basis, om, power_iters)
         # Spectral warm start: (K + s2 I) U ~ U (lam + s2) for Ritz pairs.
         S0 = U / (lam + noise)[None, :]
         if refine:

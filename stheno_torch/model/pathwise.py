@@ -18,10 +18,10 @@ when ``precond_rank=0``).
 Draws come from a ``torch.Generator`` where the JAX package splits a key:
 the features' frequencies, then ``w``, then ``eps``. Drawing is kept apart
 from building (``_draw`` and ``_build``), so the same draws can be handed
-to either package. Not ported yet, each raising ``NotImplementedError``: a
-``mesh`` (``ROADMAP.md`` queue 1 item 12), and the two-float compensated
-solve where ``compensated`` asks for it or ``"auto"`` resolves to it at
-small noise (item 9).
+to either package. At small noise the CG solve runs on the compensated
+operator (``iterative/compensated.py``) where ``compensated`` asks for it
+or ``"auto"`` resolves to it. Not ported yet: a ``mesh`` (``ROADMAP.md``
+queue 1 item 12), which raises ``NotImplementedError``.
 """
 
 import warnings
@@ -61,16 +61,19 @@ def _to(draws, device):
     return draws
 
 
-def _stall_warning(info, tol):
+def _stall_warning(info, tol, compensated=False):
     rel = info["rel_residual"]
     # `not (rel <= tol)`: a NaN residual (a diverged solve) trips it too.
     if not (float(rel) <= tol):
+        advice = (
+            "Raise the preconditioner rank or max_cg_iters." if compensated else
+            "Pass compensated=True (the two-float matvec; the plain float32 solve needs noise "
+            ">~ ||K||*eps*sqrt(N)), raise the preconditioner rank, or max_cg_iters."
+        )
         warnings.warn(
             f"pathwise_sampler: CG STALLED — rel residual {float(rel):.3e} > tol {tol:.1e} "
             f"after {int(info['iters'])} iterations; the draws' update weights are "
-            f"unreliable. The plain float32 solve needs noise >~ ||K||*eps*sqrt(N): raise the "
-            f"noise, the preconditioner rank or max_cg_iters (the two-float compensated "
-            f"solve is not ported yet, ROADMAP.md queue 1 item 9).",
+            f"unreliable. {advice}",
             stacklevel=3,
         )
 
@@ -88,7 +91,7 @@ def _build(kernel, x, y, noise, draws, *, num_features, solver, block, cg_tol, m
 
     resid = y[:, None] - phi(x2) @ w - torch.sqrt(noise) * eps
 
-    cg_info = None
+    cg_info, used_comp = None, False
     if solver == "chol":
         K = add(as_matrix(pairwise(kernel, x2)), fill_diag(noise, n))
         v = solve(K, resid)
@@ -102,12 +105,13 @@ def _build(kernel, x, y, noise, draws, *, num_features, solver, block, cg_tol, m
                 compensated=compensated,
             )
             v, cg_info = solve_w(resid, tol=cg_tol, max_iters=max_cg_iters)
+            used_comp = solve_w.compensated
         else:
             v, cg_info = batched_cg(
                 lambda u: kernel_matvec(kernel, x2, u, noise=noise, block=block), resid,
                 tol=cg_tol, max_iters=max_cg_iters,
             )
-        _stall_warning(cg_info, cg_tol)
+        _stall_warning(cg_info, cg_tol, used_comp)
     else:
         raise ValueError(f"Unknown solver {solver!r} (use 'chol' or 'cg').")
 
@@ -158,8 +162,7 @@ def pathwise_sampler(
         mesh, axis: not ported (``mesh`` must be ``None``).
         return_info: also return the solve's health dict.
         compensated: the two-float policy of the whitened CG solve
-            (``"auto"``, ``True`` or ``False``); where it asks for the
-            compensated solve, this raises ``NotImplementedError``.
+            (``"auto"``, ``True`` or ``False``; ``iterative/compensated.py``).
 
     Returns:
         ``(sample_fn, generator)``, or ``(sample_fn, generator, cg_info)``

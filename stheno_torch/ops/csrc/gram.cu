@@ -5,7 +5,9 @@
 // 2 x_i.y_j clamped at 0 (or the plain x_i.y_j for the linear kind), for
 // row-major x (n, d), y (m, d) and out (n, m), in float32, float64 or
 // bfloat16 storage (bfloat16 computed in float32 and rounded once, as the
-// TPU kernel does).
+// TPU kernel does), or float32 inputs with a bfloat16 output: the float32
+// tile rounded once to nearest, the tile-dtype option of the matrix-free
+// matvec (stheno_tpu/iterative/matvec.py: K_b.astype(tile_dtype)).
 //
 // What bounds it: the (n, m) output write. The contraction has depth d (2
 // on the headline path, 1 on entry()'s), so the work per output element
@@ -49,9 +51,10 @@ __host__ __device__ constexpr int fwd_tn() {
   return 32 * kVec<S>;
 }
 
-template <int KIND, typename S, int D>
+// SI: the inputs' storage type; S: the output's, which sets the tile.
+template <int KIND, typename SI, typename S, int D>
 __global__ void __launch_bounds__(kGramThreads, 4)
-gram_kernel(const S* __restrict__ x, const S* __restrict__ y, S* __restrict__ out, int n, int m,
+gram_kernel(const SI* __restrict__ x, const SI* __restrict__ y, S* __restrict__ out, int n, int m,
             int d, typename Arith<S>::T alpha, int vec_ok) {
   using T = typename Arith<S>::T;
   constexpr int V = kVec<S>, R = kFwdRows<S>, TM = fwd_tm<S>(), TN = fwd_tn<S>();
@@ -75,8 +78,8 @@ gram_kernel(const S* __restrict__ x, const S* __restrict__ y, S* __restrict__ ou
   // Rows and columns past the edge read the last one: their entries
   // are not stored. One depth at a time, so that only R + V inputs are
   // live beside the R x V sums.
-  const S* xr[R];
-  const S* yr[V];
+  const SI* xr[R];
+  const SI* yr[V];
 #pragma unroll
   for (int i = 0; i < R; ++i) xr[i] = x + (size_t)min(r0 + i, n - 1) * d;
 #pragma unroll
@@ -120,38 +123,38 @@ gram_kernel(const S* __restrict__ x, const S* __restrict__ y, S* __restrict__ ou
   }
 }
 
-template <int KIND, typename S>
-void launch_depth(int dt, const S* x, const S* y, S* out, int n, int m, int d,
+template <int KIND, typename SI, typename S>
+void launch_depth(int dt, const SI* x, const SI* y, S* out, int n, int m, int d,
                   typename Arith<S>::T alpha, int vec_ok, int tiles, cudaStream_t s) {
   switch (dt) {
-    case 1: gram_kernel<KIND, S, 1><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
-    case 2: gram_kernel<KIND, S, 2><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
-    case 4: gram_kernel<KIND, S, 4><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
-    case 8: gram_kernel<KIND, S, 8><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
-    default: gram_kernel<KIND, S, 0><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
+    case 1: gram_kernel<KIND, SI, S, 1><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
+    case 2: gram_kernel<KIND, SI, S, 2><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
+    case 4: gram_kernel<KIND, SI, S, 4><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
+    case 8: gram_kernel<KIND, SI, S, 8><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
+    default: gram_kernel<KIND, SI, S, 0><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
   }
 }
 
 // A launch whose tile shape (tm, tn) is not the kernel's is refused: the
 // wrapper's tiling (ops/gram.py:tile_shape) is then not the kernel's.
-template <typename S>
+template <typename SI, typename S>
 cudaError_t launch(int kind, const void* xp, const void* yp, void* outp, int n, int m, int d,
                    double alpha, int tm, int tn, cudaStream_t s) {
   const long long tiles = ((n + (long long)tm - 1) / tm) * ((m + tn - 1) / tn);
   if (tm != fwd_tm<S>() || tn != fwd_tn<S>() || tiles > 0x7fffffff) return cudaErrorInvalidValue;
-  const S* x = static_cast<const S*>(xp);
-  const S* y = static_cast<const S*>(yp);
+  const SI* x = static_cast<const SI*>(xp);
+  const SI* y = static_cast<const SI*>(yp);
   S* out = static_cast<S*>(outp);
   const int vec_ok = m % kVec<S> == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int dt = depth_template(d);
   const auto a = static_cast<typename Arith<S>::T>(alpha);
   switch (kind) {
-    case kEq: launch_depth<kEq, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
-    case kRq: launch_depth<kRq, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
-    case kMatern12: launch_depth<kMatern12, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
-    case kMatern32: launch_depth<kMatern32, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
-    case kMatern52: launch_depth<kMatern52, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
-    case kLinear: launch_depth<kLinear, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
+    case kEq: launch_depth<kEq, SI, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
+    case kRq: launch_depth<kRq, SI, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
+    case kMatern12: launch_depth<kMatern12, SI, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
+    case kMatern32: launch_depth<kMatern32, SI, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
+    case kMatern52: launch_depth<kMatern52, SI, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
+    case kLinear: launch_depth<kLinear, SI, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -161,17 +164,20 @@ cudaError_t launch(int kind, const void* xp, const void* yp, void* outp, int n, 
 
 // Launches K1 on `stream`: one block of 256 threads per (tm, tn) tile of
 // out. `kind` follows the Kind enum of gram_kind.cuh, `dtype` the
-// DtypeCode of gram_elem.cuh (float32, float64, bfloat16; x, y and out
-// all of it). Returns cudaGetLastError() after the launch; the caller
+// DtypeCode of gram_elem.cuh (float32, float64, bfloat16: x, y and out all
+// of it; or float32 x and y with a bfloat16 out). Returns cudaGetLastError() after the launch; the caller
 // raises if it is not 0.
 extern "C" int stheno_gram(int kind, int dtype, const void* x, const void* y, void* out, int n,
                            int m, int d, double alpha, int tm, int tn, void* stream) {
   if (n <= 0 || m <= 0 || d < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return (int)launch<float>(kind, x, y, out, n, m, d, alpha, tm, tn, s);
-    case kF64: return (int)launch<double>(kind, x, y, out, n, m, d, alpha, tm, tn, s);
-    case kBf16: return (int)launch<__nv_bfloat16>(kind, x, y, out, n, m, d, alpha, tm, tn, s);
+    case kF32: return (int)launch<float, float>(kind, x, y, out, n, m, d, alpha, tm, tn, s);
+    case kF64: return (int)launch<double, double>(kind, x, y, out, n, m, d, alpha, tm, tn, s);
+    case kBf16:
+      return (int)launch<__nv_bfloat16, __nv_bfloat16>(kind, x, y, out, n, m, d, alpha, tm, tn, s);
+    case kF32Bf16:
+      return (int)launch<float, __nv_bfloat16>(kind, x, y, out, n, m, d, alpha, tm, tn, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

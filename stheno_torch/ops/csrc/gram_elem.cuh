@@ -22,8 +22,9 @@ namespace {
 
 using namespace stheno;
 
-// The dtype codes of the C entry points (ops/gram.py:_DTYPE_CODES).
-enum DtypeCode { kF32 = 0, kF64 = 1, kBf16 = 2 };
+// The dtype codes of the C entry points (ops/gram.py:_DTYPE_CODES); the
+// last is K1's float32-in, bfloat16-out tile (gram.cu).
+enum DtypeCode { kF32 = 0, kF64 = 1, kBf16 = 2, kF32Bf16 = 3 };
 
 constexpr int kGramThreads = 256;
 constexpr int kGramWarps = kGramThreads / 32;

@@ -17,7 +17,12 @@ and ``y (m, d)``:
 
 float32, float64 and bfloat16, as the TPU kernel takes: bfloat16 inputs
 are computed in float32 (norms, inner product, clamp, epilogue) and the
-result is rounded once to bfloat16.
+result is rounded once to bfloat16. ``out_dtype=torch.bfloat16`` on
+float32 inputs is the matrix-free matvec's tile-dtype option
+(``stheno_tpu/iterative/matvec.py``: ``K_b.astype(tile_dtype)``): the
+float32 tile rounded once to nearest, in one launch of the kernel's
+float32-in, bfloat16-out instance; any other ``out_dtype`` rounds the
+tile of the input dtype with ``.to``.
 
 The gradient is an ``autograd.Function`` whose backward is K1's backward
 kernel (``ops/gram_bwd.py``, ``csrc/gram_bwd.cu``) on the card and its
@@ -42,6 +47,9 @@ KINDS = ("eq", "rq", "matern12", "matern32", "matern52", "linear")
 #: Storage dtypes the kernels take, with the codes of ``csrc/gram_elem.cuh``.
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 DTYPES = tuple(_DTYPE_CODES)
+#: The code of float32 inputs with a bfloat16 output.
+_F32_BF16 = 3
+_MIXED = (torch.float32, torch.bfloat16)
 
 #: Number of launches of the CUDA kernel in this process.
 launches = 0
@@ -136,19 +144,20 @@ def launch_shape(n, m, dtype):
     return tm, tn, -(-n // tm) * -(-m // tn)
 
 
-def _launch(kind, x, y, alpha):
+def _launch(kind, x, y, alpha, out_dtype):
     global launches
     lib = _build.library()
     n, d = x.shape
     m = y.shape[0]
-    out = torch.empty((n, m), dtype=x.dtype, device=x.device)
+    out = torch.empty((n, m), dtype=out_dtype, device=x.device)
     if n == 0 or m == 0:
         return out
-    tm, tn = tile_shape(x.dtype)
+    tm, tn = tile_shape(out_dtype)
+    code = _DTYPE_CODES[x.dtype] if out_dtype == x.dtype else _F32_BF16
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.stheno_gram(
-            KINDS.index(kind), _DTYPE_CODES[x.dtype], x.data_ptr(), y.data_ptr(),
+            KINDS.index(kind), code, x.data_ptr(), y.data_ptr(),
             out.data_ptr(), n, m, d, float(alpha) if kind == "rq" else 1.0, tm, tn, stream,
         )
     _build.check(code, "gram")
@@ -160,6 +169,9 @@ def _gram_backward(ctx, gbar):
     from .gram_bwd import gram_bwd
 
     x, y, alpha = ctx.saved_tensors
+    # A rounded tile's cotangent is the unrounded one's (the rounding is
+    # the identity to first order, as astype's transpose is a cast).
+    gbar = gbar.to(x.dtype)
     need_x, need_y, need_alpha = ctx.needs_input_grad[:3]
     want_alpha = ctx.kind == "rq" and need_alpha
     if ctx.same:
@@ -167,10 +179,10 @@ def _gram_backward(ctx, gbar):
         # of both roles.
         xbar, _, dalpha = gram_bwd(ctx.kind, x, x, gbar, alpha, want_x=need_x, want_y=need_x,
                                    want_alpha=want_alpha, same=True)
-        return xbar, None, dalpha, None
+        return xbar, None, dalpha, None, None
     xbar, ybar, dalpha = gram_bwd(ctx.kind, x, y, gbar, alpha, want_x=need_x, want_y=need_y,
                                   want_alpha=want_alpha)
-    return xbar, ybar, dalpha, None
+    return xbar, ybar, dalpha, None, None
 
 
 # The CUDA kernel has no derivative of its own: a second derivative
@@ -185,25 +197,31 @@ class _Gram(torch.autograd.Function):
     keep K. Where ``x`` is ``y`` one launch sums both roles. On CPU tensors
     the backward is the plain version in torch, itself differentiable, so
     a second derivative there works; on CUDA tensors it raises. Inputs:
-    ``x, y, alpha, kind``."""
+    ``x, y, alpha, kind, out_dtype``."""
 
     @staticmethod
-    def forward(ctx, x, y, alpha, kind):
+    def forward(ctx, x, y, alpha, kind, out_dtype):
         ctx.kind = kind
         ctx.same = x is y
         ctx.save_for_backward(x, y, alpha)
-        return _launch(kind, x, y, alpha) if x.is_cuda else gram_plain(kind, x, y, alpha)
+        if x.is_cuda and (out_dtype == x.dtype or (x.dtype, out_dtype) == _MIXED):
+            return _launch(kind, x, y, alpha, out_dtype)
+        if x.is_cuda:
+            return _launch(kind, x, y, alpha, x.dtype).to(out_dtype)
+        return gram_plain(kind, x, y, alpha).to(out_dtype)
 
     @staticmethod
     def backward(ctx, gbar):
         return (_gram_backward_once if gbar.is_cuda else _gram_backward)(ctx, gbar)
 
 
-def gram(kind, x, y, alpha=1.0):
+def gram(kind, x, y, alpha=1.0, out_dtype=None):
     """Gram matrix ``g(||x_i - y_j||^2)`` (or ``x_i . y_j`` for linear) of
     ``x (n, d)`` and ``y (m, d)``, float32, float64 or bfloat16: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors.
-    Differentiable in ``x``, ``y`` and, for ``rq``, ``alpha``."""
+    Differentiable in ``x``, ``y`` and, for ``rq``, ``alpha``.
+    ``out_dtype`` (default: the inputs') rounds the tile once to another
+    floating dtype (see the module docstring)."""
     if kind not in KINDS:
         raise ValueError(f"Unknown gram kind {kind!r}.")
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
@@ -226,4 +244,7 @@ def gram(kind, x, y, alpha=1.0):
             "kernel takes it by value), so a CUDA graph would replay the value it had at "
             "capture. Give alpha as a number to capture an rq Gram."
         )
-    return _Gram.apply(x.contiguous(), y.contiguous(), alpha, kind)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if not out_dtype.is_floating_point:
+        raise TypeError(f"gram: out_dtype must be a floating dtype, got {out_dtype}.")
+    return _Gram.apply(x.contiguous(), y.contiguous(), alpha, kind, out_dtype)

@@ -252,3 +252,50 @@ def test_kernel_pairwise_and_elwise_match_jax(name):
         rtol=1e-12,
         atol=1e-13,
     )
+
+
+def _bf16_rne(a):
+    """float32 values rounded to bfloat16 to nearest, ties to even, in numpy:
+    ``.astype(bfloat16)``'s rounding (finite inputs)."""
+    bits = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16 << 16
+    return bits.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_gram_bf16_tile_of_float32_inputs(kind, jax_interpret):
+    """``out_dtype=bfloat16`` on float32 inputs (the tile-dtype option's
+    tile): the float32 tile rounded once to nearest, as the JAX package's
+    ``K_b.astype(bfloat16)`` of its float32 kernel's tile."""
+    x, y = _xy(7, n=40, m=33)
+    out = tgram.gram(kind, torch.tensor(x), torch.tensor(y), 0.8, out_dtype=torch.bfloat16)
+    f32 = tgram.gram_plain(kind, torch.tensor(x), torch.tensor(y), 0.8)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(np_(out.float()), _bf16_rne(np_(f32)))
+    ref = jgram.gram(kind, jnp.asarray(x), jnp.asarray(y), 0.8).astype(jnp.bfloat16)
+    np.testing.assert_allclose(np_(out.float()), np.asarray(ref, np.float32), rtol=2**-7,
+                               atol=2**-7 * np.abs(np_(f32)).max())
+    # The kernel's tile for a bfloat16 output is the bfloat16 route's.
+    assert tgram.tile_shape(torch.bfloat16) == (16, 256)
+
+
+def test_gram_bf16_tile_gradient_is_the_float32_one():
+    # The rounding's derivative is the identity (astype's transpose): the
+    # cotangent of the rounded tile, cast up, goes through K1's backward.
+    x, y = _xy(8, n=20, m=15, d=2)
+    xt = torch.tensor(x, requires_grad=True)
+    gbar = torch.tensor(np.random.RandomState(9).randn(20, 15).astype(np.float32))
+    out = tgram.gram("matern32", xt, torch.tensor(y), out_dtype=torch.bfloat16)
+    (g,) = torch.autograd.grad(out, [xt], gbar.to(torch.bfloat16))
+    xr = torch.tensor(x, requires_grad=True)
+    (g_ref,) = torch.autograd.grad(tgram.gram("matern32", xr, torch.tensor(y)), [xr],
+                                   gbar.to(torch.bfloat16).float())
+    np.testing.assert_array_equal(np_(g), np_(g_ref))
+    # Other pairs round the tile of the input dtype.
+    out64 = tgram.gram("eq", torch.tensor(x, dtype=torch.float64),
+                       torch.tensor(y, dtype=torch.float64), out_dtype=torch.bfloat16)
+    ref64 = tgram.gram_plain("eq", torch.tensor(x, dtype=torch.float64),
+                             torch.tensor(y, dtype=torch.float64)).to(torch.bfloat16)
+    assert torch.equal(out64, ref64)
+    with pytest.raises(TypeError):
+        tgram.gram("eq", xr.detach(), xr.detach(), out_dtype=torch.int32)

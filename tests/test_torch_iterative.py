@@ -567,36 +567,215 @@ def test_compensated_policy_matches_jax():
 
 
 def test_options_not_ported_raise():
+    """The options that raised before this slice ported them now run (the
+    name is kept from then); the ``ValueError`` checks stay."""
     x, y = _data(40)
     xt, yt = T(x), T(y)
     v = torch.ones(40, 1, dtype=torch.float64)
     k = st.EQ()
-    for kw in ({"compensated": True}, {"tile_dtype": torch.bfloat16}, {"symmetric": True},
-               {"precision": "default"}, {"precision": "bfloat16"},
-               {"precision": "tensorfloat32"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tit.kernel_matvec(k, xt, v, **kw)
+    ref = tit.kernel_matvec(k, xt, v)
+    for kw in ({"compensated": True}, {"tile_dtype": torch.bfloat16},
+               {"symmetric": True, "block": 16}, {"precision": "default"},
+               {"precision": "bfloat16"}, {"precision": "tensorfloat32"}):
+        out = tit.kernel_matvec(k, xt, v, **kw)
+        assert out.shape == ref.shape
+        np.testing.assert_allclose(np_(out), np_(ref), rtol=2e-2, atol=2e-2, err_msg=str(kw))
     with pytest.raises(ValueError):
         tit.kernel_matvec(k, xt, v, precision="fast")
+    with pytest.raises(ValueError, match="incompatible"):
+        tit.kernel_matvec(k, xt, v, compensated=True, tile_dtype=torch.bfloat16)
     U = torch.linalg.qr(torch.randn(40, 4, dtype=torch.float64))[0]
     lam = torch.ones(4, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tit.eig_preconditioner_ops(U, lam, 0.1, 40, compensated=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tit.iterative_nlml(kf_t, pt(), xt, yt, 0.1, torch.Generator(), compensated=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tit.iterative_nlml(kf_t, pt(), xt, yt, 0.1, torch.Generator(),
-                           surrogate_tile_dtype=torch.bfloat16)
-    # "auto" resolving True (noise far below the wall of the state's
-    # Ritz values) raises too; it never runs the plain path instead.
+    ops = tit.eig_preconditioner_ops(U, lam, 0.1, 40, compensated=True)
+    plain = tit.eig_preconditioner_ops(U, lam, 0.1, 40)
+    for a, b in zip(ops[:3], plain[:3]):
+        np.testing.assert_allclose(np_(a(v)), np_(b(v)), rtol=1e-12)
+    val = tit.iterative_nlml(kf_t, pt(), xt, yt, 0.1, torch.Generator(), compensated=True)
+    assert np.isfinite(float(val))
+    val = tit.iterative_nlml(kf_t, pt(), xt, yt, 0.1, torch.Generator(),
+                             surrogate_tile_dtype=torch.bfloat16)
+    assert np.isfinite(float(val))
+    # "auto" resolving True (noise far below the wall of the state's Ritz
+    # values) runs the compensated solve.
     big = (U, torch.full((4,), 1e12, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tit.posterior_weights(kf_t, pt(), xt, yt, 1e-6, precond_state=big)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tit.iterative_nlml(kf_t, pt(), xt, yt, 1e-6, torch.Generator(), precond_state=big)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tit.variance_cache(kf_t, pt(), xt, 0.1, rank=4, generator=torch.Generator(),
-                           basis_tile_dtype=torch.bfloat16)
+    solver = tit.make_whitened_solver(lambda v_: tit.kernel_matvec(k, xt, v_), 40, 1e-6, 4,
+                                      state=big, mv_raw_comp=lambda v_: v_)
+    assert solver.compensated is True
+    with pytest.raises(ValueError, match="compensated"):
+        tit.make_whitened_solver(lambda v_: v_, 40, 1e-6, 4, state=big, compensated=True)
+    cache = tit.variance_cache(kf_t, pt(), xt, 0.1, rank=4, generator=torch.Generator(),
+                               basis_tile_dtype=torch.bfloat16)
+    assert cache.U.shape == (40, 4)
+
+
+# ---------------------------------------------------------------------------
+# The tile options
+
+
+def test_tile_dtype_matvec_matches_jax():
+    """``tile_dtype=bfloat16``: the tile rounded once, ``v`` rounded, the
+    product of the rounded operands accumulated in float64, as the JAX
+    package's CPU ``matmul(..., preferred_element_type)``; scaled and
+    unscaled forms (the latter takes K1's rounded output directly), and a
+    cross product."""
+    x, _ = _data(120, seed=4)
+    v = np.random.RandomState(5).randn(120, 3)
+    xq = np.linspace(-1.0, 11.0, 37)
+    for kj, kt in ((sj.EQ().stretch(0.9), st.EQ().stretch(0.9)),
+                   (1.3 * sj.Matern52(), 1.3 * st.Matern52())):
+        out = tit.kernel_matvec(kt, T(x), T(v), block=BLOCK, tile_dtype=torch.bfloat16)
+        out_j = jit_.kernel_matvec(kj, J(x), J(v), block=BLOCK, tile_dtype=jnp.bfloat16)
+        np.testing.assert_allclose(np_(out), np.asarray(out_j), rtol=1e-12, atol=1e-12)
+        cross = tit.kernel_matvec(kt, T(xq), T(v), x_cols=T(x), tile_dtype=torch.bfloat16)
+        cross_j = jit_.kernel_matvec(kj, J(xq), J(v), x_cols=J(x), tile_dtype=jnp.bfloat16)
+        np.testing.assert_allclose(np_(cross), np.asarray(cross_j), rtol=1e-12, atol=1e-12)
+    # About bfloat16's relative rounding of the full product.
+    full = np_(tit.kernel_matvec(st.EQ(), T(x), T(v), block=BLOCK))
+    low = np_(tit.kernel_matvec(st.EQ(), T(x), T(v), block=BLOCK, tile_dtype=torch.bfloat16))
+    err = np.abs(low - full).max() / np.abs(full).max()
+    assert 1e-5 < err < 2e-2
+
+
+def test_tile_dtype_gradient_flows_through_the_rounding():
+    # The rounding is the identity to first order (astype's transpose):
+    # the gradient of the rounded-tile matvec is close to the full one's.
+    x, _ = _data(90, seed=6)
+    v = T(np.random.RandomState(7).randn(90, 2))
+    grads = []
+    for td in (None, torch.bfloat16):
+        le = torch.tensor(0.2, dtype=torch.float64, requires_grad=True)
+        out = tit.kernel_matvec(st.EQ().stretch(torch.exp(le)), T(x), v, block=32, tile_dtype=td)
+        (g,) = torch.autograd.grad(torch.sum(out**2), [le])
+        grads.append(float(g))
+    np.testing.assert_allclose(grads[1], grads[0], rtol=2e-2)
+
+
+@pytest.mark.parametrize("precision", ["default", "bfloat16", "tensorfloat32"])
+def test_low_precision_products(precision):
+    """The TPU meaning of the low precisions, on the CPU: bfloat16
+    operands (the tile as ``tile_dtype`` rounds it) or TF32 operands (10
+    significand bits, to nearest), each product exact and summed in the
+    input dtype; within the rounded operands' error of the full product."""
+    from stheno_torch.ops.gram_matvec import _tf32
+
+    x, _ = _data(100, seed=8)
+    v = np.random.RandomState(9).randn(100, 2)
+    out = np_(tit.kernel_matvec(st.EQ(), T(x), T(v), block=BLOCK, precision=precision))
+    K = np_(st.dense(st.pairwise(st.EQ(), T(x))))
+    if precision == "tensorfloat32":
+        def r(a):
+            return np_(_tf32(torch.tensor(a, dtype=torch.float32))).astype(np.float64)
+
+        want, bound = r(K) @ r(v), 2e-3
+    else:
+        want = np_(tit.kernel_matvec(st.EQ(), T(x), T(v), block=BLOCK,
+                                     tile_dtype=torch.bfloat16))
+        bound = 2e-2
+    np.testing.assert_allclose(out, want, rtol=1e-12, atol=1e-12)
+    full = K @ v
+    assert np.abs(out - full).max() / np.abs(full).max() < bound
+
+
+def test_symmetric_matvec_parity_and_grad():
+    """The upper-triangle sweep equals the row sweep (and the JAX
+    package's), through a gradient and with a ragged last block, and the
+    operator is exactly symmetric."""
+    n = 53
+    x = np.linspace(0, 10, n)
+    v = np.random.RandomState(0).randn(n, 3)
+    out_sym = tit.kernel_matvec(st.EQ(), T(x), T(v), noise=0.1, block=16, symmetric=True)
+    out_row = tit.kernel_matvec(st.EQ(), T(x), T(v), noise=0.1, block=16, symmetric=False)
+    np.testing.assert_allclose(np_(out_sym), np_(out_row), rtol=1e-12, atol=1e-12)
+    out_j = jit_.kernel_matvec(sj.EQ(), J(x), J(v), noise=0.1, block=16, symmetric=True)
+    np.testing.assert_allclose(np_(out_sym), np.asarray(out_j), rtol=1e-12, atol=1e-12)
+
+    def f(sym):
+        le = torch.tensor(0.2, dtype=torch.float64, requires_grad=True)
+        out = tit.kernel_matvec(st.EQ().stretch(torch.exp(le)), T(x), T(v), block=16,
+                                symmetric=sym)
+        (g,) = torch.autograd.grad(torch.sum(out**2), [le])
+        return float(g)
+
+    np.testing.assert_allclose(f(True), f(False), rtol=1e-10)
+    g_j = jax.grad(lambda p: jnp.sum(jit_.kernel_matvec(
+        sj.EQ().stretch(jnp.exp(p)), J(x), J(v), block=16, symmetric=True) ** 2))(0.2)
+    np.testing.assert_allclose(f(True), float(g_j), rtol=1e-10)
+    x2 = T(np.linspace(0, 10, 32))
+    K = np_(tit.kernel_matvec(st.EQ(), x2, torch.eye(32, dtype=torch.float64), block=8,
+                              symmetric=True))
+    np.testing.assert_array_equal(K, K.T)
+
+
+def test_iterative_nlml_bf16_surrogate_gradients():
+    """bfloat16 tiles in the backward surrogate only: the forward value is
+    unchanged, the gradients stay within the stochastic estimator's
+    tolerance of the dense gradient (the JAX test's bounds), and the core
+    with numpy probes gives the JAX package's bfloat16 surrogate gradient
+    (its tiles rounded from the same float64 tiles)."""
+    x, y = _data(120)
+    kw = dict(num_probes=32, cg_tol=1e-8, slq_steps=30, precond_rank=40, block=64)
+    p16, n16 = pt(grad=True), torch.tensor(0.1, dtype=torch.float64, requires_grad=True)
+    v16 = tit.iterative_nlml(kf_t, p16, T(x), T(y), n16, torch.Generator().manual_seed(0),
+                             surrogate_tile_dtype=torch.bfloat16, **kw)
+    g16 = torch.autograd.grad(v16, [*p16.values(), n16])
+    v32 = tit.iterative_nlml(kf_t, pt(), T(x), T(y), 0.1, torch.Generator().manual_seed(0), **kw)
+    np.testing.assert_allclose(float(v16), float(v32), rtol=1e-10)
+    pd, nd = pt(grad=True), torch.tensor(0.1, dtype=torch.float64, requires_grad=True)
+    f = st.GP(kf_t(pd))
+    gd = torch.autograd.grad(-f.measure.logpdf(f(T(x), nd), T(y)), [*pd.values(), nd])
+    for a, b in zip(g16, gd):
+        np.testing.assert_allclose(float(a), float(b), rtol=0.3, atol=0.5)
+
+    r = np.random.RandomState(21)
+    u, om = r.randn(120, 8), r.randn(120, 40)
+    common = (1e-10, 400, 30, 40)
+
+    def smv_j(k, xx, vv, nz):
+        return jit_.kernel_matvec(k, xx, vv, noise=nz, block=64, tile_dtype=jnp.bfloat16)
+
+    def mv_j(k, xx, vv, nz):
+        return jit_.kernel_matvec(k, xx, vv, noise=nz, block=64)
+
+    gj = jax.grad(lambda p: jnlml._nlml(
+        p, J(y), jnp.asarray(0.1), J(x), J(u), J(om), None, kf_j, mv_j,
+        jnlml.make_surrogate_grad(kf_j, smv_j), *common, "eig", 1, None)[0])(pj())
+
+    def smv_t(k, xx, vv, nz):
+        return tit.kernel_matvec(k, xx, vv, noise=nz, block=64, tile_dtype=torch.bfloat16)
+
+    p_t = pt(grad=True)
+    vt, _ = tnlml._nlml(p_t, T(y), 0.1, T(x), T(u), T(om), None, kf_t, *common, "eig", 1,
+                        block=64, surrogate_matvec_fn=smv_t)
+    gt = torch.autograd.grad(vt, list(p_t.values()))
+    for a, k in zip(gt, p_t):
+        np.testing.assert_allclose(float(a), float(gj[k]), rtol=1e-2, err_msg=k)
+
+
+def test_variance_cache_bf16_basis_build():
+    """bfloat16 tiles in the basis build's subspace sweeps: at full rank
+    the refined cache is exact to the CG tolerance; at low rank within the
+    float32 build's accuracy class (the JAX test's bounds)."""
+    x, y = _data(120, seed=9)
+    x32, y32 = T(x).float(), T(y).float()
+    x_new = torch.linspace(0, 10, 29)
+    f = st.GP(st.EQ())
+    post = f | (f(T(x), 0.05), T(y))
+    _, var_ref = post(x_new.double()).marginals()
+    kf = lambda p: st.EQ()  # noqa: E731
+    cache = tit.variance_cache(kf, None, x32, 0.05, rank=120,
+                               generator=torch.Generator().manual_seed(2), power_iters=2,
+                               refine=True, cg_tol=1e-7, max_cg_iters=200, block=64,
+                               basis_tile_dtype=torch.bfloat16)
+    var = tit.cached_posterior_var(kf, None, x32, cache, x_new)
+    np.testing.assert_allclose(np_(var).astype(np.float64), np_(var_ref), rtol=2e-3, atol=1e-5)
+    errs = {}
+    for td in (torch.bfloat16, None):
+        c = tit.variance_cache(kf, None, x32, 0.05, rank=48,
+                               generator=torch.Generator().manual_seed(2), power_iters=2,
+                               refine=True, block=64, basis_tile_dtype=td)
+        v = tit.cached_posterior_var(kf, None, x32, c, x_new)
+        errs[td] = np.abs(np_(v).astype(np.float64) - np_(var_ref)).max()
+    assert errs[torch.bfloat16] < 5 * max(errs[None], 1e-6)
 
 
 def test_eig_precond_state_warns_without_a_generator_and_refreshes_like_jax():

@@ -10,9 +10,10 @@ draws the feature maps agree at rtol 1e-10 for every family the JAX
 module covers, and the pathwise draws at rtol 1e-8 under both solvers.
 Then the stories of ``tests/test_pathwise.py`` on the port: feature maps
 reproduce their kernels, the draws have the closed-form posterior's
-moments and are fixed functions, a starved CG warns and reports, and
-``mesh=`` and the small-noise compensated solve raise
-``NotImplementedError`` (``ROADMAP.md`` queue 1 items 12 and 9)."""
+moments and are fixed functions, a starved CG warns and reports, the
+small-noise solve runs on the compensated operator where the policy asks
+for it, and ``mesh=`` raises ``NotImplementedError`` (``ROADMAP.md`` queue
+1 item 12)."""
 
 import warnings
 
@@ -261,24 +262,46 @@ def test_pathwise_mesh_is_not_ported():
 
 
 def test_pathwise_small_noise_compensated_is_not_ported():
-    # In float32 at noise 1e-7 the "auto" policy resolves to the two-float
-    # compensated solve (below 1/64 of ||K|| eps sqrt(N)), which is not
-    # ported: it raises, and never falls back to the plain solve.
+    # The name is kept from before the compensated solve was ported. In
+    # float32 at noise 1e-6 the "auto" policy resolves to the compensated
+    # solve (below 1/64 of ||K|| eps sqrt(N)), which now runs, as does an
+    # explicit compensated=True at ordinary noise; neither stalls at tol
+    # 1e-2. (At n=300 the float32 rounding of K v, about eps ||K||, is
+    # above noise 1e-6, so no float32 solve gets much further here; the
+    # small-noise story at n=512 is in test_torch_compensated.py.)
+    from stheno_torch.iterative import pchol
+
     x = torch.linspace(0, 10, 300, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        st.pathwise_sampler(st.EQ(), x, torch.sin(x), 1e-7, torch.Generator(), solver="cg",
-                            num_features=64, precond_rank=16)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        st.pathwise_sampler(st.EQ(), x, torch.sin(x), 0.1, torch.Generator(), solver="cg",
-                            num_features=64, precond_rank=16, compensated=True)
+    seen = []
+    real = pchol.make_whitened_solver
+
+    def spy(*a, **kw):
+        solve = real(*a, **kw)
+        seen.append(solve.compensated)
+        return solve
+
+    for noise, comp in ((1e-6, "auto"), (0.1, True)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            TP.make_whitened_solver = spy
+            try:
+                fn, _, info = st.pathwise_sampler(
+                    st.EQ(), x, torch.sin(x), noise, torch.Generator().manual_seed(0),
+                    solver="cg", num_features=64, precond_rank=64, cg_tol=1e-2,
+                    max_cg_iters=300, compensated=comp, return_info=True)
+            finally:
+                TP.make_whitened_solver = real
+        out = fn(torch.linspace(0, 10, 9))
+        assert out.shape == (9, 1) and bool(torch.isfinite(out).all())
+    assert seen == [True, True]
 
 
 def test_pathwise_cg_stall_warns_and_returns_info():
     """A stalled solve warns and ``return_info`` reports it; a healthy one
     does not warn. The reference's message advises ``compensated=True``
     even on a solve that is already compensated (``ADVICE.md``,
-    ``model/pathwise.py:166``); the port's solve is never compensated and
-    its message does not give that advice."""
+    ``model/pathwise.py:166``); the port's advises it only on a plain
+    solve."""
     r = np.random.RandomState(0)
     x = torch.tensor(np.sort(r.rand(120)) * 10)
     y = torch.sin(x)
@@ -288,8 +311,16 @@ def test_pathwise_cg_stall_warns_and_returns_info():
             st.EQ(), x, y, 0.1, torch.Generator().manual_seed(0), num_samples=2, solver="cg",
             cg_tol=1e-14, max_cg_iters=1, precond_rank=0, return_info=True)
     stalls = [str(w.message) for w in rec if "STALLED" in str(w.message)]
-    assert stalls and not any("compensated=True" in m for m in stalls)
+    assert stalls and all("compensated=True" in m for m in stalls)
     assert float(info["rel_residual"]) > 1e-14
+
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        st.pathwise_sampler(
+            st.EQ(), x, y, 0.1, torch.Generator().manual_seed(0), num_samples=2, solver="cg",
+            cg_tol=1e-30, max_cg_iters=1, precond_rank=16, compensated=True)
+    stalls = [str(w.message) for w in rec if "STALLED" in str(w.message)]
+    assert stalls and not any("compensated=True" in m for m in stalls)
 
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
