@@ -35,6 +35,12 @@ on the card, and drives the port's paths through their entry points:
   own float32 error; example 2's decomposition and example 5's
   derivative model at N=2000 against float64 on the CPU; K1 (rq), its
   backward and K2 at their shapes;
+- items 10 and 11 (phase ``item10_11_path``): resumable training
+  (``entry.resumable_n2000``, Adam on the N=2000 EQ GP through
+  ``utils.resumable_minimise``, its steps CUDA graphs) against the Adam
+  driver, resumed from its checkpoint, chained, and rolled back at a
+  barrier; every script of ``examples_torch/`` and every block of
+  ``docs/manual_torch.md`` on the card; ``B.epsilon`` on the card;
 - item 9 (phase ``item9_path``): the structured grids of
   ``bench.py:bench_structured_grids`` (the circulant NLML and gradient at
   N=2^20 and its posterior, the exact Kronecker NLML and gradient on the
@@ -70,6 +76,8 @@ and no result line.
 import gc
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3592,6 +3600,309 @@ def phase_item9_path(smi):
     ]
 
 
+# ---------------------------------------------------------------------------
+# Items 10 and 11: resumable training, the B namespace, examples, manual.
+
+#: ``entry.resumable_n2000``'s run: steps, Adam's rate, a checkpoint every
+#: ``RESUMABLE_EVERY`` steps; the loop's steps/s are timed over
+#: ``RESUMABLE_RATE_STEPS`` steps, per step and in chains of ``RESUMABLE_CHAIN``.
+RESUMABLE_STEPS = 100
+RESUMABLE_RATE = 5e-2
+RESUMABLE_EVERY = 10
+RESUMABLE_RATE_STEPS = 200
+RESUMABLE_CHAIN = 10
+#: Gate (d)'s barrier, ``-c log(b - log s2)``: Adam's first step from log
+#: s2 = 0 moves it by about the rate (5e-2) toward b, past the wall.
+BARRIER = (1e-2, 0.03)
+
+
+class _NoEagerSteps:
+    """Put in place of ``resilience._EagerSteps`` while the phase runs: the
+    loop must take its CUDA graphs on the card."""
+
+    def __init__(self, *args, **kwargs):
+        raise SmokeFailure("resumable_minimise took its eager steps on the card")
+
+
+def _checkpoint_dir():
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_ckpt")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def _resumable_wall(path, steps, **kwargs):
+    """``(latent, info, seconds)`` of one ``entry.resumable_n2000`` call."""
+    from stheno_torch import entry as E
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    latent, info = E.resumable_n2000(path, steps, rate=RESUMABLE_RATE, **kwargs)
+    torch.cuda.synchronize()
+    return latent, info, time.perf_counter() - t0
+
+
+def _run_scripts():
+    """Every script of ``examples_torch/`` and every block of
+    ``docs/manual_torch.md`` on the default device (the card), their
+    output captured: ``(report, failures)``."""
+    import contextlib
+    import io
+    import re
+    import runpy
+    import textwrap
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    folder = os.path.join(root, "examples_torch")
+    names = sorted((n for n in os.listdir(folder) if re.match(r"example\d+_.*\.py$", n)),
+                   key=lambda n: int(re.match(r"example(\d+)", n).group(1)))
+    report, failures = {"examples": {}, "manual": []}, []
+
+    def timed(label, fn):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                fn()
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported, then fails the phase
+            failures.append(f"{label}: {type(e).__name__}: {e}")
+        return {"seconds": time.perf_counter() - t0, "printed_lines": len(buf.getvalue().splitlines())}
+
+    for name in names:
+        report["examples"][name] = timed(name, lambda: runpy.run_path(
+            os.path.join(folder, name), run_name="__main__"))
+    with open(os.path.join(root, "docs", "manual_torch.md")) as fh:
+        blocks = [textwrap.dedent(b) for b in re.findall(r"```python\n(.*?)```", fh.read(), re.S)]
+    ns = {}
+    for i, block in enumerate(blocks):
+        code = compile(block, f"manual_torch.md[block {i}]", "exec")
+        report["manual"].append(timed(f"manual block {i}", lambda: exec(code, ns))["seconds"])
+    from stheno_torch.matrix import clear_rules
+
+    clear_rules()
+    report["example_count"], report["manual_blocks"] = len(names), len(blocks)
+    silent = [n for n, r in report["examples"].items() if r["printed_lines"] == 0]
+    if silent:
+        failures.append(f"examples that printed nothing: {silent}")
+    return report, failures
+
+
+def phase_item10_11_path(smi):
+    """Items 10 and 11 on the card: ``entry.resumable_n2000`` (Adam at rate
+    5e-2 on ``bench.py:bench_opt_steps``'s N=2000 EQ GP, float32, its
+    value-and-gradient, update and masked chain step each a CUDA graph),
+    driven with the wrappers' counts set to 0 just before it and read just
+    after (K1, K1's backward and K2 must have launched), then:
+
+    (a) its 100 steps' latent values against ``AdamDriver.run(100)``'s
+        (``torch.optim.Adam`` with optax's settings) from the same start,
+        within rel 1e-4;
+    (b) 50 steps, then a fresh call to 100 on the same checkpoint: the
+        latent values of the straight run within rel 1e-6 (and whether
+        bitwise);
+    (c) ``steps_per_dispatch=10`` against per-step: the objective traces
+        within rel 1e-6;
+    (d) a barrier, the NLML plus ``-c log(b - log s2)`` with ``b`` just
+        past the start, at a rate that overshoots: some step rolled back,
+        and the result finite;
+    (e) 20 per-step steps traced: K1's, K1-backward's and K2's device
+        launches equal 20 times the wrappers' counts of one eager step of
+        the same objective (a replay runs no wrapper);
+    (f) every script of ``examples_torch/`` and every block of
+        ``docs/manual_torch.md`` runs on the card and prints, with each
+        one's wall seconds;
+    (g) ``B.epsilon`` changed on the card invalidates a cached factor.
+
+    Reports the loop's steps/s per step and chained (k = 10), the traced
+    steps' device busy share and a checkpoint write's milliseconds."""
+    import stheno_torch as st
+    from stheno_torch import entry as E
+    from stheno_torch.opt import AdamDriver
+    from stheno_torch.opt.minimise import _make_loss
+    from stheno_torch.opt.transform import adam
+    from stheno_torch.utils import resilience, resumable_minimise, save_pytree
+
+    d = _checkpoint_dir()
+    report = {"phase": "item10_11_path", "nvidia_smi": smi}
+    gates = {}
+
+    def gate(name, value, limit, ok=None):
+        gates[name] = {"value": value, "limit": limit,
+                       "ok": bool(value <= limit) if ok is None else bool(ok)}
+
+    eager_steps = resilience._EagerSteps
+    resilience._EagerSteps = _NoEagerSteps
+    try:
+        # The path, with the wrappers' counts.
+        _set_counts(ZERO_COUNTS)
+        latent, info, secs = _resumable_wall(os.path.join(d, "a.npz"), RESUMABLE_STEPS,
+                                             checkpoint_every=RESUMABLE_EVERY, trace=True)
+        launches = {k: v for k, v in _counts().items() if v}
+        report["path"] = {"steps": RESUMABLE_STEPS, "seconds": secs, "launches": launches,
+                          "steps_run": info["steps_run"],
+                          "objective_first_last": [info["objective_trace"][0],
+                                                   info["objective_trace"][-1]]}
+        for name in ("gram", "gram_bwd", "chol_tile"):
+            n = launches.get(name, 0)
+            gate(f"{name} launched on the path", n, ">= 1", ok=n >= 1)
+        gate("one trace entry per step", abs(len(info["objective_trace"]) - RESUMABLE_STEPS - 1), 0)
+
+        # (a) against the Adam driver.
+        f, vs = E.adam_n2000_objective()
+        driver = AdamDriver(f, vs, rate=RESUMABLE_RATE)
+        driver.run(RESUMABLE_STEPS)
+        ref = vs.latent_dict()
+        report["vs_adam_driver"] = {k: [float(latent[k]), float(ref[k]), _rel(latent[k], ref[k])]
+                                    for k in ref}
+        gate("(a) latent values against AdamDriver", max(_rel(latent[k], ref[k]) for k in ref),
+             1e-4)
+
+        # (b) resumed half way.
+        path_b = os.path.join(d, "b.npz")
+        _, info_b1, _ = _resumable_wall(path_b, RESUMABLE_STEPS // 2,
+                                        checkpoint_every=RESUMABLE_EVERY)
+        resumed, info_b, secs_b = _resumable_wall(path_b, RESUMABLE_STEPS,
+                                                  checkpoint_every=RESUMABLE_EVERY)
+        report["resumed"] = {"resumed_from": info_b["resumed_from"],
+                             "steps_run": info_b["steps_run"], "seconds": secs_b,
+                             "bitwise": all(torch.equal(resumed[k], latent[k]) for k in latent),
+                             "rel": {k: _rel(resumed[k], latent[k]) for k in latent}}
+        gate("(b) resumed at the half-way checkpoint",
+             abs(info_b["resumed_from"] - RESUMABLE_STEPS // 2), 0)
+        gate("(b) resumed run against the straight run",
+             max(_rel(resumed[k], latent[k]) for k in latent), 1e-6)
+
+        # (c) chained.
+        chained, info_c, secs_c = _resumable_wall(os.path.join(d, "c.npz"), RESUMABLE_STEPS,
+                                                  steps_per_dispatch=10,
+                                                  checkpoint_every=RESUMABLE_EVERY, trace=True)
+        trace_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                        for a, b in zip(info_c["objective_trace"], info["objective_trace"]))
+        report["chained"] = {"steps_per_dispatch": 10, "seconds": secs_c,
+                             "trace_rel": trace_rel,
+                             "trace_len": len(info_c["objective_trace"]),
+                             "bitwise": info_c["objective_trace"] == info["objective_trace"]}
+        gate("(c) chained trace against per-step", trace_rel, 1e-6,
+             ok=trace_rel <= 1e-6 and len(info_c["objective_trace"]) == RESUMABLE_STEPS + 1)
+
+        # (d) the barrier.
+        f, vs = E.adam_n2000_objective()
+        loss = _make_loss(f, vs)
+        c, b = BARRIER
+
+        def barrier(p):
+            return loss(p) - c * torch.log(b - p["s2"])
+
+        out_d, info_d = resumable_minimise(barrier, vs.latent_dict(), steps=40,
+                                           checkpoint_path=os.path.join(d, "d.npz"),
+                                           optimizer=adam(RESUMABLE_RATE), trace=True)
+        with torch.no_grad():
+            final_d = float(barrier(out_d))
+        report["barrier"] = {"weight_wall": list(BARRIER), "rollback_steps": info_d["rollback_steps"],
+                             "rejected_steps": info_d["rejected_steps"],
+                             "latent": {k: float(v) for k, v in out_d.items()},
+                             "objective": final_d}
+        gate("(d) rolled back at the barrier", len(info_d["rollback_steps"]), ">= 1",
+             ok=len(info_d["rollback_steps"]) >= 1)
+        gate("(d) finite after the barrier", 0, 0,
+             ok=math.isfinite(final_d) and all(math.isfinite(float(v)) for v in out_d.values()))
+
+        # (e) traced steps against the wrappers' counts of one eager step,
+        # on the loop's own steps (its graphs, captured once, timed).
+        _, _, per_step = _eager_adam(0)
+        f, vs = E.adam_n2000_objective()
+        loss = _make_loss(f, vs)
+        opt = adam(RESUMABLE_RATE)
+        p0 = vs.latent_dict()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = resilience._GraphSteps(loss, opt, p0, opt.init(p0), RESUMABLE_CHAIN)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+
+        def steps(n):
+            for _ in range(n):
+                _, ok = run.value_and_grad()
+                check(ok, "a traced resumable step was not finite")
+                run.validate()
+                run.apply(1.0)
+
+        steps(2)
+        reps = 20
+        want = {"gram_kernel": reps * per_step["gram"],
+                "gram_bwd_kernel": reps * per_step["gram_bwd"],
+                "factor_panel": K2_PER_TILE["factor_panel"] * reps * per_step["chol_tile"]}
+        t = trace("resumable_steps", lambda: steps(reps),
+                  lambda by, _: all(_traced(by, k) == n for k, n in want.items()))
+        traced = {k: _traced(t["by_name"], k) for k in want}
+        report["traced_steps"] = {
+            "steps": reps, "traced": traced, "want": want, "span_ms": t["span_us"] / 1e3,
+            "device_busy_ms": t["busy_us"] / 1e3, "device_busy_share": t["busy_us"] / t["span_us"],
+            "clock_lead_us": t["lead_us"], "refused_traces": t["refused"],
+            "device_launches_per_step": sum(n for n, _ in t["by_name"].values()) / reps,
+            "kernels": _top(t["by_name"], 8)}
+        gate("(e) traced launches equal the wrappers'", 0, 0, ok=traced == want)
+
+        # The loop's rates: per step (a flag read each step) and chained.
+        def chains(n):
+            for _ in range(n):
+                ok, _ = run.chain(False)
+                check(ok, "a timed resumable chain was not finite")
+
+        rates = {}
+        for name, fn, n in (("per_step", steps, RESUMABLE_RATE_STEPS),
+                            (f"chained_k{RESUMABLE_CHAIN}", chains,
+                             RESUMABLE_RATE_STEPS // RESUMABLE_CHAIN)):
+            fn(2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(n)
+            torch.cuda.synchronize()
+            rates[f"{name}_steps_per_s"] = RESUMABLE_RATE_STEPS / (time.perf_counter() - t0)
+
+        # A checkpoint write.
+        state = {"params": run.current()[0], "opt_state": run.current()[1],
+                 "step": torch.tensor(1, dtype=torch.int32)}
+        path_w = os.path.join(d, "w.npz")
+        writes = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            save_pytree(path_w, state)
+            writes.append((time.perf_counter() - t0) * 1e3)
+        report["rates"] = {
+            **rates, "capture_s": capture_s, "checkpoint_write_ms": statistics.median(writes),
+            "path_call_s": secs, "adam_driver_captured_steps_per_s_pr8": [479.6, 495.2]}
+    finally:
+        resilience._EagerSteps = eager_steps
+
+    # (f) the examples and the manual.
+    scripts, failures = _run_scripts()
+    report["scripts"] = scripts
+    gate("(f) examples and manual blocks", len(failures), 0)
+    report["script_failures"] = failures
+
+    # (g) B.epsilon on the card.
+    A = st.Dense(torch.eye(3, dtype=torch.float64, device="cuda"))
+    try:
+        st.B.epsilon = None
+        st.B.cholesky(A)
+        st.B.epsilon = 1e-2
+        diag = torch.diagonal(st.B.dense(st.B.cholesky(A)))
+    finally:
+        st.B.epsilon = None
+    err = float((diag - math.sqrt(1.01)).abs().max())
+    report["b_epsilon"] = {"diag_err": err, "device": str(diag.device)}
+    gate("(g) B.epsilon invalidates the cached factor", err, 1e-9)
+
+    report["gates"] = gates
+    emit(report)
+    shutil.rmtree(d, ignore_errors=True)
+    failed = [name for name, g in gates.items() if not g["ok"]]
+    check(not failed, f"item10_11_path: {failed} ({failures})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU.", file=sys.stderr)
@@ -3654,6 +3965,7 @@ def _run_phases():
     idle = [k["name"] for k in item9 if k["launches"] < 1]
     check(not idle, f"kernels that item 9's paths never launched: {idle}")
     kernels.extend(item9)
+    run("item10_11_path", phase_item10_11_path, smi)
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     # The card's name and power limit again, beside the kernels' numbers.
     print(smi, flush=True)

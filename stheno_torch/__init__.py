@@ -15,8 +15,12 @@ DTC with their ELBO and posterior, several observed processes through
 modelling DSL (input transforms and derivatives of processes, Delta and
 the other kernels and means, ``Normal``'s divergences and affine
 arithmetic, the Woodbury and Kronecker closed forms), and stochastic
-variational GPs (SVGP), random-feature maps and pathwise posterior draws;
-``ROADMAP.md`` lists what is still to be ported.
+variational GPs (SVGP), random-feature maps and pathwise posterior draws,
+the structured-grid, Kronecker and compensated iterative paths, the
+training utilities of ``stheno_torch.utils`` (checkpoints, resumable
+optimisation with rollback, step metrics), the LAB-compatible ``B``
+namespace and the ``stheno_torch.torch`` import shim; ``ROADMAP.md`` lists
+what is still to be ported.
 """
 
 from . import config
@@ -27,5 +31,18 @@ from .lazy import LazyMatrix, LazyVector
 from .mo import *  # noqa: F401,F403
 from .model import *  # noqa: F401,F403
 from . import opt
+from .b import B  # noqa: F401  (LAB-compatible op namespace)
+
+
+class BreakingChangeWarning(UserWarning):
+    """A breaking change."""
+
 
 __version__ = "0.1.0"
+
+import sys as _sys
+
+__all__ = [
+    n for n in dir(_sys.modules[__name__])
+    if not n.startswith("_") and n not in ("config",)
+] + ["config"]

@@ -41,6 +41,7 @@ from ..matrix import (
     trace,
 )
 from ..matrix import sample as mat_sample
+from ..utils.display import indented_kv
 from .rng import global_generator
 
 __all__ = ["Random", "RandomProcess", "RandomVector", "Normal"]
@@ -80,16 +81,6 @@ class RandomVector(Random):
 
 def _arr(a):
     return dense(a) if is_structured(a) else config.as_tensor(a)
-
-
-def _indented_kv(key, value, *, suffix="", indent=4):
-    """``key=value`` indented by ``indent`` spaces, with continuation lines
-    of ``value`` aligned one level deeper, followed by ``suffix``."""
-    pad = " " * indent
-    lines = str(value).split("\n")
-    out = [f"{pad}{key}={lines[0]}"]
-    out.extend(pad + " " * (len(str(key)) + 1) + line for line in lines[1:])
-    return "\n".join(out) + suffix
 
 
 class Normal(RandomVector):
@@ -354,15 +345,29 @@ class Normal(RandomVector):
 
     # -- sampling ---------------------------------------------------------
 
-    def sample(self, generator=None, num=1, noise=None):
-        """``num`` samples as the columns of an ``(n, num)`` tensor, drawn
-        from ``generator`` (default: the global generator), with ``noise``
-        added to the variance's diagonal."""
+    def sample(self, *args, generator=None, num=None, noise=None):
+        """Samples as the columns of an ``(n, num)`` tensor, with ``noise``
+        added to the variance's diagonal.
+
+        Functional form, the JAX package's with a key: ``state, s =
+        dist.sample(gen[, num])`` with a ``torch.Generator`` first returns
+        that generator (advanced by the draw) and the samples. Keyword
+        form: ``s = dist.sample([num,] generator=gen)`` returns the
+        samples only; without a generator it draws from the global one."""
+        functional = bool(args) and isinstance(args[0], torch.Generator)
+        if functional:
+            if generator is not None:
+                raise TypeError("Give the generator once: first, or as generator=.")
+            generator, args = args[0], args[1:]
+        if len(args) > 1 or (args and num is not None):
+            raise TypeError("sample() takes at most (generator, num).")
+        num = int(args[0]) if args else (1 if num is None else int(num))
         var = self.var
         if noise is not None:
             var = add(var, fill_diag(config.as_scalar(noise, var.dtype, var.device), self.dim))
-        generator = global_generator() if generator is None else generator
-        return mat_sample(generator, var, num=int(num)) + _arr(self.mean)
+        s = mat_sample(global_generator() if generator is None else generator, var, num=num)
+        s = s + _arr(self.mean)
+        return (generator, s) if functional else s
 
     # -- affine arithmetic -------------------------------------------------
 
@@ -408,8 +413,8 @@ class Normal(RandomVector):
         var = "unresolved" if self._var is None else fmt(self._var)
         return (
             "<Normal:\n"
-            + _indented_kv("mean", mean, suffix=",\n")
-            + _indented_kv("var", var, suffix=">")
+            + indented_kv("mean", mean, suffix=",\n")
+            + indented_kv("var", var, suffix=">")
         )
 
     def __str__(self):

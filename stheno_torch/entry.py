@@ -22,8 +22,10 @@ the model of ``bench.py:bench_n2000``:
 - the training workloads of ``bench.py:bench_opt_steps`` and
   ``bench_nuts``: :func:`adam_n2000` builds the Adam driver of the
   N=2000 EQ GP (:func:`adam_n2000_objective`; its step captured in CUDA
-  graphs on the card), and :func:`nuts_n2000` runs NUTS over the three
-  log-hyperparameters of an EQ GP at N=2000;
+  graphs on the card), :func:`resumable_n2000` trains the same model
+  through ``utils.resumable_minimise`` (checkpoints, resume, rollback;
+  its steps captured in CUDA graphs on the card), and :func:`nuts_n2000`
+  runs NUTS over the three log-hyperparameters of an EQ GP at N=2000;
 - the pseudo-point (sparse) path of ``bench.py:bench_vfe_n2000`` (N=2000,
   M=100) and ``bench_dist_elbo_1m`` (N=1,000,000, M=512):
   :func:`vfe_n2000_inputs` and :func:`sparse_1m_inputs` make their data,
@@ -95,6 +97,9 @@ from .model import (
     svgp_natgrad_step,
 )
 from .opt import AdamDriver, Vars, sample_nuts
+from .opt.minimise import _make_loss
+from .opt.transform import adam
+from .utils import resumable_minimise
 
 __all__ = [
     "flagship_step",
@@ -353,6 +358,23 @@ def adam_n2000(steps_per_dispatch=1, device=None, dtype=torch.float32, *, n=2000
     changes nothing there (see :class:`~stheno_torch.opt.AdamDriver`)."""
     f, vs = adam_n2000_objective(device, dtype, n=n)
     return AdamDriver(f, vs, rate=1e-3, steps_per_dispatch=steps_per_dispatch)
+
+
+def resumable_n2000(checkpoint_path, steps, *, steps_per_dispatch=1, checkpoint_every=10,
+                    rate=5e-2, trace=False, device=None, dtype=torch.float32, n=2000):
+    """Adam at ``rate`` on :func:`adam_n2000_objective`'s model through
+    :func:`~stheno_torch.utils.resumable_minimise`: ``steps`` steps from
+    ``ell = s2 = 1``, or from the checkpoint at ``checkpoint_path`` where
+    there is one, with a checkpoint every ``checkpoint_every`` steps. The
+    objective is the NLML as a function of the latent dict
+    (``{"ell": log ell, "s2": log s2}``). Returns ``(latent, info)``."""
+    f, vs = adam_n2000_objective(device, dtype, n=n)
+    loss = _make_loss(f, vs)
+    return resumable_minimise(
+        loss, vs.latent_dict(), steps=steps, checkpoint_path=checkpoint_path,
+        checkpoint_every=checkpoint_every, optimizer=adam(rate), trace=trace,
+        steps_per_dispatch=steps_per_dispatch,
+    )
 
 
 def nuts_n2000(key_seed, device=None, *, n=2000, num_chains=4, num_warmup=192,

@@ -11,10 +11,10 @@ import torch
 
 from .. import config
 from ..dist import Normal
-from ..dist.normal import _indented_kv
 from ..kernels import elwise, mean_eval, mean_var, mean_var_diag, pairwise
 from ..matrix import Dense, Diagonal, Zero, add, diag_of, fill_diag, is_structured, submatrix
 from ..mo import infer_size
+from ..utils.display import indented_kv
 
 __all__ = ["FDD", "noise_as_matrix", "take"]
 
@@ -104,9 +104,9 @@ class FDD(Normal):
     def _render(self, fmt):
         return (
             "<FDD:\n"
-            + _indented_kv("process", fmt(self.p), suffix=",\n")
-            + _indented_kv("input", fmt(self.x), suffix=",\n")
-            + _indented_kv("noise", fmt(self.noise), suffix=">")
+            + indented_kv("process", fmt(self.p), suffix=",\n")
+            + indented_kv("input", fmt(self.x), suffix=",\n")
+            + indented_kv("noise", fmt(self.noise), suffix=">")
         )
 
 

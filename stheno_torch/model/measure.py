@@ -270,15 +270,20 @@ class Measure:
 
     # -- sampling ---------------------------------------------------------
 
-    def sample(self, *args):
-        """Sample processes jointly: ``m.sample([generator,] [n,] *fdds)``.
+    def sample(self, *args, generator=None):
+        """Sample processes jointly.
 
-        Draws from ``generator`` (a ``torch.Generator``), or from the global
-        generator (``stheno_torch.dist.rng``) when none is given. Returns
-        the sample of each FDD, ``(num_elements, n)``, as a tuple, or the
-        one sample for one FDD."""
-        generator = None
-        if args and isinstance(args[0], torch.Generator):
+        Functional form, the JAX package's with a key: ``state, *samples =
+        m.sample(gen[, n], *fdds)`` with a ``torch.Generator`` first
+        returns that generator (advanced by the draw) and the sample of
+        each FDD, ``(num_elements, n)``. Otherwise ``m.sample([n,] *fdds,
+        generator=gen)`` draws from ``gen`` (default: the global generator,
+        ``stheno_torch.dist.rng``) and returns the samples as a tuple, or
+        the one sample for one FDD."""
+        functional = bool(args) and isinstance(args[0], torch.Generator)
+        if functional:
+            if generator is not None:
+                raise TypeError("Give the generator once: first, or as generator=.")
             generator, args = args[0], args[1:]
         n = 1
         if args and isinstance(args[0], numbers.Integral):
@@ -287,12 +292,14 @@ class Measure:
         if not fdds or not all(isinstance(f, FDD) for f in fdds):
             raise ValueError("Give FDDs to sample.")
         # Sample under this measure.
-        sample = self(combine(*fdds)).sample(generator, n)
+        sample = self(combine(*fdds)).sample(n, generator=generator)
         i, samples = 0, []
         for fdd in fdds:
             length = num_elements(fdd)
             samples.append(sample[..., i:i + length, :])
             i += length
+        if functional:
+            return (generator,) + tuple(samples)
         return samples[0] if len(samples) == 1 else tuple(samples)
 
     # -- densities --------------------------------------------------------

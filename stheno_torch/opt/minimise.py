@@ -25,6 +25,8 @@ _BETAS, _EPS = (0.9, 0.999), 1e-8
 # Steps run before a capture: the recipe of PyTorch's whole-network
 # capture example.
 _WARMUP = 3
+# Evaluations one L-BFGS line search may make (torch's own default).
+_LINE_SEARCH_EVALS = 25
 
 
 def _make_loss(f, vs):
@@ -199,26 +201,47 @@ def minimise_adam(f, vs, iters=200, rate=5e-2, trace=False, steps_per_dispatch=1
     return driver.objective()
 
 
+class _NonFinite(Exception):
+    pass
+
+
 def minimise_lbfgs(f, vs, iters=100, trace=False):
     """Minimise ``f(vs)`` with L-BFGS (strong-Wolfe line search), one
-    iteration per ``step``; stops early on a non-finite objective."""
+    iteration per ``step``; stops at the first non-finite objective, with
+    the parameters of the last step's start."""
     loss = _make_loss(f, vs)
     params = _leaves(vs)
-    opt = torch.optim.LBFGS(list(params.values()), max_iter=1, line_search_fn="strong_wolfe")
+    # One iteration per step, and the line search's own budget: torch
+    # bounds the line search by what ``max_eval`` leaves after the step's
+    # first evaluation, so its default (``max_iter * 5 // 4`` = 1) would
+    # leave the search one trial, and a step whose first trial fails the
+    # Armijo test would not move.
+    opt = torch.optim.LBFGS(list(params.values()), max_iter=1, max_eval=1 + _LINE_SEARCH_EVALS,
+                            line_search_fn="strong_wolfe")
 
     def closure():
         opt.zero_grad()
         val = loss(params)
+        if not torch.isfinite(val):
+            # The line search cannot compare a non-finite value: stop.
+            raise _NonFinite
         val.backward()
         return val
 
     every = max(1, iters // 10)
     for i in range(iters):
-        val = opt.step(closure)
+        start = {k: p.detach().clone() for k, p in params.items()}
+        try:
+            val = opt.step(closure)
+        except _NonFinite:
+            # Back to the last step's start (a trial point of the line
+            # search may be left in the parameters).
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(start[k])
+            break
         if trace and i % every == 0:
             print(f"lbfgs iter {i}: {float(val):.6f}")
-        if not torch.isfinite(val):
-            break
     vs.assign_latent(params)
     with torch.no_grad():
         return float(loss(params))

@@ -110,7 +110,7 @@ def test_batched_logpdf_and_posterior():
 def test_batched_sampling():
     f = st.GP(st.EQ())
     xb = torch.tensor(np.random.RandomState(0).randn(3, 10, 1))
-    s = f(xb, 0.1).sample(torch.Generator().manual_seed(0), 2)
+    _, s = f(xb, 0.1).sample(torch.Generator().manual_seed(0), 2)
     assert s.shape == (3, 10, 2)
 
 

@@ -84,7 +84,7 @@ def test_cross_process():
     for a, b in zip(got, want):
         np.testing.assert_allclose(np_(a), np_(b), rtol=1e-12)
     m, f1, f2, x = _setup(st, torch.tensor)
-    s = st.cross(f1, f2)(x).sample(torch.Generator().manual_seed(0))
+    _, s = st.cross(f1, f2)(x).sample(torch.Generator().manual_seed(0))
     assert s.shape == (8, 1)
 
 

@@ -314,9 +314,9 @@ def test_sample_under_correct_measure():
     x, y = _setup()
     post = prior.condition(f(x, 0.001), y)
     gen = torch.Generator().manual_seed(0)
-    s = post.sample(gen, f(x))
+    _, s = post.sample(gen, f(x))
     np.testing.assert_allclose(np_(s)[:, 0], np_(y), atol=0.3)
-    s1, s2 = post.sample(gen, 3, f(x), f(_lin(0, 10, 4)))
+    _, s1, s2 = post.sample(gen, 3, f(x), f(_lin(0, 10, 4)))
     assert s1.shape == (10, 3) and s2.shape == (4, 3)
 
 
@@ -324,7 +324,7 @@ def test_cross_sampling_consistency():
     m = Measure()
     f1, f2 = GP(EQ(), measure=m), GP(EQ(), measure=m)
     x = _lin(0, 3, 5)
-    s1, s2, ssum = m.sample(torch.Generator().manual_seed(42), f1(x), f2(x), (f1 + f2)(x))
+    _, s1, s2, ssum = m.sample(torch.Generator().manual_seed(42), f1(x), f2(x), (f1 + f2)(x))
     # The joint covariance is singular: the jitter leaves ~sqrt(eps).
     np.testing.assert_allclose(np_(s1) + np_(s2), np_(ssum), atol=1e-4)
 

@@ -155,9 +155,9 @@ def test_rendering_indented_kv():
     assert s.startswith("<FDD:\n")
     assert "    process=" in s and "    input=" in s and "    noise=" in s
     assert repr(fdd).startswith("<FDD:\n")
-    from stheno_torch.dist.normal import _indented_kv
+    from stheno_torch.utils.display import indented_kv
 
-    assert _indented_kv("k", "a\nb", suffix=",") == "    k=a\n      b,"
+    assert indented_kv("k", "a\nb", suffix=",") == "    k=a\n      b,"
 
 
 # --- the structured masked logpdf ---------------------------------------------

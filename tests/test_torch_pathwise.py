@@ -219,7 +219,8 @@ def test_pathwise_posterior_moments(solver):
     k = 1.5 * st.EQ().stretch(1.2)
     f = st.GP(k)
     gen = torch.Generator().manual_seed(0)
-    y = f(x, noise).sample(gen)[:, 0]
+    gen, y = f(x, noise).sample(gen)
+    y = y[:, 0]
     x_new = torch.linspace(0, 10, 15, dtype=torch.float64)
     sample_fn, gen = st.pathwise_sampler(k, x, y, noise, gen, num_samples=3000,
                                          num_features=4096, solver=solver, block=64)

@@ -210,7 +210,8 @@ def test_example10_sparse():
     x = torch.linspace(0.0, 10.0, 2000, dtype=torch.float64)
     x_ind = torch.linspace(0.0, 10.0, 20, dtype=torch.float64)
     f = st.GP(st.EQ().periodic(2.0))
-    y = f.measure.sample(torch.Generator().manual_seed(6), f(x, 0.5))[:, 0]
+    _, y = f.measure.sample(torch.Generator().manual_seed(6), f(x, 0.5))
+    y = y[:, 0]
     obs = st.PseudoObs(f(x_ind), (f(x, 0.5), y))
     elbo = float(f.measure.logpdf(obs))
     lp = float(f.measure.logpdf(f(x, 0.5), y))
@@ -229,14 +230,14 @@ def test_normal_sample_moments():
     fj = sj.GP(1.5, sj.EQ())
     want_var = np_(sj.dense(fj(jnp.asarray(x), 0.1).var))
     f = st.GP(1.5, st.EQ())
-    s = f(torch.tensor(x), 0.1).sample(torch.Generator().manual_seed(1), 40_000)
+    _, s = f(torch.tensor(x), 0.1).sample(torch.Generator().manual_seed(1), 40_000)
     assert s.shape == (4, 40_000)
     np.testing.assert_allclose(np_(s.mean(dim=1)), 1.5, atol=0.04)
     c = s - s.mean(dim=1, keepdim=True)
     np.testing.assert_allclose(np_(c @ c.T / s.shape[1]), want_var, atol=0.05)
     ones = torch.ones(4, dtype=torch.float64)
     d = st.Normal(torch.zeros(4, 1, dtype=torch.float64), st.Diagonal(ones))
-    s = d.sample(torch.Generator().manual_seed(2), 40_000, noise=3.0)
+    _, s = d.sample(torch.Generator().manual_seed(2), 40_000, noise=3.0)
     np.testing.assert_allclose(np_(s.var(dim=1)), 4.0, rtol=0.05)
 
 
@@ -260,10 +261,10 @@ def test_measure_sample_joint_moments():
     g = st.GP(st.EQ(), measure=m)
     h = g + st.GP(0.5 * st.Matern32(), measure=m)
     xt = torch.tensor(x)
-    s1, s2 = m.sample(torch.Generator().manual_seed(4), 40_000, g(xt), h(xt))
+    _, s1, s2 = m.sample(torch.Generator().manual_seed(4), 40_000, g(xt), h(xt))
     assert s1.shape == (3, 40_000) and s2.shape == (3, 40_000)
     np.testing.assert_allclose(np_(s1 @ s2.T / s1.shape[1]), want, atol=0.05)
-    one = m.sample(torch.Generator().manual_seed(4), g(xt))
+    _, one = m.sample(torch.Generator().manual_seed(4), g(xt))
     assert one.shape == (3, 1)
 
 

@@ -241,6 +241,8 @@ def test_the_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None; sys.modules['stheno_tpu'] = None;"
         "import stheno_torch, stheno_torch.iterative, stheno_torch.entry, stheno_torch.convert;"
         "from stheno_torch.ops import gram_matvec, _build;"
+        "import stheno_torch.utils, stheno_torch.b, stheno_torch.torch, stheno_torch.opt.transform;"
+        "from stheno_torch import B; from stheno_torch.utils import resumable_minimise;"
         "assert stheno_torch.iterative.kernel_matvec and gram_matvec.gram_matvec"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
