@@ -185,6 +185,16 @@ KERNELS = {
         "source": "stheno_torch/ops/csrc/gram.cu",
         "replaces": "stheno_tpu/ops/gram.py:92",
     },
+    # Item 12a (phase item12a_path): K1 and its backward at the
+    # distributed NLML's 16,384 x 16,384 Gram rows (one rank).
+    "gram_dist": {
+        "source": "stheno_torch/ops/csrc/gram.cu",
+        "replaces": "stheno_tpu/ops/gram.py:92",
+    },
+    "gram_bwd_dist": {
+        "source": "stheno_torch/ops/csrc/gram_bwd.cu",
+        "replaces": "stheno_tpu/ops/gram.py:198",
+    },
 }
 
 # The matrix-free path's size (bench.py:bench_iterative_262k).
@@ -3903,6 +3913,426 @@ def phase_item10_11_path(smi):
     check(not failed, f"item10_11_path: {failed} ({failures})")
 
 
+# ---------------------------------------------------------------------------
+# Item 12a: the distributed 1-D paths (stheno_torch.parallel) through the
+# entry points, in spawned processes: run A, one rank over NCCL at full
+# width, and run B, two ranks over gloo sharing the one card (NCCL refuses
+# two ranks on one GPU).
+
+#: Run A's size (bench.py:bench_dense_nlml_grad at N=16,384), run B's, the
+#: posterior's points and the entry points' panel block.
+ITEM12A_N = 16_384
+ITEM12A_N_B = 8_192
+ITEM12A_NEW = 1024
+ITEM12A_BLOCK = 256
+#: The stretches at which run A measures the single-device float32 error
+#: of the N=10^6 ELBO and its gradient in ell: bench_dist_elbo_1m's 1 and
+#: four around it. The gradient's float32 error is rounding noise that
+#: spans about ten times over them on the single-device path
+#: (scripts/torch_item12a.py), so the ELBO's gates take the largest.
+ITEM12A_ELLS = (0.9, 0.95, 1.0, 1.05, 1.1)
+#: Seconds a run may take, and each collective of its group.
+ITEM12A_TIMEOUT_S = 600
+#: Run B's own peak memory per rank at most this share of run A's (one
+#: rank) for the same value and gradient at N=8192: each rank holds
+#: O(N^2/D + N block) of every N x N quantity (decision 5 of
+#: stheno_torch/parallel/__init__.py). The step holds K and L^{-1} at once,
+#: so no rank's total stays under the largest-tensor bound of 1.5 N^2 w/D;
+#: that bound holds each single tensor, as in the CPU test.
+ITEM12A_PEAK_SHARE = 0.65
+
+
+def _rel_err(got, ref):
+    """``|got - ref|`` over ``|ref|`` for scalars; the largest difference
+    over the largest ``|ref|`` for arrays."""
+    got, ref = torch.as_tensor(got).double().cpu(), torch.as_tensor(ref).double().cpu()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
+
+
+def _single_nlml(x, y, ell):
+    """The single-device counterpart of ``entry.dist_nlml_16k``: the
+    negative ``Measure.logpdf`` of ``GP(EQ().stretch(ell))`` at noise 0.1,
+    and its derivative in ``ell``."""
+    from stheno_torch import EQ, GP
+    from stheno_torch.entry import DIST_NOISE
+
+    e = ell.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        f = GP(EQ().stretch(e))
+        v = -f.measure.logpdf(f(x, DIST_NOISE), y)
+        (g,) = torch.autograd.grad(v, e)
+    return v.detach(), g
+
+
+def _single_predict(x, y, ell, x_new):
+    """The dense posterior's marginals: ``entry.dist_predict_16k``'s
+    single-device counterpart."""
+    from stheno_torch import EQ, GP
+    from stheno_torch.entry import DIST_NOISE
+
+    with torch.no_grad():
+        f = GP(EQ().stretch(ell))
+        return (f | (f(x, DIST_NOISE), y))(x_new).marginals()
+
+
+def _largest_tensor(fn):
+    """``fn()`` under a ``TorchDispatchMode`` that records the largest
+    storage (in elements) any operation creates; returns that size and the
+    operation."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    big = [0, None]
+
+    class _Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    n = t.untyped_storage().nbytes() // max(t.element_size(), 1)
+                    if n > big[0]:
+                        big[:] = [n, str(func)]
+            return out
+
+    with _Mode():
+        fn()
+    return big
+
+
+def _item12a_exact(mesh, n):
+    """``dist_nlml_16k`` (value and gradient) and ``dist_predict_16k`` at
+    ``n``, float32."""
+    from stheno_torch import entry as E
+
+    ell = torch.tensor(2.0, device="cuda")
+    v, g = E.dist_nlml_16k(mesh, ell, grad=True, n=n)
+    mean, var = E.dist_predict_16k(mesh, ell, ITEM12A_NEW, n=n)
+    return {"value": float(v), "grad": float(g), "mean": mean.tolist(), "var": var.tolist()}
+
+
+def _item12a_exact_refs(n):
+    """``_item12a_exact``'s single-device counterparts at ``n``, in float32
+    and in float64 (the reference)."""
+    from stheno_torch import entry as E
+
+    ell = torch.tensor(2.0, device="cuda")
+    x, y = E.dist_nlml_16k_inputs(n)
+    x_new = torch.linspace(0.0, 10.0, ITEM12A_NEW, device="cuda")
+    out = {}
+    for tag, dt in (("single", torch.float32), ("f64", torch.float64)):
+        xd, yd, ed, nd = (t.to(dt) for t in (x, y, ell, x_new))
+        v, g = _single_nlml(xd, yd, ed)
+        mean, var = _single_predict(xd, yd, ed, nd)
+        out[tag] = {"value": float(v), "grad": float(g), "mean": mean.tolist(),
+                    "var": var.tolist()}
+    return out
+
+
+def _item12a_sparse(mesh, inputs):
+    """``dist_elbo_1m``'s value and gradient (in ``ell``), float32."""
+    from stheno_torch import entry as E
+
+    v, g = E.dist_elbo_1m(mesh, inputs[3], grad=True, inputs=inputs)
+    return {"value": float(v), "grad": float(g)}
+
+
+def _item12a_sparse_refs(inputs):
+    """``entry.sparse_elbo``'s value and gradient in ``ell`` in float32 and
+    in float64 at the float32 probe's jitter (the reference) at the inputs'
+    ``ell`` (1), and the single-device float32 error of each at every ``ell``
+    of ``ITEM12A_ELLS``."""
+    from stheno_torch import entry as E
+
+    x, y, z, ell = inputs
+    x64, y64, z64 = (t.double() for t in (x, y, z))
+    out = {"single_rel": {"value": [], "grad": []}, "ells": list(ITEM12A_ELLS)}
+    for e in ITEM12A_ELLS:
+        e32 = torch.tensor(e, device="cuda")
+        eps = E.sparse_jitter(z, e32)
+        sv, sg = E.sparse_elbo(x, y, z, e32, grad=True)
+        rv, rg = E.sparse_elbo(x64, y64, z64, e32.double(), grad=True, jitter=eps)
+        sg, rg = sg["log_ell"] / e, rg["log_ell"] / e
+        out["single_rel"]["value"].append(_rel_err(sv, rv))
+        out["single_rel"]["grad"].append(_rel_err(sg, rg))
+        if e == float(ell):
+            out["single"] = {"value": float(sv), "grad": float(sg)}
+            out["f64"] = {"value": float(rv), "grad": float(rg), "jitter": eps}
+    return out
+
+
+def _item12a_sparse_f64(mesh, inputs):
+    """``dist_elbo_1m`` in float64 (its own adaptive jitter) against
+    ``entry.sparse_elbo`` in float64 at that jitter: the algorithm's
+    agreement, apart from float32 rounding (reported)."""
+    from stheno_torch import entry as E
+
+    inputs = tuple(t.double() for t in inputs)
+    v, g = E.dist_elbo_1m(mesh, inputs[3], grad=True, inputs=inputs)
+    rv, rg = E.sparse_elbo(*inputs, grad=True, jitter=E.sparse_jitter(inputs[2], inputs[3]))
+    return {"value_rel": _rel_err(v, rv), "grad_rel": _rel_err(g, rg["log_ell"] / inputs[3])}
+
+
+def _item12a_run_a(mesh):
+    """Run A (one rank, NCCL): the three entry points at N=16,384 and
+    N=10^6, M=512 (the wrappers' launches counted over them alone), their
+    single-device counterparts and float64 references, the same at N=8192
+    for run B's gates; one traced value-and-gradient step, times, own
+    peaks, and K1 and its backward at the step's Gram."""
+    from stheno_torch import entry as E
+
+    ell = torch.tensor(2.0, device="cuda")
+    inputs = E.sparse_1m_inputs()
+    _set_counts(ZERO_COUNTS)
+    out = {"exact": _item12a_exact(mesh, ITEM12A_N), "sparse": _item12a_sparse(mesh, inputs)}
+    torch.cuda.synchronize()
+    out["launches"] = _counts()
+    out["exact"].update(_item12a_exact_refs(ITEM12A_N))
+    out["sparse"].update(_item12a_sparse_refs(inputs))
+    out["sparse_f64_dist_vs_single"] = _item12a_sparse_f64(mesh, inputs)
+    out["exact_8192"] = {**_item12a_exact(mesh, ITEM12A_N_B), **_item12a_exact_refs(ITEM12A_N_B)}
+
+    step = lambda: E.dist_nlml_16k(mesh, ell, grad=True)  # noqa: E731
+    out["profile"] = _traced_exact("item12a_dist_nlml_16k", step, K1_KERNELS)
+    x, y = E.dist_nlml_16k_inputs(ITEM12A_N)
+    x_new = torch.linspace(0.0, 10.0, ITEM12A_NEW, device="cuda")
+    one = torch.ones((), device="cuda")
+    calls = {
+        "dist_nlml_16k_value_grad": step,
+        "dist_nlml_16k_value": lambda: E.dist_nlml_16k(mesh, ell),
+        "dist_nlml_8192_value_grad": lambda: E.dist_nlml_16k(mesh, ell, grad=True,
+                                                             n=ITEM12A_N_B),
+        "dist_predict_16k": lambda: E.dist_predict_16k(mesh, ell, ITEM12A_NEW),
+        "dist_elbo_1m_value_grad": lambda: E.dist_elbo_1m(mesh, one, grad=True, inputs=inputs),
+        "single_logpdf_16k_value_grad": lambda: _single_nlml(x, y, ell),
+        "single_predict_16k": lambda: _single_predict(x, y, ell, x_new),
+        "single_sparse_elbo_1m_value_grad": lambda: E.sparse_elbo(*inputs, grad=True),
+    }
+    out["ms"] = {k: time_ms(f, reps=3, warmup=1) for k, f in calls.items()}
+    out["own_peak_bytes"] = {"dist_nlml_8192_value_grad": _own_peak(
+        calls["dist_nlml_8192_value_grad"]), "dist_nlml_16k_value_grad": _own_peak(step)}
+    xs = (x / ell)[:, None]
+    out["gram_dist"] = k1_sparse_times(xs, xs)
+    out["gram_bwd_dist"] = k1_bwd_sparse_times(xs, xs)
+    return out
+
+
+def _item12a_run_b(mesh):
+    """Run B (two ranks, gloo, one card): the entry points at N=8192 and
+    N=10^6, M=512; the recorder's bytes for one value-and-gradient step and
+    for the panel loop at N=2048, block 256; the step's own peak and
+    largest tensor; times."""
+    from stheno_torch import EQ
+    from stheno_torch import entry as E
+    from stheno_torch import parallel as P
+    from stheno_torch.parallel._comm import MeshAxis
+    from stheno_torch.parallel.cholesky import _dist_cholesky_loop
+    from stheno_torch.utils.comm import collective_traffic
+
+    ell = torch.tensor(2.0, device="cuda")
+    inputs = E.sparse_1m_inputs()
+    out = {"exact": _item12a_exact(mesh, ITEM12A_N_B), "sparse": _item12a_sparse(mesh, inputs)}
+    step = lambda: E.dist_nlml_16k(mesh, ell, grad=True, n=ITEM12A_N_B)  # noqa: E731
+    with collective_traffic() as traffic:
+        step()
+    out["step_traffic_bytes"] = {k: v for k, v in traffic.items() if k != "instructions"}
+    n, b = 2048, ITEM12A_BLOCK
+    K = P.sharded_gram(EQ(), torch.linspace(0.0, 10.0, n, device="cuda")[:, None], mesh,
+                       noise=0.1).to_local()
+    with collective_traffic() as traffic:
+        _dist_cholesky_loop(K, MeshAxis(mesh, "data"), b)
+    D = mesh.size()
+    out["loop"] = {"n": n, "block": b,
+                   "bytes": sum(c * m for _, _, c, m in traffic["instructions"] if m > 1),
+                   "model": (n // b) * (D - 1) / D * n * b * 4}
+    out["own_peak_bytes"] = _own_peak(step)
+    out["largest_tensor"] = _largest_tensor(step)
+    one = torch.ones((), device="cuda")
+    out["ms"] = {
+        "dist_nlml_8192_value_grad": time_ms(step, reps=3, warmup=1),
+        "dist_predict_8192": time_ms(
+            lambda: E.dist_predict_16k(mesh, ell, ITEM12A_NEW, n=ITEM12A_N_B), reps=3, warmup=1),
+        "dist_elbo_1m_value_grad": time_ms(
+            lambda: E.dist_elbo_1m(mesh, one, grad=True, inputs=inputs), reps=3, warmup=1),
+    }
+    return out
+
+
+def _item12a_child(run, rank, world, store, out):
+    """One rank of run A or B, spawned by ``phase_item12a_path``: joins the
+    group (NCCL for A, gloo for B) over the ``FileStore`` at ``store``,
+    runs its part on a data mesh of the group and writes its result to
+    ``out/<run>.<rank>.json``. A failure raises, and its exit code fails the
+    phase."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from stheno_torch import config
+    from stheno_torch.parallel import initialize_hosts, make_data_mesh
+
+    torch.cuda.set_device(0)
+    initialize_hosts(f"file://{store}", num_processes=world, process_id=rank,
+                     backend="nccl" if run == "A" else "gloo",
+                     timeout=datetime.timedelta(seconds=ITEM12A_TIMEOUT_S))
+    try:
+        mesh = make_data_mesh()
+        with config.matmul_precision_ctx():
+            res = (_item12a_run_a if run == "A" else _item12a_run_b)(mesh)
+        res["rank"], res["world"] = rank, world
+        with open(os.path.join(out, f"{run}.{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _item12a_spawn(run, world, out):
+    """Run ``run`` in ``world`` spawned processes; every one must exit 0
+    within ``ITEM12A_TIMEOUT_S``. Returns the ranks' results and the run's
+    seconds."""
+    import multiprocessing as mp
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    store = os.path.join(tempfile.mkdtemp(dir=out), "store")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_item12a_child, args=(run, r, world, store, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + ITEM12A_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    check(all(c == 0 for c in codes), f"item12a_path: run {run}'s processes exited {codes}")
+    res = []
+    for r in range(world):
+        with open(os.path.join(out, f"{run}.{r}.json")) as f:
+            res.append(json.load(f))
+    return res, time.perf_counter() - t0
+
+
+def _gate(gates, name, value, limit):
+    gates[name] = {"value": value, "limit": limit, "ok": bool(value <= limit)}
+
+
+def phase_item12a_path(smi):
+    """Item 12a, the distributed 1-D paths, through the entry points
+    ``entry.dist_nlml_16k`` (``bench_dense_nlml_grad``'s EQ GP: value and
+    gradient), ``dist_elbo_1m`` (``bench_dist_elbo_1m``'s VFE ELBO at
+    N=10^6, M=512: value and gradient) and ``dist_predict_16k``, float32 on
+    the card, in two spawned runs:
+
+    - run A, one rank over NCCL, at N=16,384: each held to its
+      single-device counterpart on the card (``Measure.logpdf``,
+      ``entry.sparse_elbo``, the dense posterior) and to a float64 run of
+      that counterpart: (a) the distributed error against float64 at most
+      twice the single-device float32 error plus 1e-6 relative (value,
+      gradient, mean, variance; for the ELBO, the single-device error is
+      the largest over ``ITEM12A_ELLS``); the distributed ELBO in float64
+      against the single-device one (reported); (d) one traced value-and-gradient step's
+      K1 and K1-backward launches equal the wrappers' counts; the busy
+      share of that step; K1 and its backward timed at its Gram;
+    - run B, two ranks over gloo on the one card: (b) the same three at
+      N=8192 and at 10^6/512, against run A's float64 references to the
+      same gate, every rank's value and gradient the same; (c) the
+      recorder's panel-loop bytes equal the ring model exactly; (e) the
+      largest tensor a rank creates in the value-and-gradient step below
+      ``N^2 w / D * 1.5 + N block w * 4`` bytes, and its own peak at most
+      ``ITEM12A_PEAK_SHARE`` of run A's for the same step.
+
+    Every process must exit 0; its failure fails the phase. Returns the
+    kernels line's rows of K1 and its backward at the step's Gram."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="item12a_")
+    (a,), a_s = _item12a_spawn("A", 1, out)
+    b, b_s = _item12a_spawn("B", 2, out)
+    shutil.rmtree(out, ignore_errors=True)
+
+    gates = {}
+    errs = {}
+    checks = []
+    for tag, res, refs, n in (("A", a["exact"], a["exact"], ITEM12A_N),
+                              ("B", b[0]["exact"], a["exact_8192"], ITEM12A_N_B)):
+        for key in ("value", "grad", "mean", "var"):
+            dist_err = _rel_err(res[key], refs["f64"][key])
+            single_err = _rel_err(refs["single"][key], refs["f64"][key])
+            errs[f"{tag} nlml/predict {key} at N={n}"] = {"dist": dist_err, "single": single_err}
+            checks.append((f"({'a' if tag == 'A' else 'b'}) {tag} {key} at N={n}", dist_err,
+                           2 * single_err + 1e-6))
+    for tag, res in (("A", a["sparse"]), ("B", b[0]["sparse"])):
+        for key in ("value", "grad"):
+            dist_err = _rel_err(res[key], a["sparse"]["f64"][key])
+            single_err = max(a["sparse"]["single_rel"][key])
+            errs[f"{tag} elbo {key} at N=10^6"] = {
+                "dist": dist_err, "single": single_err,
+                "single_at_ell_1": _rel_err(a["sparse"]["single"][key], a["sparse"]["f64"][key]),
+                "single_by_ell": a["sparse"]["single_rel"][key]}
+            checks.append((f"({'a' if tag == 'A' else 'b'}) {tag} elbo {key} at N=10^6",
+                           dist_err, 2 * single_err + 1e-6))
+    for name, value, limit in checks:
+        _gate(gates, name, value, limit)
+    differ = [k for k in ("value", "grad") for r in b[1:]
+              if r["exact"][k] != b[0]["exact"][k] or r["sparse"][k] != b[0]["sparse"][k]]
+    _gate(gates, "(b) ranks' values and gradients differ", len(differ), 0)
+    for r in b:
+        loop = r["loop"]
+        _gate(gates, f"(c) rank {r['rank']} loop bytes off the model",
+              abs(loop["bytes"] - loop["model"]), 0)
+    _gate(gates, "(d) traced launches equal the wrappers'",
+          int(a["profile"]["traced_launches"]["gram_kernel"] != a["profile"]["wrapper_launches"][
+              "gram"] or a["profile"]["traced_launches"]["gram_bwd_kernel"] != a["profile"][
+              "wrapper_launches"]["gram_bwd"]), 0)
+    launched = a["launches"]
+    _gate(gates, "(d) K1 and its backward launched on the path",
+          int(launched["gram"] < 1 or launched["gram_bwd"] < 1), 0)
+    D, n, w = 2, ITEM12A_N_B, 4
+    for r in b:
+        _gate(gates, f"(e) rank {r['rank']} largest tensor bytes", r["largest_tensor"][0] * w,
+              n * n * w / D * 1.5 + n * ITEM12A_BLOCK * w * 4)
+        _gate(gates, f"(e) rank {r['rank']} own peak over run A's",
+              r["own_peak_bytes"] / a["own_peak_bytes"]["dist_nlml_8192_value_grad"],
+              ITEM12A_PEAK_SHARE)
+
+    report = {
+        "phase": "item12a_path", "nvidia_smi": smi, "run_seconds": {"A": a_s, "B": b_s},
+        "errors_vs_f64": errs,
+        "values": {"A": {k: a["exact"][k] for k in ("value", "grad")},
+                   "A_f64": {k: a["exact"]["f64"][k] for k in ("value", "grad")},
+                   "A_sparse": {k: a["sparse"][k] for k in ("value", "grad")},
+                   "sparse_f64": a["sparse"]["f64"],
+                   "B": {k: b[0]["exact"][k] for k in ("value", "grad")},
+                   "B_sparse": {k: b[0]["sparse"][k] for k in ("value", "grad")}},
+        "launches_A": launched,
+        "ms_A": a["ms"], "ms_B": b[0]["ms"],
+        "own_peak_bytes": {"A": a["own_peak_bytes"], "B": [r["own_peak_bytes"] for r in b]},
+        "largest_tensor_B": [r["largest_tensor"] for r in b],
+        "traffic_B_step": b[0]["step_traffic_bytes"], "loop_B": b[0]["loop"],
+        "profile_A": a["profile"],
+        "sparse_f64_dist_vs_single": a["sparse_f64_dist_vs_single"],
+        "gram_16384": a["gram_dist"], "gram_bwd_16384": a["gram_bwd_dist"],
+        "gates": gates,
+    }
+    emit(report)
+    failed = [k for k, g in gates.items() if not g["ok"]]
+    check(not failed, f"item12a_path: {failed}")
+    return [
+        {"name": name, "route": "cuda", "source": KERNELS[name]["source"],
+         "replaces": KERNELS[name]["replaces"], "launches": launched[base],
+         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}}
+        for name, base, row in (("gram_dist", "gram", a["gram_dist"]),
+                                ("gram_bwd_dist", "gram_bwd", a["gram_bwd_dist"]))
+    ]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU.", file=sys.stderr)
@@ -3966,6 +4396,10 @@ def _run_phases():
     check(not idle, f"kernels that item 9's paths never launched: {idle}")
     kernels.extend(item9)
     run("item10_11_path", phase_item10_11_path, smi)
+    item12a = run("item12a_path", phase_item12a_path, smi)
+    idle = [k["name"] for k in item12a if k["launches"] < 1]
+    check(not idle, f"kernels that item 12a's paths never launched: {idle}")
+    kernels.extend(item12a)
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     # The card's name and power limit again, beside the kernels' numbers.
     print(smi, flush=True)

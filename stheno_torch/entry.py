@@ -68,7 +68,15 @@ the model of ``bench.py:bench_n2000``:
   :func:`compensated_262k_inputs`, :func:`compensated_matvec8_262k` (the
   compensated matvec of 8 right-hand sides at noise 0.01) and
   :func:`smallnoise_weights_262k` (the compensated representer-weights
-  solve and its true residual through the compensated operator).
+  solve and its true residual through the compensated operator);
+- the distributed 1-D paths (``stheno_torch.parallel``) over a mesh of the
+  process group's ranks: :func:`dist_nlml_16k` (the NLML of
+  ``bench.py:bench_dense_nlml_grad``'s EQ GP at N=16,384 through
+  ``sharded_gram`` and ``dist_nlml``, its value or value and gradient),
+  :func:`dist_elbo_1m` (``bench_dist_elbo_1m``'s VFE ELBO at N=10^6, M=512
+  through ``dist_elbo``) and :func:`dist_predict_16k` (the N=16,384
+  model's posterior through ``dist_posterior_predict``), with
+  :func:`dist_nlml_16k_inputs` for the data.
 
 Raw inputs go to ``device`` (default ``config.default_device``, the card);
 tensors keep their own device.
@@ -96,6 +104,7 @@ from .model import (
     svgp_init,
     svgp_natgrad_step,
 )
+from . import parallel as par
 from .opt import AdamDriver, Vars, sample_nuts
 from .opt.minimise import _make_loss
 from .opt.transform import adam
@@ -148,6 +157,11 @@ __all__ = [
     "compensated_262k_inputs",
     "compensated_matvec8_262k",
     "smallnoise_weights_262k",
+    "DIST_NOISE",
+    "dist_nlml_16k_inputs",
+    "dist_nlml_16k",
+    "dist_elbo_1m",
+    "dist_predict_16k",
     "kronecker_logpdf",
     "PATHWISE_NOISE",
     "pathwise_262k_inputs",
@@ -968,3 +982,72 @@ def smallnoise_weights_262k(x, y, generator, *, rank=256):
         resid = y - it.kernel_matvec(EQ(), x, alpha, noise=SMALL_NOISE, block=8192,
                                      compensated=True)
         return alpha, info, torch.linalg.vector_norm(resid) / torch.linalg.vector_norm(y)
+
+
+# ---------------------------------------------------------------------------
+# The distributed 1-D paths: bench_dense_nlml_grad's model at N=16,384 and
+# bench_dist_elbo_1m, over a mesh of the process group's ranks.
+
+#: Observation-noise variance of the distributed N=16,384 model.
+DIST_NOISE = 0.1
+
+
+def dist_nlml_16k_inputs(n=16_384, dtype=torch.float32, device=None):
+    """``bench_dense_nlml_grad``'s data: ``x = linspace(0, 10, n)`` and ``y =
+    sin x + 0.3 cos 3.2x``. Returns ``(x, y)``."""
+    x = torch.linspace(0.0, 10.0, n, dtype=dtype, device=config.resolve_device(device))
+    return x, torch.sin(x) + 0.3 * torch.cos(3.2 * x)
+
+
+def _dist_value_and_grad(fn, ell, grad):
+    """``fn(ell)``, or ``(fn(ell), d fn / d ell)``."""
+    if not grad:
+        with torch.no_grad():
+            return fn(ell)
+    val, g = _value_and_grad(lambda p: fn(p["ell"]), {"ell": ell}, True)
+    return val, g["ell"]
+
+
+@config.pin_matmul_precision
+def dist_nlml_16k(mesh, ell, grad=False, *, n=16_384):
+    """The NLML of ``GP(EQ().stretch(ell))`` at noise 0.1 on
+    :func:`dist_nlml_16k_inputs`' data (``n`` points, in ``ell``'s dtype and
+    on its device), through ``parallel.sharded_gram`` and ``dist_nlml``
+    over ``mesh`` (panel block 256, as the JAX functions default): its
+    value, or ``(value, d value / d ell)``, the same on every rank."""
+    ell = config.as_tensor(ell)
+    x, y = dist_nlml_16k_inputs(n, ell.dtype, ell.device)
+
+    def fn(e):
+        K = par.sharded_gram(EQ().stretch(e), x[:, None], mesh, noise=DIST_NOISE)
+        return par.dist_nlml(K, y, mesh)
+
+    return _dist_value_and_grad(fn, ell, grad)
+
+
+@config.pin_matmul_precision
+def dist_elbo_1m(mesh, ell, grad=False, *, inputs=None):
+    """The VFE ELBO of ``GP(EQ().stretch(ell))`` at noise 0.1
+    on ``bench_dist_elbo_1m``'s data (``inputs``, by default
+    :func:`sparse_1m_inputs` in ``ell``'s dtype and on its device), the N
+    observations row-sharded over ``mesh`` (``parallel.dist_elbo``): its
+    value, or ``(value, d value / d ell)``, the same on every rank."""
+    ell = config.as_tensor(ell)
+    x, y, z, _ = inputs if inputs is not None else sparse_1m_inputs(ell.dtype, ell.device)
+
+    def fn(e):
+        return par.dist_elbo(EQ().stretch(e), z[:, None], x[:, None], y, SPARSE_NOISE, mesh)
+
+    return _dist_value_and_grad(fn, ell, grad)
+
+
+@config.pin_matmul_precision
+def dist_predict_16k(mesh, ell, n_new=1024, *, n=16_384):
+    """The posterior marginals ``(mean, var)`` of :func:`dist_nlml_16k`'s
+    model at ``n_new`` points on [0, 10], through
+    ``parallel.dist_posterior_predict`` over ``mesh``."""
+    ell = config.as_tensor(ell)
+    x, y = dist_nlml_16k_inputs(n, ell.dtype, ell.device)
+    x_new = torch.linspace(0.0, 10.0, n_new, dtype=ell.dtype, device=ell.device)
+    return par.dist_posterior_predict(EQ().stretch(ell), x[:, None], y, x_new[:, None],
+                                      DIST_NOISE, mesh)

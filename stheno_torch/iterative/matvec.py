@@ -87,7 +87,7 @@ _FULL_PRECISION = (None, "high", "float32", "highest")
 _LOW_PRECISION = ("default", "bfloat16", "tensorfloat32")
 
 
-def not_ported(what, item=12):
+def not_ported(what, item="12b"):
     """The error of an option this port does not have yet, naming the
     ``ROADMAP.md`` item that ports it."""
     return NotImplementedError(

@@ -21,7 +21,7 @@ from building (``_draw`` and ``_build``), so the same draws can be handed
 to either package. At small noise the CG solve runs on the compensated
 operator (``iterative/compensated.py``) where ``compensated`` asks for it
 or ``"auto"`` resolves to it. Not ported yet: a ``mesh`` (``ROADMAP.md``
-queue 1 item 12), which raises ``NotImplementedError``.
+queue 1 item 12b), which raises ``NotImplementedError``.
 """
 
 import warnings
@@ -173,7 +173,7 @@ def pathwise_sampler(
         functions. A stalled CG solve warns.
     """
     if mesh is not None:
-        raise not_ported("pathwise_sampler(mesh=...)", item=12)
+        raise not_ported("pathwise_sampler(mesh=...)", item="12b")
     x2 = uprank(x)
     y = config.as_tensor(y)
     n, d = x2.shape

@@ -102,7 +102,7 @@ def sample_hmc(
         generator: a CPU ``torch.Generator``.
         num_chains: chains, run one after another.
         mesh, chain_axis: chains over several devices are not ported
-            (``ROADMAP.md`` queue 1 item 12); a mesh raises.
+            (``ROADMAP.md`` queue 1 item 12b); a mesh raises.
 
     Returns:
         ``(samples, logps, accept_rate)``: ``samples`` a dict of tensors of
@@ -112,7 +112,7 @@ def sample_hmc(
     if mesh is not None:
         raise NotImplementedError(
             "sample_hmc: chains over a device mesh are not ported yet (ROADMAP.md, queue 1 "
-            "item 12); the chains run one after another on one device."
+            "item 12b); the chains run one after another on one device."
         )
     target = Target(logpdf, init)
     inits = target.q0 + 0.1 * torch.randn(

@@ -279,7 +279,7 @@ def sample_nuts(
     ``dispatch_chunk`` bounds the transitions per device program in the
     JAX package; the sampler here runs eagerly, so it is accepted and does
     not change the result. ``mesh`` (chains over several devices) is not
-    ported (``ROADMAP.md`` queue 1 item 12) and raises.
+    ported (``ROADMAP.md`` queue 1 item 12b) and raises.
 
     ``generator`` is a CPU ``torch.Generator``. Chains start from ``init``
     jittered by 0.1 standard normals and run one after another.
@@ -289,7 +289,7 @@ def sample_nuts(
     if mesh is not None:
         raise NotImplementedError(
             "sample_nuts: chains over a device mesh are not ported yet (ROADMAP.md, queue 1 "
-            "item 12); the chains run one after another on one device."
+            "item 12b); the chains run one after another on one device."
         )
     del dispatch_chunk
     target = Target(logpdf, init)

@@ -1,9 +1,9 @@
 """Training utilities: checkpoints, resumable optimisation with rollback,
-step metrics and rendering. Counterpart of ``stheno_tpu/utils``; its
-``collective_traffic`` (``comm.py``) comes with the distributed paths
-(``ROADMAP.md``, item 12)."""
+step metrics and rendering, and the distributed paths' communication
+volume (``comm.py``). Counterpart of ``stheno_tpu/utils``."""
 
 from .checkpoint import load_pytree, load_vars, save_pytree, save_vars
+from .comm import collective_traffic
 from .monitor import StepMetrics, exact_gp_flops, trace
 from .resilience import resumable_minimise
 
@@ -16,4 +16,5 @@ __all__ = [
     "StepMetrics",
     "exact_gp_flops",
     "trace",
+    "collective_traffic",
 ]

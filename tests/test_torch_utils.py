@@ -299,5 +299,5 @@ def test_trace_writes_a_chrome_trace(tmp_path):
 
 
 def test_utils_exports_match_the_jax_package():
-    # All but collective_traffic, which comes with the distributed paths.
-    assert set(tu.__all__) == set(ju.__all__) - {"collective_traffic"}
+    # collective_traffic included: it came with the distributed paths.
+    assert set(tu.__all__) == set(ju.__all__)
