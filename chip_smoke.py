@@ -195,6 +195,17 @@ KERNELS = {
         "source": "stheno_torch/ops/csrc/gram_bwd.cu",
         "replaces": "stheno_tpu/ops/gram.py:198",
     },
+    # Item 12b's first half (phase item12b_2d_path): K1 and its backward at
+    # a block-cyclic tile set of the N=16,384 Gram, a 2x2 grid's rank
+    # (0, 1): 8192 cyclic rows by 8192 cyclic columns.
+    "gram_2d": {
+        "source": "stheno_torch/ops/csrc/gram.cu",
+        "replaces": "stheno_tpu/ops/gram.py:92",
+    },
+    "gram_bwd_2d": {
+        "source": "stheno_torch/ops/csrc/gram_bwd.cu",
+        "replaces": "stheno_tpu/ops/gram.py:198",
+    },
 }
 
 # The matrix-free path's size (bench.py:bench_iterative_262k).
@@ -4186,17 +4197,17 @@ def _item12a_child(run, rank, world, store, out):
             dist.destroy_process_group()
 
 
-def _item12a_spawn(run, world, out):
-    """Run ``run`` in ``world`` spawned processes; every one must exit 0
-    within ``ITEM12A_TIMEOUT_S``. Returns the ranks' results and the run's
-    seconds."""
+def _item12a_spawn(run, world, out, child=_item12a_child):
+    """Run ``run`` in ``world`` spawned processes of ``child``; every one
+    must exit 0 within ``ITEM12A_TIMEOUT_S``. Returns the ranks' results
+    and the run's seconds."""
     import multiprocessing as mp
     import tempfile
 
     ctx = mp.get_context("spawn")
     store = os.path.join(tempfile.mkdtemp(dir=out), "store")
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=_item12a_child, args=(run, r, world, store, out))
+    procs = [ctx.Process(target=child, args=(run, r, world, store, out))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -4208,7 +4219,7 @@ def _item12a_spawn(run, world, out):
             p.kill()
             p.join()
     codes = [p.exitcode for p in procs]
-    check(all(c == 0 for c in codes), f"item12a_path: run {run}'s processes exited {codes}")
+    check(all(c == 0 for c in codes), f"{child.__name__}: run {run}'s processes exited {codes}")
     res = []
     for r in range(world):
         with open(os.path.join(out, f"{run}.{r}.json")) as f:
@@ -4333,6 +4344,308 @@ def phase_item12a_path(smi):
     ]
 
 
+# ---------------------------------------------------------------------------
+# Item 12b, first half: the 2-D block-cyclic Cholesky and dist_nlml_2d
+# (stheno_torch/parallel/cholesky2d.py) through entry.dist_nlml_2d_16k, in
+# spawned processes: run A, one rank over NCCL (a 1x1 grid), at N=16,384;
+# run B, two gloo ranks sharing the card (1x2) at N=8192; run C, four
+# (2x2) at N=4096. Run A also checks F5's repair: the gradients of the
+# public 1-D factor and solve.
+
+#: Each run's grid and N, and the panel block of the entry point.
+ITEM12B_RUNS = {"A": (1, 1, 16_384), "B": (1, 2, 8_192), "C": (2, 2, 4_096)}
+ITEM12B_BLOCK = 256
+#: The panel loop whose recorded bytes runs B and C hold to the ring model.
+ITEM12B_LOOP_N = 2048
+#: The stretches at which run A measures the single-device float32 error
+#: of the NLML and its gradient, at each run's N: the entry's 2 and two
+#: around it. The gradient's float32 error is rounding noise on every path
+#: (scripts/torch_item12b.py at N=4096, three data sets, these ells, on an
+#: H100 80GB HBM3 at 700 W: 1.1e-5 to 1.4e-4 on one device, 2.3e-5 to
+#: 1.4e-4 on the 2x2 grid, 2.9e-6 to 1.8e-4 on 1x1, 2.4e-5 to 2.4e-4 on the
+#: 1-D path at 1, 2 and 4 ranks, no path above the others throughout), so
+#: the gates take the single-device path's largest over them, as item 12a's
+#: ELBO gates do.
+ITEM12B_ELLS = (1.9, 2.0, 2.1)
+#: F5's check: one rank, float64, against torch's own factor and solve
+#: under autograd.
+ITEM12B_F5_N = 4096
+ITEM12B_F5_RTOL = 1e-8
+
+
+def _item12b_loop_model(n, b, r, c, w=4):
+    """The ring model of one rank's loop bytes on an ``r x c`` grid
+    (``tests/parallel/test_comm_volume.py:_models``' 2-D term)."""
+    return (n // b) * (2 * (r - 1) / r * b * b * w + 2 * (c - 1) / c * b * b * w
+                       + 2 * (c - 1) / c * (n / r) * b * w + 2 * (r - 1) / r * (n / r) * b * w)
+
+
+def _item12b_f5():
+    """F5 on the card: the gradients of ``dist_cholesky`` (of ``sum(W o
+    L)``) and ``dist_solve_lower`` (of ``sum(V o X)``, in ``L`` and ``B``)
+    at one rank in float64, against ``torch.linalg.cholesky`` and
+    ``solve_triangular`` under autograd: the largest difference over the
+    largest entry."""
+    from stheno_torch import parallel as P
+
+    mesh = P.make_data_mesh()
+    n = ITEM12B_F5_N
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    x = torch.linspace(0.0, 10.0, n, dtype=torch.float64, device="cuda")
+    K = torch.exp(-0.5 * (x[:, None] - x[None, :]).square()) + 0.1 * torch.eye(
+        n, dtype=torch.float64, device="cuda")
+    W = torch.randn(n, n, generator=gen, dtype=torch.float64, device="cuda")
+    Kd = K.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad((W * P.dist_cholesky(Kd, mesh).to_local()).sum(), Kd)
+    Kr = K.clone().requires_grad_(True)
+    (ref,) = torch.autograd.grad((W * torch.linalg.cholesky(Kr)).sum(), Kr)
+    out = {"cholesky": _rel_err(got, 0.5 * (ref + ref.mT))}
+    L = torch.linalg.cholesky(K)
+    B = torch.randn(n, 8, generator=gen, dtype=torch.float64, device="cuda")
+    V = torch.randn(n, 8, generator=gen, dtype=torch.float64, device="cuda")
+    Ld, Bd = L.clone().requires_grad_(True), B.clone().requires_grad_(True)
+    gL, gB = torch.autograd.grad((V * P.dist_solve_lower(Ld, Bd, mesh).to_local()).sum(),
+                                 (Ld, Bd))
+    Lr, Br = L.clone().requires_grad_(True), B.clone().requires_grad_(True)
+    rL, rB = torch.autograd.grad(
+        (V * torch.linalg.solve_triangular(Lr, Br, upper=False)).sum(), (Lr, Br))
+    out["solve_L"] = _rel_err(gL, torch.tril(rL))
+    out["solve_B"] = _rel_err(gB, rB)
+    return out
+
+
+def _item12b_refs(n):
+    """The single-device float32 and float64 ``Measure.logpdf`` NLML and
+    its derivative in ``ell`` at ``n`` and ell = 2 (``_single_nlml``), and
+    the single-device float32 error of each at every ell of
+    ``ITEM12B_ELLS``."""
+    from stheno_torch import entry as E
+
+    x, y = E.dist_nlml_16k_inputs(n)
+    out = {"single_rel": {"value": [], "grad": []}, "ells": list(ITEM12B_ELLS)}
+    for e in ITEM12B_ELLS:
+        ell = torch.tensor(e, device="cuda")
+        got = {}
+        for tag, dt in (("single", torch.float32), ("f64", torch.float64)):
+            v, g = _single_nlml(x.to(dt), y.to(dt), ell.to(dt))
+            got[tag] = {"value": float(v), "grad": float(g)}
+        for key in ("value", "grad"):
+            out["single_rel"][key].append(_rel_err(got["single"][key], got["f64"][key]))
+        if e == 2.0:
+            out.update(got)
+    return out
+
+
+def _item12b_run_a(mesh):
+    """Run A (one rank, NCCL, a 1x1 grid): ``dist_nlml_2d_16k``'s value and
+    gradient at N=16,384 (the wrappers' launches counted over it alone),
+    the references at every run's N, one traced step, times beside
+    ``dist_nlml_16k`` and the single-device path, K1 and its backward at a
+    2x2 grid's tile set, and F5's check."""
+    from stheno_torch import entry as E
+    from stheno_torch import parallel as P
+    from stheno_torch.parallel.cholesky import cyclic_index
+
+    n = ITEM12B_RUNS["A"][2]
+    ell = torch.tensor(2.0, device="cuda")
+    _set_counts(ZERO_COUNTS)
+    v, g = E.dist_nlml_2d_16k(mesh, ell, grad=True)
+    torch.cuda.synchronize()
+    out = {"launches": _counts(), "value": float(v), "grad": float(g),
+           "refs": {k: _item12b_refs(run[2]) for k, run in ITEM12B_RUNS.items()}}
+    step = lambda: E.dist_nlml_2d_16k(mesh, ell, grad=True)  # noqa: E731
+    out["profile"] = _traced_exact("item12b_dist_nlml_2d_16k", step, K1_KERNELS)
+    mesh1 = P.make_data_mesh()
+    x, y = E.dist_nlml_16k_inputs(n)
+    calls = {
+        "dist_nlml_2d_16k_value_grad": step,
+        "dist_nlml_2d_16k_value": lambda: E.dist_nlml_2d_16k(mesh, ell),
+        "dist_nlml_16k_value_grad": lambda: E.dist_nlml_16k(mesh1, ell, grad=True),
+        "single_logpdf_16k_value_grad": lambda: _single_nlml(x, y, ell),
+    }
+    out["ms"] = {k: time_ms(f, reps=3, warmup=1) for k, f in calls.items()}
+    out["own_peak_bytes"] = _own_peak(step)
+    # Beside run C's N: the 1-D path and this 1x1 grid at N=4096.
+    n_c = ITEM12B_RUNS["C"][2]
+    out["at_n_c"] = {}
+    for tag, fn, m in (("1d", E.dist_nlml_16k, mesh1), ("2d_1x1", E.dist_nlml_2d_16k, mesh)):
+        v4, g4 = fn(m, ell, grad=True, n=n_c)
+        out["at_n_c"][tag] = {"value": float(v4), "grad": float(g4)}
+    xs = (x / ell)[:, None]
+    rows = cyclic_index(n // 2, ITEM12B_BLOCK, 2, 0, xs.device)
+    cols = cyclic_index(n // 2, ITEM12B_BLOCK, 2, 1, xs.device)
+    out["gram_2d"] = k1_sparse_times(xs[rows], xs[cols])
+    out["gram_bwd_2d"] = k1_bwd_sparse_times(xs[rows], xs[cols])
+    out["f5"] = _item12b_f5()
+    return out
+
+
+def _item12b_run_grid(mesh, run):
+    """Runs B and C (gloo ranks sharing the card): the value and gradient at
+    the run's N, the recorder's bytes for one step and for the panel loop
+    at N=2048, the step's largest tensor, its time."""
+    from stheno_torch import EQ
+    from stheno_torch import entry as E
+    from stheno_torch.parallel import cholesky2d as c2d
+    from stheno_torch.utils.comm import collective_traffic
+
+    r, c, n = ITEM12B_RUNS[run]
+    ell = torch.tensor(2.0, device="cuda")
+    step = lambda: E.dist_nlml_2d_16k(mesh, ell, grad=True, n=n)  # noqa: E731
+    with collective_traffic() as traffic:
+        v, g = step()
+    out = {"value": float(v), "grad": float(g)}
+    out["step_traffic_bytes"] = {k: v for k, v in traffic.items() if k != "instructions"}
+    m, b = ITEM12B_LOOP_N, ITEM12B_BLOCK
+    grid = c2d.grid(mesh, m, block=b)
+    K = c2d.cyclic_gram(EQ(), torch.linspace(0.0, 10.0, m, device="cuda")[:, None], grid,
+                        noise=0.1)
+    with collective_traffic() as traffic:
+        c2d._cyclic_loop(K, grid)
+    out["loop"] = {"n": m, "block": b,
+                   "bytes": sum(c_ * k for _, _, c_, k in traffic["instructions"] if k > 1),
+                   "model": _item12b_loop_model(m, b, r, c)}
+    del K
+    # The largest tensor and the step's own peak, in one run.
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out["largest_tensor"] = _largest_tensor(step)
+    torch.cuda.synchronize()
+    out["own_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["ms"] = {"dist_nlml_2d_value_grad": time_ms(step, reps=3, warmup=0)}
+    return out
+
+
+def _item12b_child(run, rank, world, store, out):
+    """One rank of run A, B or C, spawned by ``phase_item12b_2d_path``:
+    joins the group (NCCL for A, gloo for B and C) over the ``FileStore``
+    at ``store``, runs its part on the run's grid and writes its result to
+    ``out/<run>.<rank>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from stheno_torch import config
+    from stheno_torch.parallel import initialize_hosts, make_grid_mesh
+
+    torch.cuda.set_device(0)
+    initialize_hosts(f"file://{store}", num_processes=world, process_id=rank,
+                     backend="nccl" if run == "A" else "gloo",
+                     timeout=datetime.timedelta(seconds=ITEM12A_TIMEOUT_S))
+    try:
+        r, c, _ = ITEM12B_RUNS[run]
+        mesh = make_grid_mesh(r, c)
+        with config.matmul_precision_ctx():
+            res = _item12b_run_a(mesh) if run == "A" else _item12b_run_grid(mesh, run)
+        res["rank"], res["world"] = rank, world
+        with open(os.path.join(out, f"{run}.{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_item12b_2d_path(smi):
+    """Item 12b's first half, the 2-D block-cyclic path, through
+    ``entry.dist_nlml_2d_16k`` (``bench_dense_nlml_grad``'s EQ GP, value and
+    gradient), float32 on the card, in three spawned runs (A: 1x1 over NCCL
+    at N=16,384; B: 1x2 and C: 2x2 over gloo, the ranks sharing the card,
+    at N=8192 and 4096):
+
+    - (a) each run's value and gradient within twice the single-device
+      float32 error (``Measure.logpdf``, against float64 on the card; the
+      largest over ``ITEM12B_ELLS``) plus 1e-6 relative, item 12a's gate;
+    - (b) runs B and C: every rank's value and gradient the same to the
+      bit; (c) the recorder's loop bytes of the panel loop at N=2048 equal
+      the ring model exactly; (e) the largest tensor a rank creates in a
+      value-and-gradient step below ``1.5 N^2 w / (r c) + 4 N b w`` bytes;
+    - (d) run A: one traced step's K1 and K1-backward launches equal the
+      wrappers', and the drive launched both; its busy share; K1 and its
+      backward timed at a 2x2 grid's tile set of the N=16,384 Gram;
+    - (f) F5: the gradients of ``dist_cholesky`` and ``dist_solve_lower``
+      at one rank, float64, N=4096, within 1e-8 of torch's own.
+
+    Every process must exit 0. Returns the kernels line's rows of K1 and
+    its backward at the tile set."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="item12b_")
+    runs, seconds = {}, {}
+    for run, (r, c, _) in ITEM12B_RUNS.items():
+        runs[run], seconds[run] = _item12a_spawn(run, r * c, out, _item12b_child)
+    shutil.rmtree(out, ignore_errors=True)
+    (a,) = runs["A"]
+    gates, errs = {}, {}
+    for run, res in runs.items():
+        n = ITEM12B_RUNS[run][2]
+        refs = a["refs"][run]
+        for key in ("value", "grad"):
+            dist_err = _rel_err(res[0][key], refs["f64"][key])
+            single_err = max(refs["single_rel"][key])
+            errs[f"{run} {key} at N={n}"] = {
+                "dist": dist_err, "single": single_err,
+                "single_at_ell_2": _rel_err(refs["single"][key], refs["f64"][key]),
+                "single_by_ell": refs["single_rel"][key]}
+            _gate(gates, f"(a) {run} {key} at N={n}", dist_err, 2 * single_err + 1e-6)
+        if run == "A":
+            continue
+        r, c, _ = ITEM12B_RUNS[run]
+        differ = [k for k in ("value", "grad") for x in res[1:] if x[k] != res[0][k]]
+        _gate(gates, f"(b) {run} ranks' values and gradients differ", len(differ), 0)
+        w = 4
+        for x in res:
+            _gate(gates, f"(c) {run} rank {x['rank']} loop bytes off the model",
+                  abs(x["loop"]["bytes"] - x["loop"]["model"]), 0)
+            _gate(gates, f"(e) {run} rank {x['rank']} largest tensor bytes",
+                  x["largest_tensor"][0] * w,
+                  1.5 * n * n * w / (r * c) + 4 * n * ITEM12B_BLOCK * w)
+    prof = a["profile"]
+    _gate(gates, "(d) traced launches equal the wrappers'",
+          int(prof["traced_launches"]["gram_kernel"] != prof["wrapper_launches"]["gram"]
+              or prof["traced_launches"]["gram_bwd_kernel"]
+              != prof["wrapper_launches"]["gram_bwd"]), 0)
+    launched = a["launches"]
+    _gate(gates, "(d) K1 and its backward launched on the path",
+          int(launched["gram"] < 1 or launched["gram_bwd"] < 1), 0)
+    for key, rel in a["f5"].items():
+        _gate(gates, f"(f) F5 {key} gradient", rel, ITEM12B_F5_RTOL)
+    report = {
+        "phase": "item12b_2d_path", "nvidia_smi": smi, "run_seconds": seconds,
+        "errors_vs_f64": errs,
+        "values": {run: {k: res[0][k] for k in ("value", "grad")} for run, res in runs.items()},
+        "refs_f64": {run: a["refs"][run]["f64"] for run in runs},
+        "launches_A": launched, "ms_A": a["ms"],
+        "ms": {run: res[0]["ms"] for run, res in runs.items() if run != "A"},
+        "own_peak_bytes": {"A": a["own_peak_bytes"],
+                           **{run: [x["own_peak_bytes"] for x in res]
+                              for run, res in runs.items() if run != "A"}},
+        "largest_tensor": {run: [x["largest_tensor"] for x in res]
+                           for run, res in runs.items() if run != "A"},
+        "traffic_step": {run: res[0]["step_traffic_bytes"]
+                         for run, res in runs.items() if run != "A"},
+        "loop": {run: res[0]["loop"] for run, res in runs.items() if run != "A"},
+        "at_n_c_A": {tag: {k: _rel_err(v[k], a["refs"]["C"]["f64"][k]) for k in v}
+                     for tag, v in a["at_n_c"].items()},
+        "profile_A": prof, "f5": a["f5"],
+        "gram_2d": a["gram_2d"], "gram_bwd_2d": a["gram_bwd_2d"],
+        "gates": gates,
+    }
+    emit(report)
+    failed = [k for k, g in gates.items() if not g["ok"]]
+    check(not failed, f"item12b_2d_path: {failed}")
+    return [
+        {"name": name, "route": "cuda", "source": KERNELS[name]["source"],
+         "replaces": KERNELS[name]["replaces"], "launches": launched[base],
+         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}}
+        for name, base, row in (("gram_2d", "gram", a["gram_2d"]),
+                                ("gram_bwd_2d", "gram_bwd", a["gram_bwd_2d"]))
+    ]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU.", file=sys.stderr)
@@ -4400,6 +4713,10 @@ def _run_phases():
     idle = [k["name"] for k in item12a if k["launches"] < 1]
     check(not idle, f"kernels that item 12a's paths never launched: {idle}")
     kernels.extend(item12a)
+    item12b = run("item12b_2d_path", phase_item12b_2d_path, smi)
+    idle = [k["name"] for k in item12b if k["launches"] < 1]
+    check(not idle, f"kernels that item 12b's 2-D path never launched: {idle}")
+    kernels.extend(item12b)
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     # The card's name and power limit again, beside the kernels' numbers.
     print(smi, flush=True)

@@ -76,7 +76,10 @@ the model of ``bench.py:bench_n2000``:
   :func:`dist_elbo_1m` (``bench_dist_elbo_1m``'s VFE ELBO at N=10^6, M=512
   through ``dist_elbo``) and :func:`dist_predict_16k` (the N=16,384
   model's posterior through ``dist_posterior_predict``), with
-  :func:`dist_nlml_16k_inputs` for the data.
+  :func:`dist_nlml_16k_inputs` for the data; and the 2-D block-cyclic
+  path over a grid of ranks: :func:`dist_nlml_2d_16k` (the same NLML
+  through ``dist_nlml_2d``, each rank's tiles built by one Gram call on
+  its cyclic rows and columns).
 
 Raw inputs go to ``device`` (default ``config.default_device``, the card);
 tensors keep their own device.
@@ -105,6 +108,7 @@ from .model import (
     svgp_natgrad_step,
 )
 from . import parallel as par
+from .parallel import cholesky2d as _c2d
 from .opt import AdamDriver, Vars, sample_nuts
 from .opt.minimise import _make_loss
 from .opt.transform import adam
@@ -160,6 +164,7 @@ __all__ = [
     "DIST_NOISE",
     "dist_nlml_16k_inputs",
     "dist_nlml_16k",
+    "dist_nlml_2d_16k",
     "dist_elbo_1m",
     "dist_predict_16k",
     "kronecker_logpdf",
@@ -1021,6 +1026,25 @@ def dist_nlml_16k(mesh, ell, grad=False, *, n=16_384):
     def fn(e):
         K = par.sharded_gram(EQ().stretch(e), x[:, None], mesh, noise=DIST_NOISE)
         return par.dist_nlml(K, y, mesh)
+
+    return _dist_value_and_grad(fn, ell, grad)
+
+
+@config.pin_matmul_precision
+def dist_nlml_2d_16k(mesh, ell, grad=False, *, n=16_384):
+    """:func:`dist_nlml_16k`'s NLML over a 2-D grid ``mesh`` (dimensions
+    ``"rows"`` and ``"cols"``, ``make_grid_mesh``) through ``dist_nlml_2d``
+    (panel block 256): each rank builds its block-cyclic tile set of the
+    Gram by one Gram call (K1) on its cyclic row and column points, so no
+    tile moves before the factorisation. Its value, or ``(value, d value /
+    d ell)``, the same on every rank."""
+    ell = config.as_tensor(ell)
+    x, y = dist_nlml_16k_inputs(n, ell.dtype, ell.device)
+    g = _c2d.grid(mesh, n, device=ell.device)
+
+    def fn(e):
+        K = _c2d.cyclic_gram(EQ().stretch(e), x[:, None], g, noise=DIST_NOISE)
+        return _c2d.nlml_cyclic(K, y, g)
 
     return _dist_value_and_grad(fn, ell, grad)
 

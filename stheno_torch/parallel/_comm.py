@@ -13,7 +13,7 @@ over that dimension's process group, with ``torch.distributed``'s calls:
 - :func:`all_to_all_rows`: row blocks exchanged, each rank sending a run
   of rows to every rank (``all_to_all``), with even or given splits;
 
-and the two autograd regions of decision 4 in ``parallel/__init__.py``:
+and the autograd regions of decision 4 in ``parallel/__init__.py``:
 
 - :func:`copy_to_mesh`: the identity forward, the sum of the gradient over
   the ranks backward. A replicated input (a hyperparameter, ``x``, ``z``,
@@ -23,7 +23,16 @@ and the two autograd regions of decision 4 in ``parallel/__init__.py``:
 - :func:`reduce_from_mesh`: the sum over the ranks forward, the identity
   backward. Every sum over the ranks in a forward pass goes through it,
   so the replicated work after it, which every rank runs, hands each rank
-  the whole cotangent once and no sum multiplies it.
+  the whole cotangent once and no sum multiplies it;
+- :func:`gather_from_mesh`: the ranks' blocks stacked forward (a
+  replicated result), this rank's block of the cotangent backward.
+
+The collectives themselves have no autograd kernel: they write into
+buffers that autograd cannot see through, so a gradient would be cut or,
+worse, silently wrong. Each raises when grad mode is on and its operand
+requires a gradient. A differentiable route goes through the regions
+above, or through a ``torch.autograd.Function`` whose forward runs the
+collectives without a gradient and whose backward issues its own.
 
 (``torch.distributed.nn.functional.all_reduce`` all-reduces in its
 backward too, which with replicated work after it multiplies the
@@ -56,6 +65,7 @@ __all__ = [
     "all_to_all_rows",
     "copy_to_mesh",
     "reduce_from_mesh",
+    "gather_from_mesh",
 ]
 
 _HERE = os.path.abspath(__file__)
@@ -102,9 +112,18 @@ def _record(kind, nbytes, ax, site=None):
     _traffic.record(site or _site(), kind, nbytes, ax.size)
 
 
+def _no_gradient(kind, t):
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise RuntimeError(
+            f"{kind} has no autograd kernel, and its operand requires a gradient: the gradient "
+            "would be cut or wrong. Route it through copy_to_mesh, reduce_from_mesh or "
+            "gather_from_mesh, or run it inside a torch.autograd.Function.")
+
+
 def all_gather_rows(t, ax):
     """The ranks' ``t`` (each of the same shape) stacked along dim 0 in rank
     order, on every rank."""
+    _no_gradient("all-gather", t)
     t = t.contiguous()
     out = t.new_empty((ax.size * t.shape[0],) + tuple(t.shape[1:]))
     _record("all-gather", out.numel() * out.element_size(), ax)
@@ -113,6 +132,7 @@ def all_gather_rows(t, ax):
 
 
 def _inplace(kind, t, ax, call, site=None):
+    _no_gradient(kind, t)
     if not t.is_contiguous():
         raise ValueError(f"{kind} writes into its operand, which must be contiguous")
     _record(kind, t.numel() * t.element_size(), ax, site)
@@ -146,6 +166,7 @@ def all_to_all_rows(t, ax, in_splits=None, out_splits=None):
     ``t[sum(in_splits[:p]) : sum(in_splits[:p + 1])]`` to rank ``p`` and
     receives ``out_splits[q]`` rows from rank ``q``, stacked in rank order.
     Without splits, ``t``'s rows go out in ``size`` equal runs."""
+    _no_gradient("all-to-all", t)
     t = t.contiguous()
     rows = t.shape[0] if out_splits is None else sum(out_splits)
     out = t.new_empty((rows,) + tuple(t.shape[1:]))
@@ -178,6 +199,18 @@ class _ReduceFromMesh(torch.autograd.Function):
         return g, None, None
 
 
+class _GatherFromMesh(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ax):
+        ctx.ax, ctx.n = ax, t.shape[0]
+        return all_gather_rows(t, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, r = ctx.n, ctx.ax.rank
+        return g[r * n:(r + 1) * n], None
+
+
 def copy_to_mesh(t, ax):
     """``t`` (a replicated tensor) as the input of a rank-local computation:
     the identity, whose backward sums the gradient over the ranks. A tensor
@@ -191,6 +224,13 @@ def reduce_from_mesh(t, ax):
     """The sum of the ranks' ``t``, on every rank; the backward passes the
     gradient through unchanged."""
     return _ReduceFromMesh.apply(t, ax, _site())
+
+
+def gather_from_mesh(t, ax):
+    """The ranks' ``t`` stacked along dim 0, on every rank, as a replicated
+    result: the backward hands this rank its block of the cotangent, which
+    every rank holds whole."""
+    return _GatherFromMesh.apply(t, ax)
 
 
 def routed(node):

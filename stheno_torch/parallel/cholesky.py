@@ -29,6 +29,20 @@ issue every collective by hand through ``_comm.py``:
 The block size is clipped and halved as the JAX package does
 (``min(block, N // D)``, halved until ``D * block`` divides N), so the
 panel count, and with it the communicated bytes, are the same.
+
+Gradients: the loops and recursions run without a gradient, inside two
+``torch.autograd.Function``s with analytic backwards built on the same
+distributed solves and products, so no rank holds an N x N array there
+either. :class:`_Factor` (the factor, with or without its inverse) takes
+the Murray adjoint ``Abar = sym(L^{-T} Phi(L^T Lbar) L^{-1})``, ``Phi`` the
+lower triangle with the diagonal halved, as K2's backward does
+(``ops/chol_tile.py``); :class:`_Solve` takes ``Bbar = L^{-T} Xbar`` and
+``Lbar = -tril(Bbar X^T)`` (transposed for ``L^T X = B``). A layout's
+operations (:class:`_Rows` here, the block-cyclic one in
+``cholesky2d.py``) are all the adjoint needs. The Cholesky's derivative is
+defined on symmetric directions, and the adjoint is the symmetric one; the
+JAX package's loops concentrate theirs on the entries they read, which
+agrees with it on every symmetric direction.
 """
 
 import math
@@ -45,6 +59,8 @@ from ._comm import (
     all_to_all_rows,
     broadcast_from,
     copy_to_mesh,
+    gather_from_mesh,
+    reduce_to,
 )
 from .hosts import device_type, init_single_rank
 
@@ -179,6 +195,20 @@ def _times_sharded(A, X, ax):
     return out
 
 
+def _tmm_rows(A, B, ax):
+    """This rank's rows of ``A^T B`` from the row blocks of ``A`` and ``B``:
+    for each row block ``s``, every rank forms ``A[:, cols_s]^T B``, and the
+    partials are reduced to rank ``s``."""
+    n = A.shape[1] // ax.size
+    mine = None
+    for s in range(ax.size):
+        part = A[:, s * n:(s + 1) * n].mT @ B
+        reduce_to(part, s, ax)
+        if s == ax.rank:
+            mine = part
+    return mine
+
+
 def _eye_rows(n, N, row0, like):
     """Rows ``[row0, row0 + n)`` of the N x N identity."""
     out = like.new_zeros((n, N))
@@ -239,20 +269,37 @@ def _dist_cholesky_loop(K, ax, block):
     return torch.tril(A, diagonal=row0)
 
 
-def _dist_solve_lower_loop(L, B, ax, block):
+def cyclic_index(n, tile, size, rank, device):
+    """The global indices of a rank's ``n`` rows when rows are dealt out in
+    tiles of ``tile`` rows over ``size`` ranks cyclically: local tile ``m``
+    is global tile ``m * size + rank``."""
+    li = torch.arange(n, device=device)
+    return (li // tile * size + rank) * tile + li % tile
+
+
+def _dist_solve_lower_loop(L, B, ax, block, tile=None):
     """Blocked forward substitution of ``L X = B``: ``L`` this rank's
-    ``(N/D, N)`` rows of a lower-triangular matrix, ``B`` its ``(N/D, M)``
-    rows. Each panel's owner sends its diagonal block of ``L`` and its
-    block rows of the residual out in one ``broadcast_from``."""
+    ``(n, N)`` rows of a lower-triangular matrix, ``B`` its ``(n, M)`` rows.
+    Each panel's owner sends its diagonal block of ``L`` and its block rows
+    of the residual out in one ``broadcast_from``. The rows are this rank's
+    row block, or with ``tile`` its rows dealt out cyclically in tiles of
+    ``tile`` rows (:func:`cyclic_index`; the panels are the tiles)."""
     n, N = L.shape
-    block = _panel_block(N, ax.size, block)
-    row0 = ax.rank * n
-    grows = torch.arange(row0, row0 + n, device=L.device)[:, None]
+    D = ax.size
+    if tile is None:
+        block = _panel_block(N, D, block)
+        grows = torch.arange(ax.rank * n, (ax.rank + 1) * n, device=L.device)[:, None]
+    else:
+        block = tile
+        grows = cyclic_index(n, tile, D, ax.rank, L.device)[:, None]
     X = torch.zeros_like(B)
     R = B.clone()
     for c0 in range(0, N, block):
         c1 = c0 + block
-        owner, off = divmod(c0, n)
+        if tile is None:
+            owner, off = divmod(c0, n)
+        else:
+            owner, off = c0 // tile % D, c0 // tile // D * tile
         if ax.rank == owner:
             buf = torch.cat([L[off:off + block, c0:c1], R[off:off + block]], dim=1)
         else:
@@ -335,6 +382,156 @@ def _solve_lower(L, B, ax, block):
     return _join_rows([(X1, 0, h), (X2, h, N - h)], ax, N)
 
 
+def _solve_upper(L, b, ax, block):
+    """Solve ``L^T x = b`` with the lower solver on the reversed system:
+    ``(L^T)^{-1} = J (J L^T J)^{-1} J``, ``J`` the reversal, and ``J L^T
+    J`` is lower-triangular. Row blocks in, row blocks out."""
+    xr = _solve_lower(_transpose_rows(L, ax, reverse=True), _reverse_rows(b, ax), ax, block)
+    return _reverse_rows(xr, ax)
+
+
+def _outer_rows(P, Q, ax):
+    """This rank's rows of ``P Q^T`` from the row blocks of ``P`` and ``Q``:
+    ``Q``'s row blocks go out one at a time (``broadcast_from``), each
+    giving one column block."""
+    kq = Q.shape[0]
+    out = P.new_empty((P.shape[0], ax.size * kq))
+    for q in range(ax.size):
+        Qq = Q.contiguous() if q == ax.rank else Q.new_empty(Q.shape)
+        broadcast_from(Qq, q, ax)
+        out[:, q * kq:(q + 1) * kq] = P @ Qq.mT
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Gradients.
+
+
+def lower(X, rows, cols, diag=1.0):
+    """``X``'s entries on and below the global diagonal, the diagonal ones
+    times ``diag``; ``rows`` and ``cols`` are the global indices of ``X``'s
+    local rows and columns."""
+    r, c = rows[:, None], cols[None, :]
+    X = torch.where(r >= c, X, 0.0)
+    return X if diag == 1.0 else torch.where(r == c, diag * X, X)
+
+
+class _Rows:
+    """The row-block layout's operations on local blocks, for
+    :func:`factor_adjoint` and ``exact._NLMLParts``: ``factor``, ``T`` (the
+    transpose), ``mm`` (a product), ``tmm`` (``A^T B``), ``outer`` (``P
+    Q^T`` of two right-hand sides), ``solve`` (``L^{-1} B``), ``eye`` (the
+    identity); the global ``rows`` and ``cols`` of a local block and the
+    local positions of the global diagonal (``diagonal``)."""
+
+    def __init__(self, ax, block, n, N, device):
+        self.ax, self.block, self.n, self.N = ax, block, n, N
+        self.rows = torch.arange(ax.rank * n, (ax.rank + 1) * n, device=device)
+        self.cols = torch.arange(N, device=device)
+        self.diagonal = (torch.arange(n, device=device), self.rows)
+
+    def factor(self, K, with_inv):
+        if with_inv:
+            return _cholesky_with_inv(K, self.ax, self.block)
+        return _cholesky(K, self.ax, self.block), None
+
+    def T(self, X):
+        return _transpose_rows(X, self.ax)
+
+    def mm(self, A, X):
+        return _times_sharded(A, X, self.ax)
+
+    def tmm(self, A, B):
+        return _tmm_rows(A, B, self.ax)
+
+    def outer(self, P, Q):
+        return _outer_rows(P, Q, self.ax)
+
+    def solve(self, L, B):
+        return _solve_lower(L, B, self.ax, self.block)
+
+    def eye(self, like):
+        return _eye_rows(self.n, self.N, self.ax.rank * self.n, like)
+
+
+def factor_adjoint(ops, L, Linv, Lbar, Linvbar):
+    """The cotangent of ``A`` for ``L = chol(A)`` (and ``Linv = L^{-1}``)
+    from those of ``L`` and ``Linv`` (either may be None), on ``ops``'s
+    layout: ``Lbar <- tril(Lbar) - tril(Linv^T tril(Linvbar) Linv^T)``, then
+    ``S = Linv^T Phi(L^T Lbar) Linv`` and ``Abar = (S + S^T) / 2``."""
+    rows, cols = ops.rows, ops.cols
+    if Linv is None:
+        Linv = ops.solve(L, ops.eye(L))
+    LinvT = ops.T(Linv)
+    Lbar = torch.zeros_like(L) if Lbar is None else lower(Lbar, rows, cols)
+    if Linvbar is not None:
+        extra = ops.mm(ops.mm(LinvT, lower(Linvbar, rows, cols)), LinvT)
+        Lbar = Lbar - lower(extra, rows, cols)
+    C = lower(ops.mm(ops.T(L), Lbar), rows, cols, diag=0.5)
+    S = ops.mm(LinvT, ops.mm(C, Linv))
+    return 0.5 * (S + ops.T(S))
+
+
+class _Factor(torch.autograd.Function):
+    """``L`` (or ``(L, L^{-1})`` with ``with_inv``) of the local block
+    ``K`` on ``ops``'s layout, with :func:`factor_adjoint` as its
+    backward."""
+
+    @staticmethod
+    def forward(ctx, K, ops, with_inv):
+        ctx.set_materialize_grads(False)
+        L, Linv = ops.factor(K, with_inv)
+        ctx.ops = ops
+        ctx.save_for_backward(L, Linv)
+        return (L, Linv) if with_inv else L
+
+    @staticmethod
+    @config.pin_matmul_precision
+    def backward(ctx, Lbar, Linvbar=None):
+        L, Linv = ctx.saved_tensors
+        return factor_adjoint(ctx.ops, L, Linv, Lbar, Linvbar), None, None
+
+
+class _Solve(torch.autograd.Function):
+    """``L^{-1} B`` (``L^{-T} B`` with ``trans``) on row blocks. Backward:
+    ``Bbar = L^{-T} Xbar`` and ``Lbar = -tril(Bbar X^T)`` (``L^{-1} Xbar``
+    and ``-tril(X Bbar^T)`` with ``trans``)."""
+
+    @staticmethod
+    def forward(ctx, L, B, ax, block, trans):
+        X = (_solve_upper if trans else _solve_lower)(L, B, ax, block)
+        ctx.ax, ctx.block, ctx.trans = ax, block, trans
+        ctx.save_for_backward(L, X)
+        return X
+
+    @staticmethod
+    @config.pin_matmul_precision
+    def backward(ctx, Xbar):
+        L, X = ctx.saved_tensors
+        ax, block, trans = ctx.ax, ctx.block, ctx.trans
+        Bbar = (_solve_lower if trans else _solve_upper)(L, Xbar.contiguous(), ax, block)
+        Lbar = None
+        if ctx.needs_input_grad[0]:
+            n, N = L.shape
+            P = _outer_rows(X, Bbar, ax) if trans else _outer_rows(Bbar, X, ax)
+            rows = torch.arange(ax.rank * n, (ax.rank + 1) * n, device=L.device)
+            Lbar = -lower(P, rows, torch.arange(N, device=L.device))
+        return Lbar, Bbar, None, None, None
+
+
+def solve_rows(L, B, ax, block, trans=False):
+    """``L^{-1} B`` (``L^{-T} B`` with ``trans``) for this rank's row blocks
+    ``L`` and ``B``, differentiable in both."""
+    return _Solve.apply(L, B, ax, block, trans)
+
+
+def factor_rows(K, ax, block, with_inv=False):
+    """``L`` (with ``with_inv``, ``(L, L^{-1})``) for this rank's row block
+    ``K``, differentiable."""
+    n, N = K.shape
+    return _Factor.apply(K, _Rows(ax, block, n, N, K.device), with_inv)
+
+
 # ---------------------------------------------------------------------------
 # The public functions.
 
@@ -348,16 +545,18 @@ def _padded_rows(K, ax, block):
     n = N_pad // ax.size
     row0 = ax.rank * n
     out = _eye_rows(n, N_pad, row0, K)
-    hi = min(N, row0 + n)
-    if hi > row0:
-        out[:hi - row0, :N] = copy_to_mesh(K, ax)[row0:hi]
+    # Every rank copies its rows of K, none on a rank past N, so that every
+    # rank's block depends on K and runs the backward's collectives.
+    hi = max(min(N, row0 + n), row0)
+    out[:hi - row0, :N] = copy_to_mesh(K, ax)[row0:hi]
     return out
 
 
 @config.pin_matmul_precision
 def dist_cholesky(K, mesh, axis="data", block=256):
     """Lower Cholesky factor of ``K``, a row-sharded DTensor (or a
-    replicated tensor), as a row-sharded DTensor.
+    replicated tensor), as a row-sharded DTensor; differentiable
+    (:class:`_Factor`).
 
     Divide-and-conquer (factor the leading half, panel-solve the lower
     left against it, Schur-update, recurse) above ``_REC_BASE``, the panel
@@ -371,23 +570,23 @@ def dist_cholesky(K, mesh, axis="data", block=256):
     if N % ax.size:
         if isinstance(K, DTensor):
             raise ValueError(f"N={N} rows do not divide evenly over {ax.size} ranks.")
-        L_pad = _cholesky(_padded_rows(K, ax, block), ax, block)
-        return all_gather_rows(L_pad, ax)[:N, :N]
-    return sharded(_cholesky(local_rows(K, ax), ax, block), ax, N)
+        L_pad = factor_rows(_padded_rows(K, ax, block), ax, block)
+        return gather_from_mesh(L_pad, ax)[:N, :N]
+    return sharded(factor_rows(local_rows(K, ax), ax, block), ax, N)
 
 
 @config.pin_matmul_precision
 def dist_cholesky_with_inv(K, mesh, axis="data", block=256):
     """Lower Cholesky factor of ``K`` (a row-sharded DTensor or a
     replicated tensor) and its inverse ``L^{-1}``, both row-sharded
-    DTensors.
+    DTensors; differentiable in ``K`` through both.
 
     The inverse rides the same recursion: ``inv([[L11, 0], [L21, L22]]) =
     [[I11, 0], [-I22 (L21 I11), I22]]``, two products per level; at the
     base, ``L^{-1}`` solves ``L X = I``. The factor never reads the
     inverse, and ``dist_nlml``'s value-only call skips this function."""
     ax = MeshAxis(mesh, axis)
-    L, Linv = _cholesky_with_inv(local_rows(K, ax), ax, block)
+    L, Linv = factor_rows(local_rows(K, ax), ax, block, with_inv=True)
     N = K.shape[-1]
     return sharded(L, ax, N), sharded(Linv, ax, N)
 
@@ -395,11 +594,12 @@ def dist_cholesky_with_inv(K, mesh, axis="data", block=256):
 @config.pin_matmul_precision
 def dist_solve_lower(L, B, mesh, axis="data", block=256):
     """Solve ``L X = B`` with ``L`` lower-triangular, both row-sharded
-    DTensors (or replicated tensors); returns ``X`` row-sharded.
+    DTensors (or replicated tensors); returns ``X`` row-sharded,
+    differentiable in both (:class:`_Solve`).
 
     Divide-and-conquer: ``X1 = L11^{-1} B1``, ``X2 = L22^{-1} (B2 - L21
     X1)``, the product streaming ``X1``'s row blocks; the loop is the base
     case below ``_REC_BASE``."""
     ax = MeshAxis(mesh, axis)
-    X = _solve_lower(local_rows(L, ax), local_rows(B, ax), ax, block)
+    X = solve_rows(local_rows(L, ax), local_rows(B, ax), ax, block)
     return sharded(X, ax, L.shape[-1])

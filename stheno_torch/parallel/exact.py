@@ -8,7 +8,9 @@ K1 (``ops/gram.py``, through ``kernels.pairwise``; its backward kernel
 under a gradient) and adds the noise on its own diagonal slice. The
 factorisation is ``parallel/cholesky.py``'s. The NLML's gradient is
 analytic, ``dK = 0.5 (m K^{-1} - a a^T)`` with ``a = K^{-1} y``, so no
-loop is differentiated by autograd.
+loop is differentiated by autograd; ``_NLMLParts`` works on a layout's
+operations (``cholesky._Rows`` here, ``cholesky2d.Grid`` for the 2-D
+path's tile sets), so one forward and backward serve both.
 
 Gradients of replicated inputs (decision 4 of ``parallel/__init__.py``):
 the kernel's tensors, ``x``, ``y`` and the noise enter each rank's rows
@@ -27,15 +29,13 @@ from ..kernels import Kernel, elwise, pairwise
 from ..kernels.util import uprank
 from ..matrix import dense
 from ..mo.core import MultiOutputKernel
-from ._comm import MeshAxis, all_reduce, copy_to_mesh, reduce_from_mesh, reduce_to, routed
+from ._comm import MeshAxis, copy_to_mesh, reduce_from_mesh, routed
 from .cholesky import (
-    _cholesky,
-    _cholesky_with_inv,
-    _reverse_rows,
-    _solve_lower,
-    _transpose_rows,
+    _Rows,
+    factor_rows,
     local_rows,
     sharded,
+    solve_rows,
 )
 
 __all__ = ["sharded_gram", "dist_nlml", "dist_posterior_predict"]
@@ -126,57 +126,38 @@ def sharded_gram(kernel, x, mesh, axis="data", noise=None):
     return sharded(K, ax, N)
 
 
-def _kinv_rows(Linv, ax):
-    """This rank's rows of ``K^{-1} = L^{-T} L^{-1}`` from its rows of
-    ``L^{-1}``: for each row block ``s``, every rank forms
-    ``Linv[:, cols_s]^T Linv``, an (N/D) x N partial, and reduces it to
-    rank ``s``."""
-    n = Linv.shape[0]
-    mine = None
-    for s in range(ax.size):
-        part = Linv[:, s * n:(s + 1) * n].mT @ Linv
-        reduce_to(part, s, ax)
-        if s == ax.rank:
-            mine = part
-    return mine
-
-
 class _NLMLParts(torch.autograd.Function):
-    """This rank's share of ``(log det K, sum_j y_j^T K^{-1} y_j)``: the
-    log-determinant over its diagonal entries of ``L``, the quadratic over
-    its rows of ``L^{-1} y``. Its backward returns this rank's rows of the
-    whole gradient of ``g_ld log det K + g_q y^T K^{-1} y``, so that after
-    ``reduce_from_mesh`` each rank's rows come from one rank only."""
+    """This rank's share of ``(log det K, sum_j y_j^T K^{-1} y_j)`` from its
+    local block ``K`` of ``ops``'s layout (``cholesky._Rows``, or
+    ``cholesky2d.Grid``'s tile sets) and its block of ``y``: the
+    log-determinant over its entries of ``L``'s diagonal, the quadratic
+    over its block of ``L^{-1} y``. Its backward returns this rank's block
+    of the whole gradient of ``g_ld log det K + g_q y^T K^{-1} y``, ``Kbar =
+    g_ld K^{-1} - g_q alpha alpha^T`` with ``K^{-1} = L^{-T} L^{-1}`` and
+    ``alpha = K^{-1} y``, and ``ybar = 2 g_q alpha``, so that after
+    ``reduce_from_mesh`` each entry comes from one rank only."""
 
     @staticmethod
-    def forward(ctx, K, y, ax, block, need_inverse):
-        if need_inverse:
-            L, Linv = _cholesky_with_inv(K, ax, block)
-        else:
-            L, Linv = _cholesky(K, ax, block), None
-        half = _solve_lower(L, y, ax, block)  # L^{-1} y
-        n = K.shape[0]
-        diag = L.diagonal(ax.rank * n)
-        ctx.ax = ax
+    def forward(ctx, K, y, ops, need_inverse):
+        L, Linv = ops.factor(K, need_inverse)
+        half = ops.solve(L, y)  # L^{-1} y
+        ctx.ops = ops
         # One N x N residual (L^{-1}); L itself is not needed backward.
         ctx.save_for_backward(Linv, half)
-        return torch.stack([2.0 * torch.log(diag).sum(), (half * half).sum()])
+        return torch.stack([2.0 * torch.log(L[ops.diagonal]).sum(), (half * half).sum()])
 
     @staticmethod
     @config.pin_matmul_precision
     def backward(ctx, g):
         Linv, half = ctx.saved_tensors
-        ax = ctx.ax
-        n = Linv.shape[0]
-        # alpha = K^{-1} y = L^{-T} (L^{-1} y): one product per rank, summed.
-        alpha = all_reduce((Linv.mT @ half).contiguous(), ax)
-        mine = alpha[ax.rank * n:(ax.rank + 1) * n]
+        ops = ctx.ops
+        alpha = ops.tmm(Linv, half)  # K^{-1} y = L^{-T} (L^{-1} y)
         Kbar = ybar = None
         if ctx.needs_input_grad[0]:
-            Kbar = _kinv_rows(Linv, ax).mul_(g[0]).sub_((g[1] * mine) @ alpha.mT)
+            Kbar = ops.tmm(Linv, Linv).mul_(g[0]).sub_(ops.outer(g[1] * alpha, alpha))
         if ctx.needs_input_grad[1]:
-            ybar = 2.0 * g[1] * mine
-        return Kbar, ybar, None, None, None
+            ybar = 2.0 * g[1] * alpha
+        return Kbar, ybar, None, None
 
 
 @config.pin_matmul_precision
@@ -197,37 +178,40 @@ def dist_nlml(K, y, mesh, axis="data", block=256):
     y2 = y[:, None] if y.ndim == 1 else y
     y_local = local_rows(y2, ax)
     need = torch.is_grad_enabled() and (K_local.requires_grad or y_local.requires_grad)
-    parts = reduce_from_mesh(_NLMLParts.apply(K_local, y_local, ax, block, need), ax)
+    ops = _Rows(ax, block, K_local.shape[0], N, K_local.device)
+    parts = reduce_from_mesh(_NLMLParts.apply(K_local, y_local, ops, need), ax)
     m = y2.shape[-1]
     return 0.5 * (m * parts[0] + parts[1] + m * N * _LOG_2_PI)
 
 
-def _solve_upper_from_lower(L, b, ax, block):
-    """Solve ``L^T x = b`` with the lower solver on the reversed system:
-    ``(L^T)^{-1} = J (J L^T J)^{-1} J``, ``J`` the reversal, and ``J L^T
-    J`` is lower-triangular. Row blocks in, row blocks out."""
-    xr = _solve_lower(_transpose_rows(L, ax, reverse=True), _reverse_rows(b, ax), ax, block)
-    return _reverse_rows(xr, ax)
-
-
 @config.pin_matmul_precision
-@torch.no_grad()
 def dist_posterior_predict(kernel, x, y, x_new, noise, mesh, axis="data", block=256):
     """Posterior mean and variance-diagonal at ``x_new`` of an exact GP with
-    row-sharded O(N^3/D) math; both replicated, without a gradient."""
+    row-sharded O(N^3/D) math; both replicated, differentiable in the
+    kernel's tensors, ``x``, ``y``, ``x_new`` and ``noise`` through the
+    factor's and the solves' backwards (``cholesky.factor_rows``,
+    ``solve_rows``). The rank-local work (this rank's rows of the Gram and
+    of the cross Gram) reads the inputs through ``copy_to_mesh``, the sums
+    over the ranks go through ``reduce_from_mesh``, and the prior variance
+    after them reads the inputs as they are (decision 4)."""
     ax = MeshAxis(mesh, axis)
     x = uprank(config.as_tensor(x))
-    K, N = _gram_rows(kernel, x, ax)
+    x_new = uprank(config.as_tensor(x_new))
+    k_r, x_r, xn_r = _route(kernel, ax), copy_to_mesh(x, ax), copy_to_mesh(x_new, ax)
+    K, N = _gram_rows(k_r, x_r, ax)
     n = K.shape[0]
     row0 = ax.rank * n
-    K.diagonal(row0).add_(noise)
-    L = _cholesky(K, ax, block)
+    noise = copy_to_mesh(config.as_scalar(noise, K.dtype, K.device), ax)
+    K = torch.diagonal_scatter(K, K.diagonal(row0) + noise, row0)
+    L = factor_rows(K, ax, block)
     del K
     y = config.as_tensor(y)
-    y2 = (y[:, None] if y.ndim == 1 else y)[row0:row0 + n]
-    alpha = _solve_upper_from_lower(L, _solve_lower(L, y2, ax, block), ax, block)
-    K_xs = dense(pairwise(kernel, _row_inputs(kernel, x, row0, row0 + n), x_new))  # (N/D, M)
-    mean = all_reduce((K_xs.mT @ alpha).contiguous(), ax)
-    V = _solve_lower(L, K_xs, ax, block)  # L^{-1} K_xs
-    var = elwise(kernel, x_new)[:, 0] - all_reduce((V * V).sum(0), ax)
+    y2 = local_rows(y[:, None] if y.ndim == 1 else y, ax)
+    alpha = solve_rows(L, solve_rows(L, y2, ax, block), ax, block, trans=True)
+    K_xs = dense(pairwise(k_r, _row_inputs(k_r, x_r, row0, row0 + n), xn_r))  # (N/D, M)
+    mean = reduce_from_mesh(K_xs.mT @ alpha, ax)
+    V = solve_rows(L, K_xs, ax, block)  # L^{-1} K_xs
+    var = elwise(kernel, x_new)[:, 0] - reduce_from_mesh((V * V).sum(0), ax)
+    if mean.requires_grad:
+        check_routed(mean, "dist_posterior_predict")
     return mean[:, 0], torch.clamp_min(var, 0.0)

@@ -75,9 +75,18 @@ class _LogdetQuad(torch.autograd.Function):
         return gA, 2.0 * g[1] * a[:, 0]
 
 
+def _inducing_chol(kernel, z, noise_z):
+    """The factor of the inducing Gram ``k(z, z) (+ noise_z I)``."""
+    K_z = dense(pairwise(kernel, z))
+    if noise_z is not None:
+        K_z = K_z + noise_z * torch.eye(K_z.shape[-1], dtype=K_z.dtype, device=K_z.device)
+    return _chol(K_z)
+
+
 def _sparse_core(kernel, z, x, y, noise, ax, method, noise_z):
-    """Shared pipeline. Returns ``(elbo, L_z, A, c)`` (replicated) where
-    the optimal ``q(u)`` is ``N(L_z A^{-1} c, L_z A^{-1} L_z^T)``."""
+    """Shared pipeline. Returns ``(elbo, A, c)`` (replicated) where the
+    optimal ``q(u)`` is ``N(L_z A^{-1} c, L_z A^{-1} L_z^T)``, ``L_z`` the
+    factor of the inducing Gram."""
     if method not in ("vfe", "fitc", "dtc"):
         raise ValueError(f'Invalid approximation method "{method}".')
     y = config.as_tensor(y).reshape(-1)
@@ -100,12 +109,10 @@ def _sparse_core(kernel, z, x, y, noise, ax, method, noise_z):
     noise_l = torch.where(real, noise[idx], 1.0)
 
     # M x M inducing Gram (replicated) and M x (N/D) cross Gram (K1).
-    K_z = dense(pairwise(kernel, z))
     if noise_z is not None:
-        K_z = K_z + copy_to_mesh(config.as_tensor(noise_z, dtype, y.device), ax) * torch.eye(
-            K_z.shape[-1], dtype=dtype, device=K_z.device)
+        noise_z = copy_to_mesh(config.as_tensor(noise_z, dtype, y.device), ax)
+    L_z = _inducing_chol(kernel, z, noise_z)
     K_zx = dense(pairwise(kernel, z, x_l))
-    L_z = _chol(K_z)
     Bm = _solve_tri(L_z, K_zx)  # L_z^{-1} K_zx, M x (N/D).
 
     trace_part = torch.zeros((), dtype=dtype, device=y.device)
@@ -132,14 +139,14 @@ def _sparse_core(kernel, z, x, y, noise, ax, method, noise_z):
         check_routed(parts, "dist_elbo")
     sums = reduce_from_mesh(parts, ax)
 
-    M = K_z.shape[-1]
+    M = L_z.shape[-1]
     A = torch.eye(M, dtype=dtype, device=y.device) + sums[:M * M].reshape(M, M)
     c = sums[M * M:M * M + M]
     trace_sum, log_noise_sum, iqf_sum = sums[M * M + M:]
     logdet_A, quad = _LogdetQuad.apply(A, c)
     det_part = log_noise_sum + n * _LOG_2_PI + logdet_A
     elbo = -0.5 * (det_part + iqf_sum - quad + trace_sum)
-    return elbo, L_z, A, c
+    return elbo, A, c
 
 
 @config.pin_matmul_precision
@@ -152,22 +159,27 @@ def dist_elbo(kernel, z, x, y, noise, mesh, axis="data", method="vfe", noise_z=N
     replicated; ``noise`` is a scalar or an (N,)-vector. Differentiable in
     the kernel's hyperparameters, ``z``, ``y`` and ``noise``; every rank
     gets the same value and gradient."""
-    elbo, _, _, _ = _sparse_core(kernel, z, x, y, noise, MeshAxis(mesh, axis), method, noise_z)
+    elbo, _, _ = _sparse_core(kernel, z, x, y, noise, MeshAxis(mesh, axis), method, noise_z)
     return elbo
 
 
 @config.pin_matmul_precision
-@torch.no_grad()
 def dist_sparse_posterior(kernel, z, x, y, noise, x_new, mesh, axis="data", method="vfe",
                           noise_z=None):
     """Predictive mean and variance-diagonal at ``x_new`` of the optimal
-    sparse approximation, replicated and without a gradient: ``mean =
-    k_*z K_z^{-1} m_u`` and ``var = k_** - ||L_z^{-1} k_z*||^2 + ||L_A^{-1}
-    L_z^{-1} k_z*||^2`` with ``q(u) = N(m_u, L_z A^{-1} L_z^T)``."""
+    sparse approximation, replicated: ``mean = k_*z K_z^{-1} m_u`` and
+    ``var = k_** - ||L_z^{-1} k_z*||^2 + ||L_A^{-1} L_z^{-1} k_z*||^2``
+    with ``q(u) = N(m_u, L_z A^{-1} L_z^T)``. Differentiable as
+    :func:`dist_elbo` is, and in ``x_new``: the O(M^3) work after the
+    reduction reads the inputs as they are, so its gradient reaches each
+    rank once."""
     ax = MeshAxis(mesh, axis)
-    _, L_z, A, c = _sparse_core(kernel, z, x, y, noise, ax, method, noise_z)
-    L_A = _chol(A)
+    _, A, c = _sparse_core(kernel, z, x, y, noise, ax, method, noise_z)
     z, x_new = uprank(config.as_tensor(z)), uprank(config.as_tensor(x_new))
+    if noise_z is not None:
+        noise_z = config.as_tensor(noise_z, A.dtype, A.device)
+    L_z = _inducing_chol(kernel, z, noise_z)
+    L_A = _chol(A)
     v = _solve_tri(L_z, dense(pairwise(kernel, z, x_new)))  # L_z^{-1} k_z*
     w = _solve_tri(L_A, v)  # L_A^{-1} v
     # mean = v^T A^{-1} c = (L_A^{-1} v)^T (L_A^{-1} c).

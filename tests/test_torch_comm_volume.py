@@ -5,17 +5,28 @@ the bytes that ``collective_traffic`` records for the panel loop's
 collectives equal the ring model ``nb (D - 1)/D N b w`` exactly, and equal
 what the JAX package's ``collective_traffic`` reads out of the compiled
 loop on a 4-device mesh. The port runs in four spawned gloo workers
-(``tests/torch_parallel_worker.py``, suite ``comm``). The 2-D and matvec
-halves wait for ``ROADMAP.md`` item 12b."""
+(``tests/torch_parallel_worker.py``, suite ``comm``).
+
+The 2-D half: the block-cyclic loop's recorded bytes at N = 256, block
+32, equal the 2-D ring model of ``tests/parallel/test_comm_volume.py``'s
+``_models`` exactly on a 2 x 4 grid (the eight-rank pool, suite ``grid8``)
+and a 2 x 2 grid (suite ``comm``), and the JAX package's HLO-measured
+bytes on the same grids. The 32-rank ``test_comm_volume_4x8_pod_shape``
+is not mirrored: 32 gloo processes on this CPU do not fit the test run's
+clock. The matvec half waits for ``ROADMAP.md`` item 12b's second half."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+import pytest
+
 import stheno_tpu.parallel.cholesky as c1d
+import stheno_tpu.parallel.cholesky2d as c2d
 import tests.torch_parallel_worker as W
 from stheno_tpu.parallel import make_data_mesh
 from stheno_tpu.utils.comm import collective_traffic
+from tests.parallel.test_comm_volume import _models
 
 N, B, D, W_BYTES = 256, 32, 4, 8
 
@@ -40,3 +51,25 @@ def test_comm_volume_matches_model_4dev(tmp_path_factory):
     K = jnp.asarray(W.psd(N))
     compiled = jax.jit(lambda K: c1d._dist_cholesky_loop(K, mesh, "data", B)).lower(K).compile()
     np.testing.assert_allclose(_loop_bytes(collective_traffic(compiled)), model, rtol=1e-12)
+
+
+@pytest.mark.parametrize("r,c,suite", [(2, 4, "grid8"), (2, 2, "comm")])
+def test_comm_volume_2d_matches_model(r, c, suite, tmp_path_factory):
+    """The 2-D loop: per panel, the diagonal tile all-reduced over the row
+    axis and then the column axis, ``P_rows`` over the column axis and
+    ``Q_full`` over the row axis, each from its own site, and nothing
+    else; every rank's loop bytes equal ``_models(N, b, D, r, c)[1]``
+    exactly, and the JAX package's HLO-measured bytes to 1e-6."""
+    D = r * c
+    model = _models(N, B, D, r, c)[1]
+    for x in W.results(suite, D, tmp_path_factory)["comm_volume_2d"]:
+        assert tuple(x["grid"]) == (r, c)
+        assert float(x["loop_bytes"]) == model, (float(x["loop_bytes"]), model)
+        sites = [str(i).split("|") for i in x["instructions"]]
+        assert len(sites) == 4 and all(
+            "_cyclic_loop" in s and k == "all-reduce" and int(n) == N // B for s, k, _, n in sites)
+    K = jnp.asarray(W.psd(N))
+    mesh = c2d.make_grid_mesh(r, c)
+    compiled = jax.jit(lambda K: c2d._dist_cholesky_2d_loop(K, mesh, "rows", "cols", B)).lower(
+        K).compile()
+    np.testing.assert_allclose(_loop_bytes(collective_traffic(compiled)), model, rtol=1e-6)

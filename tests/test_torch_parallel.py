@@ -8,7 +8,11 @@ session, which imports neither ``jax`` nor ``stheno_tpu``). The JAX side
 runs here on the 8-device CPU mesh of ``tests/conftest.py``. Both take the
 same numpy float64 inputs. Values match to 1e-10 and gradients to 1e-8,
 relative to the largest entry of the JAX result; every rank's copy of a
-replicated result (a value, a gradient) is the same to the bit."""
+replicated result (a value, a gradient) is the same to the bit.
+
+The last section holds the public factor's, solve's and posteriors'
+gradients (F5 in ``ROADMAP.md``) to ``jax.grad`` of the JAX functions, and
+the collectives to raising under a gradient."""
 
 import functools
 
@@ -520,3 +524,134 @@ def test_entry_points_match_the_jax_functions(D, tmp_path_factory):
     close(replicated(res, "elbo_grad"), j["elbo_grad"], GRAD_RTOL, "elbo grad")
     close(replicated(res, "mean"), j["mean"], VALUE_RTOL, "mean")
     close(replicated(res, "var"), j["var"], VALUE_RTOL, "var")
+
+
+# ---------------------------------------------------------------------------
+# F5: the gradients of the public factor, solve and posteriors.
+
+
+def sym(a):
+    """The symmetric part: the Cholesky's derivative is defined on symmetric
+    directions. The port's adjoint is the symmetric one (Murray's); the
+    JAX package's loops put theirs on the entries they read, which agrees
+    with it on every symmetric direction."""
+    a = np.asarray(a)
+    return 0.5 * (a + a.T)
+
+
+@functools.cache
+def jax_f5():
+    mesh = jmesh()
+    out = {}
+    for key, n, seed, block, rec in W.F5_FACTORS:
+        W1, W2 = W.weights(n, n, seed + 100), W.weights(n, n, seed + 200)
+        K = jnp.asarray(W.psd(n, seed))
+        L = jnp.asarray(np.linalg.cholesky(W.psd(n, seed)))
+        B = jnp.asarray(W.weights(n, 5, seed + 300))
+        with _RecBase(rec):
+            out[f"chol_{key}"] = sym(jax.jit(jax.grad(
+                lambda K: jnp.sum(W1 * jp.dist_cholesky(K, mesh, block=block))))(K))
+
+            def with_inv(K):
+                L, Linv = jp.dist_cholesky_with_inv(K, mesh, block=block)
+                return jnp.sum(W1 * L) + jnp.sum(W2 * Linv)
+
+            out[f"inv_{key}"] = sym(jax.jit(jax.grad(with_inv))(K))
+            gL, gB = jax.jit(jax.grad(lambda L, B: jnp.sum(
+                W1[:, :5] * jp.dist_solve_lower(L, B, mesh, block=block)), argnums=(0, 1)))(L, B)
+            out[f"solve_L_{key}"], out[f"solve_B_{key}"] = np.asarray(gL), np.asarray(gB)
+    out["chol_pad"] = sym(jax.jit(jax.grad(lambda K: jnp.sum(
+        W.weights(5, 5, 133) * jp.dist_cholesky(K, mesh, block=8))))(jnp.asarray(W.psd(5, 33))))
+    x, y = W.nlml_data(64)
+
+    def post(s, noise, y, xn):
+        mean, var = jp.dist_posterior_predict(sj.EQ().stretch(s), jnp.asarray(x)[:, None], y,
+                                              xn[:, None], noise, mesh, block=8)
+        return jnp.sum(mean) + jnp.sum(var)
+
+    gs = jax.jit(jax.grad(post, argnums=(0, 1, 2, 3)))(
+        1.3, 0.1, jnp.asarray(y), jnp.linspace(0.0, 10.0, 17))
+    for name, g in zip(("s", "noise", "y", "x_new"), gs):
+        out[f"post_{name}"] = np.asarray(g)
+    x, y, z = W.elbo_data(64, 8)
+    for method in METHODS:
+        def sparse(s, z, noise, method=method):
+            mean, var = jp.dist_sparse_posterior(
+                sj.EQ().stretch(s), z[:, None], jnp.asarray(x)[:, None], jnp.asarray(y), noise,
+                jnp.linspace(-1.0, 11.0, 17)[:, None], mesh, method=method)
+            return jnp.sum(mean) + jnp.sum(var)
+
+        gs = jax.jit(jax.grad(sparse, argnums=(0, 1, 2)))(1.3, jnp.asarray(z), 0.1)
+        for name, g in zip(("s", "z", "noise"), gs):
+            out[f"sparse_{method}_{name}"] = np.asarray(g)
+    return out
+
+
+@pytest.mark.parametrize("D", DS)
+@pytest.mark.parametrize("key", ["loop", "rec"])
+@pytest.mark.parametrize("what", ["chol", "inv", "solve_L", "solve_B"])
+def test_dist_factor_and_solve_gradients(D, key, what, tmp_path_factory):
+    """F5: the gradients of ``dist_cholesky`` (of ``sum(W o L)``),
+    ``dist_cholesky_with_inv`` (of ``sum(W1 o L) + sum(W2 o L^{-1})``),
+    both in the replicated ``K``, and of ``dist_solve_lower`` (of ``sum(V o
+    X)``) in ``L`` and ``B``, through the panel loop and the recursion
+    (``_REC_BASE`` 64), against ``jax.grad`` of the JAX functions."""
+    res = port("f5", D, tmp_path_factory)
+    close(replicated(res, f"{what}_{key}"), jax_f5()[f"{what}_{key}"], GRAD_RTOL, what)
+
+
+@pytest.mark.parametrize("D", DS)
+def test_dist_cholesky_padded_gradient(D, tmp_path_factory):
+    """F5 through the identity padding: N = 5 at D = 2 and 4, the factor
+    gathered whole by ``gather_from_mesh``."""
+    res = port("f5", D, tmp_path_factory)
+    close(replicated(res, "chol_pad"), jax_f5()["chol_pad"], GRAD_RTOL)
+
+
+@pytest.mark.parametrize("D", DS)
+@pytest.mark.parametrize("name", ["s", "noise", "y", "x_new"])
+def test_dist_posterior_gradient(D, name, tmp_path_factory):
+    """F5: d/d(s, noise, y, x_new) of ``sum(mean) + sum(var)`` for an EQ
+    stretched by s = 1.3 at n = 64 and 17 points, against ``jax.grad``
+    (d/ds: -0.12473, as the single-device posterior's)."""
+    res = port("f5", D, tmp_path_factory)
+    close(replicated(res, f"post_{name}"), jax_f5()[f"post_{name}"], GRAD_RTOL, name)
+
+
+@pytest.mark.parametrize("D", DS)
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("name", ["s", "z", "noise"])
+def test_dist_sparse_posterior_gradient(D, method, name, tmp_path_factory):
+    """F5: the same for the sparse posterior with 8 inducing points, VFE,
+    FITC and DTC."""
+    res = port("f5", D, tmp_path_factory)
+    key = f"sparse_{method}_{name}"
+    close(replicated(res, key), jax_f5()[key], GRAD_RTOL, key)
+
+
+@pytest.mark.parametrize("D", DS)
+def test_inplace_collective_under_gradient_raises(D, tmp_path_factory):
+    """A collective on an operand that requires a gradient raises instead
+    of cutting or corrupting the gradient."""
+    for r in port("f5", D, tmp_path_factory):
+        assert "no autograd kernel" in str(r["inplace_raised"])
+
+
+def test_every_collective_refuses_a_gradient():
+    """Each collective of ``_comm.py`` raises under a gradient, and runs
+    under ``torch.no_grad()``."""
+    import torch
+
+    import stheno_torch.parallel as P
+    from stheno_torch.parallel import _comm
+
+    ax = _comm.MeshAxis(P.make_data_mesh(), "data")
+    calls = (lambda t: _comm.all_reduce(t, ax), lambda t: _comm.reduce_to(t, 0, ax),
+             lambda t: _comm.broadcast_from(t, 0, ax), lambda t: _comm.all_gather_rows(t, ax),
+             lambda t: _comm.all_to_all_rows(t, ax))
+    for call in calls:
+        t = torch.ones(2, 3, dtype=torch.float64, requires_grad=True) * 1.0
+        with pytest.raises(RuntimeError, match="no autograd kernel"):
+            call(t)
+        with torch.no_grad():
+            call(t.clone())

@@ -244,7 +244,7 @@ def test_the_port_imports_without_jax():
         "import stheno_torch.utils, stheno_torch.b, stheno_torch.torch, stheno_torch.opt.transform;"
         "from stheno_torch import B; from stheno_torch.utils import resumable_minimise;"
         "import stheno_torch.parallel, stheno_torch.utils.comm;"
-        "from stheno_torch.parallel import _comm, cholesky, exact, hosts, sparse;"
+        "from stheno_torch.parallel import _comm, cholesky, cholesky2d, exact, hosts, sparse;"
         "from stheno_torch.utils import collective_traffic;"
         "assert stheno_torch.iterative.kernel_matvec and gram_matvec.gram_matvec"
     )

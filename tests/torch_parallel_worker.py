@@ -1,6 +1,6 @@
 """Worker processes of the distributed port's CPU tests
-(``tests/test_torch_parallel.py``, ``test_torch_multihost.py`` and
-``test_torch_comm_volume.py``). It imports neither ``jax`` nor
+(``tests/test_torch_parallel.py``, ``test_torch_cholesky2d.py``,
+``test_torch_multihost.py`` and ``test_torch_comm_volume.py``). It imports neither ``jax`` nor
 ``stheno_tpu``; the tests hold what the workers return to the JAX package.
 
     python -m tests.torch_parallel_worker SUITE RANK WORLD STORE OUT
@@ -65,9 +65,10 @@ def _grads(val, leaves):
 
 
 @contextlib.contextmanager
-def _rec_base(n):
-    import stheno_torch.parallel.cholesky as pc
+def _rec_base(n, module="cholesky"):
+    import importlib
 
+    pc = importlib.import_module(f"stheno_torch.parallel.{module}")
     prev = pc._REC_BASE
     pc._REC_BASE = n
     try:
@@ -93,6 +94,16 @@ def nlml_data(n, seed=None):
 def elbo_data(n, m):
     x = np.linspace(0.0, 10.0, n)
     return x, np.sin(x) + 0.1 * np.cos(5 * x), np.linspace(0.0, 10.0, m)
+
+
+def weights(n, m, seed):
+    """Standard normal weights of a loss ``sum(W o X)``."""
+    return np.random.RandomState(seed).randn(n, m)
+
+
+#: The factorisations whose gradients F5's cases take: (key, N, seed of
+#: the matrix, block, ``_REC_BASE``): the panel loop, and the recursion.
+F5_FACTORS = (("loop", 128, 31, 16, 2048), ("rec", 128, 32, 8, 64))
 
 
 # ---------------------------------------------------------------------------
@@ -361,6 +372,274 @@ def case_memory(mesh):
     return {"numel": np.array(big.numel), "op": np.array(big.op)}
 
 
+def _row_loss(X, W, ax):
+    """``sum(W o X)`` for a row-sharded ``X`` and the whole weights ``W``,
+    summed over the ranks through ``reduce_from_mesh``."""
+    from stheno_torch.parallel._comm import reduce_from_mesh
+
+    X = X.to_local()
+    n = X.shape[0]
+    return reduce_from_mesh((_t(W)[ax.rank * n:(ax.rank + 1) * n] * X).sum(), ax)
+
+
+def case_f5(mesh):
+    """F5: the gradients of the public factor, solve and posteriors, and an
+    in-place collective under a gradient."""
+    from torch.distributed.tensor import DTensor
+
+    import stheno_torch.parallel as P
+    from stheno_torch import EQ
+    from stheno_torch.parallel._comm import MeshAxis, all_reduce
+
+    ax = MeshAxis(mesh, "data")
+    out = {}
+    for key, n, seed, block, rec in F5_FACTORS:
+        W1, W2 = weights(n, n, seed + 100), weights(n, n, seed + 200)
+        with _rec_base(rec):
+            K = _t(psd(n, seed)).requires_grad_(True)
+            L = P.dist_cholesky(K, mesh, block=block)
+            out[f"chol_{key}"] = _np(_grads(_row_loss(L, W1, ax), [K])[0])
+            L, Linv = P.dist_cholesky_with_inv(K, mesh, block=block)
+            out[f"inv_{key}"] = _np(_grads(_row_loss(L, W1, ax) + _row_loss(Linv, W2, ax), [K])[0])
+            Lf = _t(np.linalg.cholesky(psd(n, seed))).requires_grad_(True)
+            B = _t(weights(n, 5, seed + 300)).requires_grad_(True)
+            X = P.dist_solve_lower(Lf, B, mesh, block=block)
+            gL, gB = _grads(_row_loss(X, W1[:, :5], ax), [Lf, B])
+            out[f"solve_L_{key}"], out[f"solve_B_{key}"] = _np(gL), _np(gB)
+    # N = 5: padded with an identity block at D = 2 and 4, the factor
+    # gathered whole (gather_from_mesh).
+    K = _t(psd(5, 33)).requires_grad_(True)
+    L = P.dist_cholesky(K, mesh, block=8)
+    L = L.to_local() if isinstance(L, DTensor) else L
+    out["chol_pad"] = _np(_grads((_t(weights(5, 5, 133)) * L).sum(), [K])[0])
+    x, y = nlml_data(64)
+    leaves = [_t(a).requires_grad_(True) for a in (1.3, 0.1, y, np.linspace(0.0, 10.0, 17))]
+    mean, var = P.dist_posterior_predict(EQ().stretch(leaves[0]), _t(x)[:, None], leaves[2],
+                                         leaves[3][:, None], leaves[1], mesh, block=8)
+    for name, g in zip(("s", "noise", "y", "x_new"), _grads(mean.sum() + var.sum(), leaves)):
+        out[f"post_{name}"] = _np(g)
+    x, y, z = elbo_data(64, 8)
+    xn = _t(np.linspace(-1.0, 11.0, 17))[:, None]
+    for method in ("vfe", "fitc", "dtc"):
+        leaves = [_t(a).requires_grad_(True) for a in (1.3, z, 0.1)]
+        mean, var = P.dist_sparse_posterior(EQ().stretch(leaves[0]), leaves[1][:, None],
+                                            _t(x)[:, None], _t(y), leaves[2], xn, mesh,
+                                            method=method)
+        for name, g in zip(("s", "z", "noise"), _grads(mean.sum() + var.sum(), leaves)):
+            out[f"sparse_{method}_{name}"] = _np(g)
+    try:
+        all_reduce(torch.ones(3, dtype=torch.float64, requires_grad=True) * 2.0, ax)
+        out["inplace_raised"] = np.array("")
+    except RuntimeError as e:
+        out["inplace_raised"] = np.array(str(e))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The 2-D block-cyclic path (tests/parallel/test_cholesky2d.py and the 2-D
+# tests of test_distributed.py), on every grid of the world size.
+
+#: The grids each world size runs.
+GRIDS = {1: ((1, 1),), 2: ((1, 2),), 4: ((1, 4), (2, 2)), 8: ((2, 4),)}
+#: The grid that runs only the cases whose code depends on ``s = c / r >
+#: 1`` with ``r > 1`` (the loop's re-index ``d0``, ``_transpose``, SUMMA,
+#: the relayout, the NLML's parts): the only such grid of the tests.
+SHORT_GRID = (2, 4)
+
+
+def grid_of(key):
+    """``(r, c)`` from a ``"RxC/..."`` key."""
+    r, c = key.split("/")[0].split("x")
+    return int(r), int(c)
+
+
+def _grid_loss(X, W, g):
+    """``sum(W o X)`` for ``X`` sharded over the grid in block order and the
+    whole weights ``W``, summed over both axes."""
+    from stheno_torch.parallel._comm import reduce_from_mesh
+
+    X = X.to_local()
+    nr, nc = X.shape
+    i, j = g.ax_r.rank, g.ax_c.rank
+    part = (_t(W)[i * nr:(i + 1) * nr, j * nc:(j + 1) * nc] * X).sum()
+    return reduce_from_mesh(reduce_from_mesh(part, g.ax_r), g.ax_c)
+
+
+def _grid_nlml(log_ell, x, y, mesh, block):
+    import stheno_torch.parallel as P
+    from stheno_torch import EQ
+    from stheno_torch.kernels import pairwise
+    from stheno_torch.matrix import dense
+
+    xt = _t(x)[:, None]
+    K = dense(pairwise(EQ().stretch(torch.exp(log_ell)), xt)) + 0.1 * torch.eye(
+        len(x), dtype=torch.float64)
+    return K, P.dist_nlml_2d(K, y, mesh, block=block)
+
+
+def _grid_block_dtensor(K, g):
+    """The replicated ``K`` as a DTensor placed ``Shard(0)``, ``Shard(1)`` on
+    the grid, each rank taking its block (differentiable)."""
+    from torch.distributed.tensor import DTensor
+
+    from stheno_torch.parallel.cholesky2d import _placements
+
+    N = K.shape[0]
+    i, j = g.ax_r.rank, g.ax_c.rank
+    nr, nc = N // g.r, N // g.c
+    local = K[i * nr:(i + 1) * nr, j * nc:(j + 1) * nc]
+    return DTensor.from_local(local, g.mesh, _placements(g), shape=(N, N), stride=(N, 1))
+
+
+def _grid_cases(mesh, r, c):
+    """The 2-D cases on an ``r x c`` grid; on ``SHORT_GRID``, without the
+    clipped block, the realistic NLML, the solves at N = 512, the FLOP
+    counts and the largest tensor."""
+    import stheno_torch.parallel as P
+    import stheno_torch.parallel.cholesky2d as c2d
+    from stheno_torch.parallel._comm import MeshAxis
+
+    p = f"{r}x{c}/"
+    out = {}
+    ax_r, ax_c = MeshAxis(mesh, "rows"), MeshAxis(mesh, "cols")
+    g64 = c2d.Grid(ax_r, ax_c, 4, 64, "cpu")
+    # The relayout: block order to cyclic and back, and the same tiles by index.
+    K = _t(np.random.RandomState(3).randn(64, 64))
+    with torch.no_grad():
+        cyc = c2d._to_cyclic(_grid_block_dtensor(K, g64).to_local(), g64)
+        back = c2d._from_cyclic(cyc, g64)
+    out[f"grid:{p}cyclic"] = _np(cyc)
+    out[f"{p}relayout_back"] = np.array(bool(torch.equal(
+        back, _grid_block_dtensor(K, g64).to_local())))
+    out[f"{p}relayout_index"] = np.array(bool(torch.equal(cyc, c2d.cyclic_local(K, g64))))
+    out[f"grid:{p}loop"] = _np(c2d._dist_cholesky_2d_loop(_t(psd(96, r * 10 + c)), mesh, block=8))
+    _, n, seed, block, rec = F5_FACTORS[1]
+    W1, W2 = weights(n, n, seed + 100), weights(n, n, seed + 200)
+    with _rec_base(rec, "cholesky2d"):
+        out[f"grid:{p}rec"] = _np(P.dist_cholesky_2d(_t(psd(128, 7)), mesh, block=8))
+        L, Linv = P.dist_cholesky_2d_with_inv(_t(psd(128, 11)), mesh, block=8)
+        out[f"grid:{p}inv_L"], out[f"grid:{p}inv_Linv"] = _np(L), _np(Linv)
+        # Gradients: through the factor, the factor and its inverse, the NLML.
+        g = c2d.grid(mesh, n, block=block, device="cpu")
+        K = _t(psd(n, seed)).requires_grad_(True)
+        L = P.dist_cholesky_2d(K, mesh, block=block)
+        out[f"{p}chol_grad"] = _np(_grads(_grid_loss(L, W1, g), [K])[0])
+        L, Linv = P.dist_cholesky_2d_with_inv(K, mesh, block=block)
+        out[f"{p}inv_grad"] = _np(_grads(_grid_loss(L, W1, g) + _grid_loss(Linv, W2, g), [K])[0])
+        x = np.linspace(0.0, 10.0, 128)
+        leaves = [_t(0.3).requires_grad_(True), _t(np.sin(x)).requires_grad_(True)]
+        K, v = _grid_nlml(leaves[0], x, leaves[1], mesh, 8)
+        out[f"{p}nlml_value"] = _np(v)
+        out[f"{p}nlml_grad_ell"], out[f"{p}nlml_grad_y"] = (_np(t) for t in _grads(v, leaves))
+        # The same NLML from a DTensor in block order: the gradient goes back
+        # through the relayout.
+        Kd = K.detach().requires_grad_(True)
+        gk = c2d.grid(mesh, 128, block=8, device="cpu")
+        v = P.dist_nlml_2d(_grid_block_dtensor(Kd, gk), leaves[1].detach(), mesh, block=8)
+        out[f"{p}nlml_dtensor_value"] = _np(v)
+        out[f"grid:{p}nlml_dtensor_grad_K"] = _np(
+            _grid_block_dtensor(_grads(v, [Kd])[0], gk).to_local())
+        # y of three columns: the sum of three NLMLs sharing K.
+        Y = _t(weights(128, 3, 35)).requires_grad_(True)
+        v = P.dist_nlml_2d(K.detach(), Y, mesh, block=8)
+        out[f"{p}nlml_cols_value"], out[f"{p}nlml_cols_grad_y"] = _np(v), _np(_grads(v, [Y])[0])
+    # N = 5, which no tile fits on the grid: L replicated.
+    X = c2d._solve_lower_2d(_t(np.linalg.cholesky(psd(5, 23))), _t(weights(5, 4, 24)), mesh)
+    out[f"{p}solve_untileable"] = _np(X.full_tensor() if hasattr(X, "full_tensor") else X)
+    if (r, c) == SHORT_GRID:
+        return out
+    out[f"grid:{p}clip"] = _np(P.dist_cholesky_2d(_t(psd(64, 5)), mesh, block=256))
+    # N = 1024, block 32 (tests/parallel/test_distributed.py's realistic case).
+    x = np.linspace(0.0, 10.0, 1024)
+    y = np.sin(x) + 0.1 * np.random.RandomState(4).randn(1024)
+    from stheno_torch import EQ
+    from stheno_torch.kernels import pairwise
+    from stheno_torch.matrix import dense
+
+    K = dense(pairwise(EQ().stretch(_t(1.3)), _t(x)[:, None])) + 0.1 * torch.eye(
+        1024, dtype=torch.float64)
+    out[f"{p}realistic"] = _np(P.dist_nlml_2d(K, _t(y), mesh, block=32))
+    # The triangular solve, a thin and a wide right-hand side.
+    Lr = _t(np.linalg.cholesky(psd(512, 21)))
+    rhs = weights(512, 8, 22)
+    for key, B in (("wide", rhs), ("thin", rhs[:, :1])):
+        X = c2d._solve_lower_2d(Lr, _t(B), mesh, block=64)
+        out[f"{'grid' if B.shape[1] % c == 0 else 'gridrows'}:{p}solve_{key}"] = _np(X)
+    # Per-rank matmul FLOPs: the loop at N=512 (block 64); the NLML at N=256
+    # (block 16) value only and value and gradient.
+    K = _t(psd(512, 9))
+    out[f"{p}flops_loop"] = np.array(_flops(lambda: c2d._dist_cholesky_2d_loop(
+        K, mesh, block=64)))
+    K = _t(psd(256, 13))
+    y = _t(np.random.RandomState(14).randn(256))
+    out[f"{p}flops_loop_256"] = np.array(_flops(lambda: c2d._dist_cholesky_2d_loop(
+        K, mesh, block=16)))
+
+    def value_only():
+        with torch.no_grad():
+            P.dist_nlml_2d(K, y, mesh, block=16)
+
+    def value_grad():
+        Kg = K.clone().requires_grad_(True)
+        _grads(P.dist_nlml_2d(Kg, y, mesh, block=16), [Kg])
+
+    out[f"{p}flops_value"] = np.array(_flops(value_only))
+    out[f"{p}flops_value_grad"] = np.array(_flops(value_grad))
+    # The largest tensor of a value and gradient through the Gram of the
+    # entry point at N=512, block 32, through the recursion (``_REC_BASE``
+    # 128) and its loop.
+    from tests.test_torch_helpers import LargestTensor
+
+    x, y = nlml_data(512, 7)
+    with _rec_base(128, "cholesky2d"), LargestTensor() as big:
+        g = c2d.grid(mesh, 512, block=32, device="cpu")
+        ell = _t(2.0).requires_grad_(True)
+        K = c2d.cyclic_gram(EQ().stretch(ell), _t(x)[:, None], g, noise=0.1)
+        _grads(c2d.nlml_cyclic(K, _t(y), g), [ell])
+    out[f"{p}largest"] = np.array(big.numel)
+    out[f"{p}largest_op"] = np.array(big.op)
+    return out
+
+
+def case_grid(mesh):
+    """Every 2-D case on each grid of the world size (``GRIDS``), and at two
+    ranks, a 2 x 1 grid raising the JAX function's ``ValueError``."""
+    import torch.distributed as dist
+
+    import stheno_torch.parallel as P
+
+    world = dist.get_world_size()
+    out = {}
+    for r, c in GRIDS[world]:
+        out.update(_grid_cases(P.make_grid_mesh(r, c), r, c))
+    if world == 2:
+        try:
+            P.dist_cholesky_2d(_t(psd(48)), P.make_grid_mesh(2, 1), block=8)
+            out["bad_mesh_raised"] = np.array("")
+        except ValueError as e:
+            out["bad_mesh_raised"] = np.array(str(e))
+    return out
+
+
+def case_grid_entries(mesh):
+    """``entry.dist_nlml_2d_16k`` at N=256 on each grid (value, value only,
+    gradient)."""
+    import torch.distributed as dist
+
+    import stheno_torch.parallel as P
+    from stheno_torch import entry as E
+
+    out = {}
+    ell = torch.tensor(2.0, dtype=torch.float64)
+    for r, c in GRIDS[dist.get_world_size()]:
+        m = P.make_grid_mesh(r, c)
+        v, g = E.dist_nlml_2d_16k(m, ell, grad=True, n=256)
+        p = f"{r}x{c}/"
+        out[f"{p}value"], out[f"{p}grad"] = _np(v), _np(g)
+        out[f"{p}value_only"] = _np(E.dist_nlml_2d_16k(m, ell, n=256))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Suite "comm": tests/parallel/test_comm_volume.py's 1-D half.
 
@@ -378,6 +657,27 @@ def case_comm_volume(mesh):
            "loop_bytes": np.array(sum(b * m for _, _, b, m in traffic["instructions"] if m > 1)),
            "instructions": np.array([f"{s}|{k}|{b}|{m}" for s, k, b, m in traffic["instructions"]])}
     return out
+
+
+def case_comm_volume_2d(mesh):
+    """The 2-D panel loop's recorded bytes at N=256, block 32, on the last
+    grid of the world size (2 x 2 at four ranks, 2 x 4 at eight)."""
+    import torch.distributed as dist
+
+    import stheno_torch.parallel as P
+    import stheno_torch.parallel.cholesky2d as c2d
+    from stheno_torch.utils.comm import collective_traffic
+
+    r, c = GRIDS[dist.get_world_size()][-1]
+    m = P.make_grid_mesh(r, c)
+    g = c2d.grid(m, 256, block=32, device="cpu")
+    K = c2d.cyclic_local(_t(psd(256)), g)
+    with collective_traffic() as traffic:
+        c2d._cyclic_loop(K, g)
+    return {"grid": np.array([r, c]), "total": np.array(traffic["total"]),
+            "loop_bytes": np.array(sum(b * k for _, _, b, k in traffic["instructions"] if k > 1)),
+            "instructions": np.array([f"{s}|{k}|{b}|{n}"
+                                      for s, k, b, n in traffic["instructions"]])}
 
 
 # ---------------------------------------------------------------------------
@@ -402,8 +702,9 @@ SUITES = {
     "parallel": {f.__name__[5:]: f for f in (
         case_factors, case_untileable, case_nlml, case_nlml_matrix, case_multi_output,
         case_posterior, case_elbo, case_hybrid, case_jitter, case_entries, case_flops,
-        case_memory)},
-    "comm": {"comm_volume": case_comm_volume},
+        case_memory, case_f5, case_grid, case_grid_entries)},
+    "comm": {"comm_volume": case_comm_volume, "comm_volume_2d": case_comm_volume_2d},
+    "grid8": {f.__name__[5:]: f for f in (case_grid, case_grid_entries, case_comm_volume_2d)},
     "multihost": {"multihost": case_multihost},
 }
 
@@ -499,7 +800,7 @@ def _load(out, suite, world):
 
 
 #: The world sizes each suite's pools run at.
-WORLDS = {"parallel": (2, 4), "comm": (4,), "multihost": (2,)}
+WORLDS = {"parallel": (2, 4), "comm": (4,), "multihost": (2,), "grid8": (8,)}
 
 
 def results(suite, world, tmp_path_factory):
@@ -524,6 +825,17 @@ def results(suite, world, tmp_path_factory):
 def rows(res, key):
     """A row-sharded result assembled from the ranks' blocks."""
     return np.concatenate([r[key] for r in res])
+
+
+def grid(res, key):
+    """A result sharded over an ``r x c`` grid (``key`` ``"grid:RxC/..."``)
+    assembled from the ranks' blocks; ``"gridrows:..."``, sharded over the
+    rows and replicated over the columns."""
+    r, c = grid_of(key.split(":", 1)[1])
+    if key.startswith("gridrows:"):
+        return np.concatenate([res[i * c][key] for i in range(r)])
+    return np.concatenate([np.concatenate([res[i * c + j][key] for j in range(c)], axis=1)
+                           for i in range(r)])
 
 
 if __name__ == "__main__":
