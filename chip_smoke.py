@@ -51,7 +51,14 @@ on the card, and drives the port's paths through their entry points:
   and its representer-weights solve at noise 0.01 gated at bench.py's true
   residual; the slice products' exactness; the tile options (bfloat16
   tiles from K1's float32-in, bfloat16-out instance, the bfloat16-basis
-  variance cache, the symmetric sweep).
+  variance cache, the symmetric sweep);
+- the distributed paths in spawned processes (one rank over NCCL; two or
+  four gloo ranks sharing the card): item 12a's 1-D exact and sparse
+  paths (phase ``item12a_path``), item 12b's 2-D block-cyclic NLML
+  (``item12b_2d_path``), and item 12b's sharded matrix-free step at
+  N=262,144 with the samplers', pathwise's and SVGP's meshes
+  (``item12b_iterative_path``: K3 and the fused Gram-gradient kernel on
+  each rank's rows).
 
 The training step's surrogate, its Gram term's value and gradient, is
 one launch of the fused Gram-gradient kernel (``csrc/gram_matvec_vjp.cu``),
@@ -205,6 +212,21 @@ KERNELS = {
     "gram_bwd_2d": {
         "source": "stheno_torch/ops/csrc/gram_bwd.cu",
         "replaces": "stheno_tpu/ops/gram.py:198",
+    },
+    # Item 12b's second half (phase item12b_iterative_path): K3's two routes
+    # and the fused Gram-gradient kernel at a rank's rows of the sharded
+    # step, rank 0 of two at N=65,536: 32,768 rows by 65,536 columns.
+    "gram_matvec_sharded": {
+        "source": "stheno_torch/ops/csrc/gram_matvec_mma.cu",
+        "replaces": "stheno_tpu/ops/gram_matvec.py:53",
+    },
+    "gram_matvec_dmma_sharded": {
+        "source": "stheno_torch/ops/csrc/gram_matvec_f64.cu",
+        "replaces": "stheno_tpu/ops/gram_matvec.py:53",
+    },
+    "gram_matvec_vjp_sharded": {
+        "source": "stheno_torch/ops/csrc/gram_matvec_vjp_f64.cu",
+        "replaces": "stheno_tpu/ops/gram.py:92",
     },
 }
 
@@ -2208,33 +2230,40 @@ def phase_opt_adam():
     check(not failed, f"opt_adam: {failed}")
 
 
+#: Phase opt_nuts's steps, cut from bench_nuts's 192 warm-up and 128
+#: sampling steps to keep the whole script inside its time limit: with the
+#: sharded matrix-free phase it took 1085.9 s of 1200 on an H100 whose host
+#: ran this phase at its slowest yet (213.2 s).
+NUTS_STEPS = {"num_warmup": 96, "num_samples": 64}
+
+
 def phase_opt_nuts():
     """The NUTS path of ``bench.py:bench_nuts`` through
-    ``entry.nuts_n2000`` (N=2000, float32, 4 chains, 192 warm-up and 128
-    sampling steps, depth 6, dense metric, adaptive jitter): wall time,
-    the smallest ESS and largest split R-hat over the three
-    log-hyperparameters, ESS/s; gated as bench.py gates it (finite ESS,
-    R-hat < 1.7)."""
+    ``entry.nuts_n2000`` (N=2000, float32, 4 chains, depth 6, dense metric,
+    adaptive jitter) at ``NUTS_STEPS``: wall time, the smallest ESS and
+    largest split R-hat over the three log-hyperparameters, ESS/s; gated
+    as bench.py gates it (finite ESS, R-hat < 1.7)."""
     from stheno_torch import entry as E
     from stheno_torch.opt import effective_sample_size, potential_scale_reduction
 
     _set_counts(ZERO_COUNTS)
     t0 = time.perf_counter()
-    samples, accept = E.nuts_n2000(0)
+    samples, accept = E.nuts_n2000(0, **NUTS_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
     for name in ("gram", "gram_bwd", "chol_tile"):
         check(counts[name] >= 1, f"NUTS launched no {name}: {counts}")
     for k, v in samples.items():
-        check(v.shape == (4, 128) and v.is_cuda and bool(torch.isfinite(v).all()),
+        check(v.shape == (4, NUTS_STEPS["num_samples"]) and v.is_cuda
+              and bool(torch.isfinite(v).all()),
               f"NUTS samples of {k}: {tuple(v.shape)}, {v.device}")
     ess = min(effective_sample_size(v) for v in samples.values())
     rhat = max(potential_scale_reduction(v) for v in samples.values())
     report = {"phase": "opt_nuts", "launches": counts, "wall_s": wall, "min_ess": ess,
               "max_rhat": rhat, "ess_per_s": ess / wall, "accept": accept,
               "posterior_mean": {k: float(v.double().mean()) for k, v in samples.items()},
-              "cut": None}
+              "cut": {"steps": NUTS_STEPS, "bench_nuts": {"num_warmup": 192, "num_samples": 128}}}
     emit(report)
     check(math.isfinite(ess) and rhat < 1.7, f"NUTS mixing: ESS {ess}, R-hat {rhat}")
     return counts
@@ -4646,6 +4675,497 @@ def phase_item12b_2d_path(smi):
     ]
 
 
+# ---------------------------------------------------------------------------
+# Item 12b, second half: the sharded matrix-free NLML and matvec
+# (stheno_torch/parallel/iterative.py), mesh= for the samplers and pathwise,
+# and SVGP's sharded batch, in spawned processes: run A, one rank over NCCL,
+# at N=262,144; run B, two gloo ranks sharing the card, at N=65,536.
+
+#: Run A's and run B's N, and the seed of the probes' generator.
+ITERATIVE_RUNS = {"A": 262_144, "B": 65_536}
+ITERATIVE_SEED = 17
+#: Run A's gates against the single-device step on the same probes: the
+#: value (at one rank K3 sees the same values, so the float32 solves are
+#: the same) and each gradient (the two float64 surrogates sum in other
+#: orders).
+ITERATIVE_VALUE_RTOL = 1e-6
+ITERATIVE_GRAD_RTOL = 1e-5
+#: Run B's gate is another: a rank's K3 launch gets half the rows, so its
+#: column split, and the order of its float32 sums, differ from the single
+#: device's, and the float32 solves carry that rounding into U, w and
+#: alpha. On an H100 80GB HBM3 at 700 W, B's gradient came out 4.0e-4
+#: off the single device's, which a gate of 1e-5 fails. So B's value
+#: and gradients are held to a float64 step on the same probes and data,
+#: within twice the single-device float32 error there (the largest over
+#: the probe seeds ``ITERATIVE_NOISE_SEEDS``, since that error is rounding
+#: noise) plus 1e-6, item 12a's gate.
+ITERATIVE_NOISE_SEEDS = (17, 18, 19)
+#: That wide gate cannot tell a fault of the sharding from float32
+#: rounding, so run B also takes its step in float64 (data, probes and
+#: sweeps), held to the single device's float64 step on the same probes:
+#: there the sum orders differ only by float64 rounding.
+ITERATIVE_F64_RTOL = 1e-9
+#: Pathwise's 4096 x 8 evaluation against the mesh-free build, and SVGP's
+#: minibatch ELBO and gradient against the replicated batch.
+ITERATIVE_PATHWISE_RTOL = 1e-5
+ITERATIVE_SVGP_RTOL = 1e-5
+#: The samplers' drive, cut from bench_nuts's 4 chains of 192 + 128 steps
+#: at depth 6 to keep the phase's time: (chains, warm-up, samples, depth).
+ITERATIVE_CHAINS = (2, 16, 16, 4)
+
+
+def _sampler_runs(mesh):
+    """``entry.nuts_n2000`` and ``entry.hmc_n2000`` at ``ITERATIVE_CHAINS``
+    with the chains over ``mesh``'s data axis (``None``: in turn): each
+    chain's samples (and HMC's log-densities) as lists, and the accept
+    rates."""
+    from stheno_torch import entry as E
+
+    chains, warm, samples, depth = ITERATIVE_CHAINS
+    kw = {"mesh": mesh, "chain_axis": "data"} if mesh is not None else {}
+    sn, an = E.nuts_n2000(3, num_chains=chains, num_warmup=warm, num_samples=samples,
+                          max_depth=depth, **kw)
+    sh, lph, ah = E.hmc_n2000(4, num_chains=chains, num_warmup=warm, num_samples=samples, **kw)
+    return {"nuts": {k: v.tolist() for k, v in sorted(sn.items())}, "nuts_accept": an,
+            "hmc": {k: v.tolist() for k, v in sorted(sh.items())}, "hmc_logps": lph.tolist(),
+            "hmc_accept": ah}
+
+
+def _svgp_run(mesh):
+    """``entry.svgp_1m_step``'s value and gradient on bench.py:729-744's
+    N=10^6, M=512 data, its 4096 minibatch sharded over ``mesh`` (``None``:
+    replicated)."""
+    from stheno_torch import entry as E
+
+    x, y, theta, params = E.svgp_1m_inputs()
+    v, g = E.svgp_1m_step(x, y, theta, params, grad=True, mesh=mesh)
+    return {"value": float(v), "grad": {k: t.double().cpu().reshape(-1).tolist()
+                                        for k, t in g.items()}}
+
+
+def _iterative_step(mesh, n, dtype=torch.float32):
+    """``entry.sharded_iterative_262k``'s value, gradients and CG health at
+    ``n`` in ``dtype``, from a generator seeded ``ITERATIVE_SEED``."""
+    from stheno_torch import entry as E
+
+    gen = torch.Generator(device="cuda").manual_seed(ITERATIVE_SEED)
+    v, g, info = E.sharded_iterative_262k(mesh, gen, n=n, dtype=dtype)
+    return {"value": float(v), "grad": {k: float(t) for k, t in g.items()},
+            "cg_iters": int(info["cg_iters"]), "cg_converged": bool(info["cg_converged"])}
+
+
+def _single_step(n, seed=ITERATIVE_SEED, dtype=torch.float32):
+    """``entry.iterative_step`` at ``n`` in ``dtype`` on the same probes:
+    the reference."""
+    from stheno_torch import entry as E
+
+    x, y, params = E.iterative_inputs(n, dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    v, g, info = E.iterative_step(x, y, params, gen)
+    return {"value": float(v), "grad": {k: float(t) for k, t in g.items()},
+            "cg_iters": int(info["cg_iters"])}
+
+
+def _f64_step(n, seed):
+    """``entry.iterative_step``'s NLML core in float64 on its float32 data
+    and probes (drawn from a generator seeded ``seed`` as
+    ``iterative_nlml`` draws them, then widened): value and gradients."""
+    from stheno_torch import entry as E
+    from stheno_torch.iterative.nlml import _nlml
+
+    s = E.ITERATIVE_STEP
+    x, y, params = E.iterative_inputs(n)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randn((n, s["num_probes"]), generator=gen, device="cuda")
+    om = torch.randn((n, 64), generator=gen, device="cuda")
+    leaves = {k: v.double().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        v, _ = _nlml(leaves, y.double(), E.ITERATIVE_NOISE, x.double()[:, None], u.double(),
+                     om.double(), None, E.iterative_kernel, s["cg_tol"], s["max_cg_iters"],
+                     s["slq_steps"], 64, "eig", 1, block=8192)
+        g = torch.autograd.grad(v, list(leaves.values()))
+    return {"value": float(v.detach()), "grad": {k: float(t) for k, t in zip(leaves, g)}}
+
+
+def _noise_refs(n):
+    """Run B's references: the float64 step at ``ITERATIVE_SEED``, and the
+    single-device float32 error against float64 at each seed of
+    ``ITERATIVE_NOISE_SEEDS``, by value and gradient entry."""
+    out = {"single_rel": {}}
+    for seed in ITERATIVE_NOISE_SEEDS:
+        f64, f32 = _f64_step(n, seed), _single_step(n, seed)
+        if seed == ITERATIVE_SEED:
+            out["f64"] = f64
+        rels = {"value": _rel(f32["value"], f64["value"]), **_grads_rel(f32["grad"], f64["grad"])}
+        for k, rel in rels.items():
+            out["single_rel"].setdefault(k, []).append(rel)
+    return out
+
+
+def _k3_split_reading(n):
+    """K3's float32 launch on a rank's rows of run B (the first ``n/2`` of
+    ``n`` rows, by all ``n`` columns, p = 17) against the same rows sliced
+    from the launch on all ``n`` rows: both launch shapes (``route``: the
+    column split follows the rows a launch gets), whether the two agree to
+    the bit, and their largest difference over the product's scale."""
+    from stheno_torch import entry as E
+    from stheno_torch.ops import gram_matvec as K3
+
+    x = E.iterative_inputs(n)[0][:, None]
+    v = torch.randn(n, 17, generator=torch.Generator(device="cuda").manual_seed(37),
+                    device="cuda")
+    half = K3.gram_matvec("eq", x[: n // 2], x, v)
+    whole = K3.gram_matvec("eq", x, x, v)[: n // 2]
+    scale = K3.gram_matvec_plain("eq", x[: n // 2], x, v.abs(), block=4096)
+    return {"route_half": list(K3.route(n // 2, n, 17, torch.float32)),
+            "route_whole": list(K3.route(n, n, 17, torch.float32)),
+            "bitwise": bool(torch.equal(half, whole)),
+            "max_rel_diff_of_scale": float(((half - whole).abs() / scale.clamp_min(1e-30)).max())}
+
+
+def _k3_rank_times(n, exps_per_s):
+    """K3 at a rank's rows of the sharded step at ``n`` over two ranks: rank
+    0's ``n/2`` rows by all ``n`` columns, p = 17, in float32 (the CG's
+    tensor-core route) and in float64 (the surrogate's forward), each beside
+    its plain version (``k3_shape_times``; ``max_abs_err`` against it)."""
+    from stheno_torch import entry as E
+    from stheno_torch.ops import gram_matvec as K3
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    for tag, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        x = E.iterative_inputs(n, dtype=dtype)[0][:, None]
+        rows = x[: n // 2]
+        v = torch.randn(n, 17, generator=gen, device="cuda", dtype=dtype)
+        row = k3_shape_times(rows, x, v, exps_per_s)
+        got = K3.gram_matvec("eq", rows, x, v)
+        ref = K3.gram_matvec_plain("eq", rows, x, v, block=4096)
+        row["max_abs_err"] = max_err(got, ref)
+        rtol = _gmv_rtol(n, dtype)
+        scale = K3.gram_matvec_plain("eq", rows, x, v.abs(), block=4096)
+        rel = float(((got - ref).abs() / scale.clamp_min(1e-30)).max())
+        check(rel <= rtol, f"K3 {tag} at a rank's rows: error {rel} of its scale > {rtol}")
+        row["max_rel_err_of_scale"] = rel
+        out[tag] = row
+    return out
+
+
+def _vjp_rank_times(n):
+    """The fused Gram-gradient kernel in float64 at a rank's rows of the
+    sharded step's surrogate at ``n`` over two ranks, the rows role: ``x``
+    rank 0's ``n/2`` rows, ``y`` all ``n`` columns, q = 17, without the
+    value. CUDA events and device time, its plain version (the error held
+    to ``_gmv_rtol`` of ``_vjp_scale``), the library route (``autograd.grad``
+    of ``sum(A_b * (exp(-0.5 cdist(x_b, y)^2) @ V))`` over row blocks of
+    2048) and ``vjp_bound`` of the rectangular work."""
+    from stheno_torch import entry as E
+    from stheno_torch.ops import gram_matvec_vjp as K3V
+
+    q = 17
+    y = E.iterative_inputs(n, dtype=torch.float64)[0][:, None]
+    x = y[: n // 2].clone()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    A = torch.randn(n // 2, q, generator=gen, device="cuda", dtype=torch.float64)
+    V = torch.randn(n, q, generator=gen, device="cuda", dtype=torch.float64)
+    call = lambda: K3V.gram_matvec_vjp("eq", x, y, A, V)[0]  # noqa: E731
+
+    def library():
+        xl = x.detach().requires_grad_(True)
+        total = torch.zeros_like(x)
+        for s in range(0, x.shape[0], 2048):
+            out = torch.sum(A[s:s + 2048] * (
+                torch.exp(-0.5 * torch.cdist(xl[s:s + 2048], y).square()) @ V))
+            (g,) = torch.autograd.grad(out, xl)
+            total += g
+        return total
+
+    plain = {}
+
+    def run_plain():
+        plain["xbar"] = K3V.gram_matvec_vjp_plain("eq", x, y, A, V)[0]
+
+    plain_ms = time_ms(run_plain, reps=1, warmup=0)
+    got = call()
+    scale = _vjp_scale("eq", x, y, A, V, 1.0)[0]
+    rtol = _gmv_rtol(n, torch.float64)
+    rel = float(((got - plain["xbar"]).abs() / scale.clamp_min(1e-30)).max())
+    check(rel <= rtol, f"gram_matvec_vjp at a rank's rows: error {rel} of its scale > {rtol}")
+    b_ms, b_unit, dfma_ms, byts = vjp_bound(n // 2, n, 1, q)
+    return {
+        "shape": [n // 2, n, 1, q],
+        "launch_shape": K3V.launch_shape(n // 2, n, q, 1, 8),
+        "ms": time_ms(call, reps=3, warmup=1),
+        "device_ms": device_ms(call),
+        "plain_ms": plain_ms,
+        "library_ms": time_ms(library, reps=1, warmup=0),
+        "max_abs_err": max_err(got, plain["xbar"]),
+        "max_rel_err_of_scale": rel,
+        "bound_ms": b_ms,
+        "bound_unit": b_unit,
+        "bound_by": "bytes" if b_unit == "bytes" else "operations",
+        "dfma_bound_ms": dfma_ms,
+        "bound_bytes": byts,
+    }
+
+
+#: K3's and the fused Gram-gradient kernel's device kernels, their
+#: wrappers' counts and the device launches of one wrapper call.
+ITERATIVE_KERNELS = (("gmv_mma_kernel", "gram_matvec_mma", 1),
+                     ("gmv_dmma_kernel", "gram_matvec_dmma", 1),
+                     ("gmv_vjp_dmma_kernel", "gram_matvec_vjp", 1))
+
+
+def _item12b_it_run_a(mesh):
+    """Run A (one rank, NCCL): the sharded N=262,144 value and gradient
+    (the wrappers' launches counted over it alone) beside the single-device
+    step on the same probes at run A's and run B's N; one traced step;
+    pathwise's 4096 x 8 evaluation with and without the mesh; the samplers
+    and SVGP with and without it; times, own peak; K3 and the fused
+    Gram-gradient kernel at a rank's rows."""
+    from stheno_torch import entry as E
+
+    n, n_b = ITERATIVE_RUNS["A"], ITERATIVE_RUNS["B"]
+    _set_counts(ZERO_COUNTS)
+    out = {"sharded": _iterative_step(mesh, n)}
+    torch.cuda.synchronize()
+    out["launches"] = _counts()
+    out["single"] = _single_step(n)
+    out["single_b"] = _single_step(n_b)
+    out["single_b_f64"] = _single_step(n_b, dtype=torch.float64)
+    out["refs_b"] = _noise_refs(n_b)
+    out["k3_split_b"] = _k3_split_reading(n_b)
+    step = lambda: _iterative_step(mesh, n)  # noqa: E731
+    out["profile"] = _traced_exact("item12b_sharded_iterative_262k", step, ITERATIVE_KERNELS)
+    x, y, params = E.iterative_inputs(n)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(ITERATIVE_SEED)  # noqa: E731
+    out["ms"] = {
+        "sharded_value_grad": time_ms(step, reps=3, warmup=1),
+        "single_value_grad": time_ms(lambda: E.iterative_step(x, y, params, gen()), reps=3,
+                                     warmup=1),
+    }
+    out["own_peak_bytes"] = {"sharded": _own_peak(step),
+                             "single": _own_peak(lambda: E.iterative_step(x, y, params, gen()))}
+    xp, yp = E.pathwise_262k_inputs()
+    xq = torch.linspace(0.0, 10.0, 4096, device="cuda")
+    draws = {}
+    for tag, m in (("mesh", mesh), ("free", None)):
+        t0 = time.perf_counter()
+        fn, info = E.pathwise_build(xp, yp, torch.Generator(device="cuda").manual_seed(7),
+                                    mesh=m)
+        torch.cuda.synchronize()
+        draws[tag] = fn(xq)
+        out[f"pathwise_{tag}"] = {"build_s": time.perf_counter() - t0,
+                                  "cg_iters": int(info["iters"]),
+                                  "rel_residual": float(info["rel_residual"])}
+    out["pathwise_rel"] = _rel_err(draws["mesh"], draws["free"])
+    check(tuple(draws["mesh"].shape) == (4096, 8) and bool(torch.isfinite(draws["mesh"]).all()),
+          "pathwise over the mesh: shape or not finite")
+    del draws
+    t0 = time.perf_counter()
+    out["samplers_free"] = _sampler_runs(None)
+    out["samplers_free_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["samplers"] = _sampler_runs(mesh)
+    out["samplers_s"] = time.perf_counter() - t0
+    out["svgp_free"] = _svgp_run(None)
+    out["svgp"] = _svgp_run(mesh)
+    exps_per_s, _ = sfu_exps_per_s()
+    k3 = _k3_rank_times(n_b, exps_per_s)
+    out["gram_matvec_sharded"], out["gram_matvec_dmma_sharded"] = k3["f32"], k3["f64"]
+    out["gram_matvec_vjp_sharded"] = _vjp_rank_times(n_b)
+    return out
+
+
+def _item12b_it_run_b(mesh):
+    """Run B (two gloo ranks, one card): the sharded value and gradient at
+    N=65,536 with the recorder's bytes, the same step in float64, its time
+    and own peak; the samplers and SVGP over the two ranks."""
+    from stheno_torch.utils.comm import collective_traffic
+
+    n = ITERATIVE_RUNS["B"]
+    with collective_traffic() as traffic:
+        out = {"sharded": _iterative_step(mesh, n)}
+    out["gathers"] = [[site, per_exec, execs] for site, kind, per_exec, execs
+                      in traffic["instructions"] if kind == "all-gather"]
+    out["step_traffic_bytes"] = {k: v for k, v in traffic.items() if k != "instructions"}
+    out["sharded_f64"] = _iterative_step(mesh, n, torch.float64)
+    step = lambda: _iterative_step(mesh, n)  # noqa: E731
+    out["own_peak_bytes"] = _own_peak(step)
+    out["ms"] = {"sharded_value_grad": time_ms(step, reps=3, warmup=0)}
+    out["samplers"] = _sampler_runs(mesh)
+    out["svgp"] = _svgp_run(mesh)
+    return out
+
+
+def _item12b_it_child(run, rank, world, store, out):
+    """One rank of run A or B, spawned by ``phase_item12b_iterative_path``:
+    joins the group (NCCL for A, gloo for B), runs its part on a data mesh
+    and writes its result to ``out/<run>.<rank>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from stheno_torch import config
+    from stheno_torch.parallel import initialize_hosts, make_data_mesh
+
+    torch.cuda.set_device(0)
+    initialize_hosts(f"file://{store}", num_processes=world, process_id=rank,
+                     backend="nccl" if run == "A" else "gloo",
+                     timeout=datetime.timedelta(seconds=ITEM12A_TIMEOUT_S))
+    try:
+        mesh = make_data_mesh()
+        with config.matmul_precision_ctx():
+            res = (_item12b_it_run_a if run == "A" else _item12b_it_run_b)(mesh)
+        res["rank"], res["world"] = rank, world
+        with open(os.path.join(out, f"{run}.{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _grads_rel(got, ref):
+    return {k: _rel(got[k], ref[k]) for k in ref}
+
+
+def _svgp_rels(got, ref):
+    out = {"value": _rel(got["value"], ref["value"])}
+    out.update({k: _rel_err(torch.tensor(got["grad"][k]), torch.tensor(ref["grad"][k]))
+                for k in ref["grad"]})
+    return out
+
+
+def phase_item12b_iterative_path(smi):
+    """Item 12b's second half, float32 on the card, in two spawned runs:
+
+    - run A, one rank over NCCL, N=262,144: (a) ``entry.sharded_iterative_262k``
+      (``iterative_step``'s model and settings, every matvec row-sharded)
+      against ``entry.iterative_step`` on the same probes, the value within
+      ``ITERATIVE_VALUE_RTOL`` and each gradient within
+      ``ITERATIVE_GRAD_RTOL``, the same CG iterations; (d) the drive and one
+      traced step launch K3 and the fused Gram-gradient kernel, the traced
+      device launches equal to the wrappers'; (p) pathwise's 4096 x 8
+      evaluation over the mesh (bench.py:471-536's N=262,144 build) within
+      ``ITERATIVE_PATHWISE_RTOL`` of the mesh-free build from the same
+      generator;
+    - run B, two gloo ranks sharing the card, N=65,536: (a) the value and
+      each gradient against a float64 step on the same probes and data,
+      within twice the single-device float32 error there (the largest over
+      ``ITERATIVE_NOISE_SEEDS``) plus 1e-6 (run A runs the references; the
+      difference from the single device's float32 step is reported), the
+      same CG iterations as the single device's; the same step in float64
+      within ``ITERATIVE_F64_RTOL`` of the single device's float64 step
+      with the same CG iterations (a fault of the sharding shows there,
+      where float32 rounding does not; K3's launch on a rank's rows against
+      the same rows of the whole launch is reported beside it); (b) the
+      ranks' values and gradients the same to the bit; (c) every all-gather
+      of the sharded matvec moves ``(D - 1)/D n p 4`` bytes a rank, p the
+      probes' 17 or the preconditioner's 64;
+    - both: (s) NUTS (``entry.nuts_n2000``) and HMC (``entry.hmc_n2000``)
+      at ``ITERATIVE_CHAINS`` with the chains over the ranks, each chain
+      the same to the bit as run A's mesh-free run; (v) SVGP's minibatch
+      ELBO and gradient (N=10^6, M=512, a 4096 batch sharded by rows)
+      within ``ITERATIVE_SVGP_RTOL`` of the replicated batch's.
+
+    Every process must exit 0. Returns the kernels line's rows of K3 (both
+    routes) and the fused Gram-gradient kernel at a rank's rows."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="item12b_it_")
+    (a,), a_s = _item12a_spawn("A", 1, out, _item12b_it_child)
+    b, b_s = _item12a_spawn("B", 2, out, _item12b_it_child)
+    shutil.rmtree(out, ignore_errors=True)
+    n_b = ITERATIVE_RUNS["B"]
+    gates, errs = {}, {}
+    for run, got, ref in (("A", a["sharded"], a["single"]), ("B", b[0]["sharded"], a["single_b"])):
+        n = ITERATIVE_RUNS[run]
+        rels = {"value": _rel(got["value"], ref["value"]), **_grads_rel(got["grad"], ref["grad"])}
+        for k, rel in rels.items():
+            errs[f"{run} {k} at N={n}"] = rel
+            if run == "A":
+                _gate(gates, f"(a) A {k} at N={n}", rel,
+                      ITERATIVE_VALUE_RTOL if k == "value" else ITERATIVE_GRAD_RTOL)
+        _gate(gates, f"(a) {run} CG iterations off the single device's",
+              abs(got["cg_iters"] - ref["cg_iters"]), 0)
+        _gate(gates, f"(a) {run} CG converged", int(not got["cg_converged"]), 0)
+    refs = a["refs_b"]
+    got = b[0]["sharded"]
+    b_rels = {"value": _rel(got["value"], refs["f64"]["value"]),
+              **_grads_rel(got["grad"], refs["f64"]["grad"])}
+    for k, rel in b_rels.items():
+        single = max(refs["single_rel"][k])
+        errs[f"B {k} against float64"] = {"sharded": rel, "single_by_seed": refs["single_rel"][k]}
+        _gate(gates, f"(a) B {k} at N={n_b} against float64", rel, 2 * single + 1e-6)
+    got, ref = b[0]["sharded_f64"], a["single_b_f64"]
+    for k, rel in {"value": _rel(got["value"], ref["value"]),
+                   **_grads_rel(got["grad"], ref["grad"])}.items():
+        errs[f"B float64 {k} against the single device's float64"] = rel
+        _gate(gates, f"(a) B float64 {k} at N={n_b} against the single device's float64", rel,
+              ITERATIVE_F64_RTOL)
+    _gate(gates, "(a) B float64 CG iterations off the single device's",
+          abs(got["cg_iters"] - ref["cg_iters"]), 0)
+    differ = [k for r in b[1:] for k in ("sharded", "sharded_f64", "samplers", "svgp")
+              if r[k] != b[0][k]]
+    _gate(gates, "(b) B ranks' results differ", len(differ), 0)
+    D = 2
+    ps = set()
+    for r in b:
+        for site, per_exec, _ in r["gathers"]:
+            p = per_exec / ((D - 1) / D * n_b * 4)
+            ps.add(p)
+            _gate(gates, f"(c) rank {r['rank']} gather at {site} off the model",
+                  0 if p in (17.0, 64.0) else 1, 0)
+    _gate(gates, "(c) the matvec gathered", int(not b[0]["gathers"]), 0)
+    launched, prof = a["launches"], a["profile"]
+    _gate(gates, "(d) K3 and the Gram-gradient kernel launched on the path",
+          int(launched["gram_matvec"] < 1 or launched["gram_matvec_vjp"] < 1), 0)
+    _gate(gates, "(d) the traced step launched K3 and the Gram-gradient kernel",
+          int(prof["traced_launches"]["gmv_mma_kernel"] < 1
+              or prof["traced_launches"]["gmv_vjp_dmma_kernel"] < 1), 0)
+    _gate(gates, "(p) pathwise over the mesh against the mesh-free build", a["pathwise_rel"],
+          ITERATIVE_PATHWISE_RTOL)
+    for tag, res in (("A", a), *((f"B rank {r['rank']}", r) for r in b)):
+        for key in ("nuts", "nuts_accept", "hmc", "hmc_logps", "hmc_accept"):
+            _gate(gates, f"(s) {tag} {key} off the mesh-free run's",
+                  int(res["samplers"][key] != a["samplers_free"][key]), 0)
+        for k, rel in _svgp_rels(res["svgp"], a["svgp_free"]).items():
+            errs[f"SVGP {tag} {k}"] = rel
+            _gate(gates, f"(v) SVGP {tag} {k}", rel, ITERATIVE_SVGP_RTOL)
+    report = {
+        "phase": "item12b_iterative_path", "nvidia_smi": smi, "run_seconds": {"A": a_s, "B": b_s},
+        "errors_vs_single_device": errs,
+        "values": {"A": a["sharded"], "A_single": a["single"], "B": b[0]["sharded"],
+                   "B_single": a["single_b"], "B_f64": a["refs_b"]["f64"],
+                   "B_sharded_f64": b[0]["sharded_f64"], "B_single_f64": a["single_b_f64"]},
+        "k3_split_B": a["k3_split_b"],
+        "launches_A": launched, "ms_A": a["ms"], "ms_B": b[0]["ms"],
+        "own_peak_bytes": {"A": a["own_peak_bytes"], "B": [r["own_peak_bytes"] for r in b]},
+        "traffic_B_step": b[0]["step_traffic_bytes"], "gather_p_B": sorted(ps),
+        "profile_A": prof,
+        "pathwise": {k: a[k] for k in ("pathwise_mesh", "pathwise_free", "pathwise_rel")},
+        "samplers_s": {"free": a["samplers_free_s"], "mesh": a["samplers_s"]},
+        "nuts_accept": a["samplers_free"]["nuts_accept"],
+        "svgp_value": a["svgp_free"]["value"],
+        **{k: a[k] for k in ("gram_matvec_sharded", "gram_matvec_dmma_sharded",
+                             "gram_matvec_vjp_sharded")},
+        "gates": gates,
+    }
+    emit(report)
+    failed = [k for k, g in gates.items() if not g["ok"]]
+    check(not failed, f"item12b_iterative_path: {failed}")
+    return [
+        {"name": name, "route": "cuda", "source": KERNELS[name]["source"],
+         "replaces": KERNELS[name]["replaces"], "launches": launched[base],
+         **{k: a[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}}
+        for name, base in (("gram_matvec_sharded", "gram_matvec_mma"),
+                           ("gram_matvec_dmma_sharded", "gram_matvec_dmma"),
+                           ("gram_matvec_vjp_sharded", "gram_matvec_vjp"))
+    ]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU.", file=sys.stderr)
@@ -4717,6 +5237,10 @@ def _run_phases():
     idle = [k["name"] for k in item12b if k["launches"] < 1]
     check(not idle, f"kernels that item 12b's 2-D path never launched: {idle}")
     kernels.extend(item12b)
+    item12b_it = run("item12b_iterative_path", phase_item12b_iterative_path, smi)
+    idle = [k["name"] for k in item12b_it if k["launches"] < 1]
+    check(not idle, f"kernels that item 12b's sharded matrix-free path never launched: {idle}")
+    kernels.extend(item12b_it)
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     # The card's name and power limit again, beside the kernels' numbers.
     print(smi, flush=True)

@@ -15,7 +15,9 @@ the model of ``bench.py:bench_n2000``:
   at N=262,144, whose Gram cannot be stored): :func:`iterative_inputs`
   makes its data, :func:`iterative_precond_state` its shared
   preconditioner, :func:`iterative_step` its NLML value and gradient
-  (fresh or amortised preconditioner), and :func:`serving_weights`,
+  (fresh or amortised preconditioner), :func:`sharded_iterative_262k`
+  the same step with its matvecs row-sharded over a mesh, and
+  :func:`serving_weights`,
   :func:`serving_mean`, :func:`serving_variance_cache`,
   :func:`serving_var` and :func:`serving_bundle` its amortised
   posterior, each with the benchmark's settings as defaults;
@@ -24,8 +26,10 @@ the model of ``bench.py:bench_n2000``:
   N=2000 EQ GP (:func:`adam_n2000_objective`; its step captured in CUDA
   graphs on the card), :func:`resumable_n2000` trains the same model
   through ``utils.resumable_minimise`` (checkpoints, resume, rollback;
-  its steps captured in CUDA graphs on the card), and :func:`nuts_n2000`
-  runs NUTS over the three log-hyperparameters of an EQ GP at N=2000;
+  its steps captured in CUDA graphs on the card), :func:`nuts_n2000`
+  runs NUTS over the three log-hyperparameters of an EQ GP at N=2000 and
+  :func:`hmc_n2000` HMC on the same posterior, the chains split over a
+  mesh dimension when given one;
 - the pseudo-point (sparse) path of ``bench.py:bench_vfe_n2000`` (N=2000,
   M=100) and ``bench_dist_elbo_1m`` (N=1,000,000, M=512):
   :func:`vfe_n2000_inputs` and :func:`sparse_1m_inputs` make their data,
@@ -109,7 +113,9 @@ from .model import (
 )
 from . import parallel as par
 from .parallel import cholesky2d as _c2d
-from .opt import AdamDriver, Vars, sample_nuts
+from .parallel._comm import MeshAxis
+from .parallel.cholesky import sharded
+from .opt import AdamDriver, Vars, sample_hmc, sample_nuts
 from .opt.minimise import _make_loss
 from .opt.transform import adam
 from .utils import resumable_minimise
@@ -124,6 +130,7 @@ __all__ = [
     "iterative_inputs",
     "iterative_precond_state",
     "iterative_step",
+    "sharded_iterative_262k",
     "serving_weights",
     "serving_mean",
     "serving_variance_cache",
@@ -132,6 +139,7 @@ __all__ = [
     "adam_n2000_objective",
     "adam_n2000",
     "nuts_n2000",
+    "hmc_n2000",
     "SPARSE_NOISE",
     "vfe_n2000_inputs",
     "sparse_1m_inputs",
@@ -284,20 +292,48 @@ def iterative_precond_state(x, params, generator, rank=64, block=8192):
     return it.eig_precond_state(iterative_kernel, params, x, rank, generator, block=block)
 
 
+#: The training step's settings, ``bench.py``'s: the probes, the CG
+#: tolerance and cap, and the Lanczos steps. :func:`iterative_step` (where
+#: a caller may change them) and :func:`sharded_iterative_262k` both take
+#: them from here.
+ITERATIVE_STEP = {"num_probes": 16, "cg_tol": 1e-2, "max_cg_iters": 200, "slq_steps": 30}
+
+
 def iterative_step(x, y, params, generator, *, precond_state=None, noise=ITERATIVE_NOISE,
-                   num_probes=16, cg_tol=1e-2, max_cg_iters=200, slq_steps=30,
-                   precond_rank=64, block=8192, compensated=False):
+                   precond_rank=64, block=8192, compensated=False, **settings):
     """The training step: the stochastic NLML and its gradient with
     respect to ``params``, with a fresh rank-``precond_rank`` eig
-    preconditioner or the given ``precond_state``. Returns ``(value,
-    grads, info)`` with ``info`` the forward solve's health dict."""
+    preconditioner or the given ``precond_state``, at
+    :data:`ITERATIVE_STEP`'s settings with ``settings`` (any of its keys)
+    in their place. Returns ``(value, grads, info)`` with ``info`` the
+    forward solve's health dict."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
         val, info = it.iterative_nlml(
-            iterative_kernel, leaves, x, y, noise, generator, num_probes=num_probes,
-            cg_tol=cg_tol, max_cg_iters=max_cg_iters, slq_steps=slq_steps,
-            precond_rank=precond_rank, precond_state=precond_state, block=block,
-            return_info=True, compensated=compensated,
+            iterative_kernel, leaves, x, y, noise, generator, precond_rank=precond_rank,
+            precond_state=precond_state, block=block, return_info=True,
+            compensated=compensated, **{**ITERATIVE_STEP, **settings},
+        )
+        grads = torch.autograd.grad(val, list(leaves.values()))
+    return val.detach(), dict(zip(leaves, grads)), info
+
+
+def sharded_iterative_262k(mesh, generator, *, n=262_144, dtype=torch.float32, precond_rank=64,
+                           block=8192):
+    """:func:`iterative_step`'s model, data and settings (its noise and
+    :data:`ITERATIVE_STEP`, a fresh rank-``precond_rank`` eig
+    preconditioner) through ``parallel.sharded_iterative_nlml`` over the
+    1-D ``mesh``: every Gram matvec row-sharded over its ranks, the
+    surrogate gradient taken per rank and summed. The data
+    (:func:`iterative_inputs`, ``n`` points) is made on ``generator``'s
+    device. Returns ``(value, grads, info)``, the same on every rank."""
+    x, y, params = iterative_inputs(n, device=generator.device, dtype=dtype)
+    leaves = {k: v.requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        val, info = par.sharded_iterative_nlml(
+            iterative_kernel, leaves, x, y, ITERATIVE_NOISE, generator, mesh,
+            axis=mesh.mesh_dim_names[0], precond_rank=precond_rank, block=block,
+            return_info=True, **ITERATIVE_STEP,
         )
         grads = torch.autograd.grad(val, list(leaves.values()))
     return val.detach(), dict(zip(leaves, grads)), info
@@ -396,17 +432,11 @@ def resumable_n2000(checkpoint_path, steps, *, steps_per_dispatch=1, checkpoint_
     )
 
 
-def nuts_n2000(key_seed, device=None, *, n=2000, num_chains=4, num_warmup=192,
-               num_samples=128, max_depth=6):
-    """``bench_nuts``'s run: NUTS with the dense metric over ``(log_ell,
-    log_s2, log_noise)`` of an EQ GP with standard normal priors on the
-    three, from ``(0, 0, -1.9)``, on ``n`` sorted uniform points on [0, 10]
-    with ``y = sin x + 0.15 noise`` (float32, from a numpy
-    ``RandomState(0)``), with a CPU generator seeded by ``key_seed`` and
-    adaptive jitter on (warm-up explores small noise values where the
-    fixed float32 jitter fails). Returns ``(samples, accept_rate)``, each
-    sample ``(num_chains, num_samples)``."""
-    dev = config.resolve_device(device)
+def _nuts_target(n, dev):
+    """``bench_nuts``'s log posterior and start: an EQ GP over ``(log_ell,
+    log_s2, log_noise)`` with standard normal priors on the three, from
+    ``(0, 0, -1.9)``, on ``n`` sorted uniform points on [0, 10] with ``y =
+    sin x + 0.15 noise`` (float32, from a numpy ``RandomState(0)``)."""
     r = np.random.RandomState(0)
     x = np.sort(r.rand(n).astype(np.float32)) * 10
     y = (np.sin(x) + 0.15 * r.randn(n)).astype(np.float32)
@@ -422,13 +452,47 @@ def nuts_n2000(key_seed, device=None, *, n=2000, num_chains=4, num_warmup=192,
         "log_s2": torch.zeros((), device=dev),
         "log_noise": torch.full((), -1.9, device=dev),
     }
+    return logpost, init
+
+
+def nuts_n2000(key_seed, device=None, *, n=2000, num_chains=4, num_warmup=192,
+               num_samples=128, max_depth=6, mesh=None, chain_axis="chains"):
+    """``bench_nuts``'s run: NUTS with the dense metric over ``(log_ell,
+    log_s2, log_noise)`` of an EQ GP with standard normal priors on the
+    three, from ``(0, 0, -1.9)``, on ``n`` sorted uniform points on [0, 10]
+    with ``y = sin x + 0.15 noise`` (float32, from a numpy
+    ``RandomState(0)``), with a CPU generator seeded by ``key_seed`` and
+    adaptive jitter on (warm-up explores small noise values where the
+    fixed float32 jitter fails). ``mesh`` and ``chain_axis`` split the
+    chains over the ranks of a mesh dimension (``sample_nuts``). Returns
+    ``(samples, accept_rate)``, each sample ``(num_chains, num_samples)``."""
+    logpost, init = _nuts_target(n, config.resolve_device(device))
     prev = config.adaptive_jitter
     config.set_adaptive_jitter(True)
     try:
         return sample_nuts(
             logpost, init, torch.Generator().manual_seed(key_seed), num_samples=num_samples,
             num_warmup=num_warmup, num_chains=num_chains, max_depth=max_depth,
-            adapt_mass="dense",
+            adapt_mass="dense", mesh=mesh, chain_axis=chain_axis,
+        )
+    finally:
+        config.set_adaptive_jitter(prev)
+
+
+def hmc_n2000(key_seed, device=None, *, n=2000, num_chains=2, num_warmup=16, num_samples=16,
+              mesh=None, chain_axis="chains"):
+    """HMC (``sample_hmc``, 8 leapfrog steps of 0.05) on :func:`nuts_n2000`'s
+    posterior, with a CPU generator seeded by ``key_seed`` and adaptive
+    jitter on; ``mesh`` and ``chain_axis`` split the chains over a mesh
+    dimension. Returns ``(samples, logps, accept_rate)``."""
+    logpost, init = _nuts_target(n, config.resolve_device(device))
+    prev = config.adaptive_jitter
+    config.set_adaptive_jitter(True)
+    try:
+        return sample_hmc(
+            logpost, init, torch.Generator().manual_seed(key_seed), num_samples=num_samples,
+            num_warmup=num_warmup, step_size=0.05, n_leapfrog=8, num_chains=num_chains,
+            mesh=mesh, chain_axis=chain_axis,
         )
     finally:
         config.set_adaptive_jitter(prev)
@@ -772,17 +836,19 @@ def pathwise_262k_inputs(n=262_144, dtype=torch.float32, device=None, seed=0):
     return x, y
 
 
-def pathwise_build(x, y, generator, *, solver="cg", block=8192):
+def pathwise_build(x, y, generator, *, solver="cg", block=8192, mesh=None):
     """``bench_pathwise_262k``'s build: 8 posterior function draws of
     ``GP(EQ())`` under noise 0.1 from ``generator``, with 2048 random
     features and, for ``solver="cg"``, the whitened CG at tol 1e-4 (at most
-    200 iterations) under a rank-64 preconditioner. Returns ``(sample_fn,
-    cg_info)``."""
+    200 iterations) under a rank-64 preconditioner; with a 1-D ``mesh``,
+    the matvecs and the evaluations row-sharded over it. Returns
+    ``(sample_fn, cg_info)``."""
+    axis = "data" if mesh is None else mesh.mesh_dim_names[0]
     with torch.no_grad():
         fn, _, info = pathwise_sampler(
             EQ(), x, y, PATHWISE_NOISE, generator, num_samples=8, num_features=2048,
             solver=solver, block=block, cg_tol=1e-4, max_cg_iters=200, precond_rank=64,
-            return_info=True,
+            return_info=True, mesh=mesh, axis=axis,
         )
     return fn, info
 
@@ -810,23 +876,35 @@ def _svgp_indices(n, batch, device):
     return torch.as_tensor(idx, device=device)
 
 
-def _svgp_batch(x, y, batch):
+def _svgp_batch(x, y, batch, mesh=None):
     """The minibatch ``(x_b (B, 1), y_b)`` at :func:`_svgp_indices`; all of
-    the data when ``batch`` is None."""
+    the data when ``batch`` is None. With a 1-D ``mesh``, each a ``DTensor``
+    placed ``Shard(0)`` on it, holding this rank's rows."""
     if batch is not None:
         idx = _svgp_indices(x.shape[0], batch, x.device)
         x, y = x[idx], y[idx]
-    return x[:, None], y
+    x = x[:, None]
+    if mesh is not None:
+        ax = MeshAxis(mesh, mesh.mesh_dim_names[0])
+        rows = x.shape[0]
+        if rows % ax.size:
+            raise ValueError(f"the batch's {rows} rows do not divide over {ax.size} ranks.")
+        n = rows // ax.size
+        mine = slice(ax.rank * n, (ax.rank + 1) * n)
+        x, y = sharded(x[mine], ax, rows), sharded(y[mine], ax, rows)
+    return x, y
 
 
 @config.pin_matmul_precision
-def svgp_1m_step(x, y, theta, params, *, batch=4096, grad=False, jitter=None):
+def svgp_1m_step(x, y, theta, params, *, batch=4096, grad=False, jitter=None, mesh=None):
     """The SVGP ELBO of :func:`svgp_kernel` under noise 0.1 on one minibatch
     (``batch`` None: all of the data), its value or ``(value, grads)`` with
     ``grads`` the gradient with respect to ``log_s2``, ``log_ell`` and
     ``z``. ``jitter`` fixes the inducing Gram's jitter (default: the
-    adaptive probe, as :func:`sparse_elbo`)."""
-    xb, yb = _svgp_batch(x, y, batch)
+    adaptive probe, as :func:`sparse_elbo`). With a 1-D ``mesh``, the
+    minibatch is sharded over it by rows (``svgp_elbo``'s sharded batch);
+    every rank returns the same value and gradients."""
+    xb, yb = _svgp_batch(x, y, batch, mesh)
 
     def fn(p):
         return svgp_elbo(svgp_kernel(p), {**params, "z": p["z"]}, xb, yb, SPARSE_NOISE,
@@ -837,10 +915,11 @@ def svgp_1m_step(x, y, theta, params, *, batch=4096, grad=False, jitter=None):
 
 
 @config.pin_matmul_precision
-def svgp_1m_natgrad(x, y, theta, params, *, batch=4096, rho=1.0, jitter=None):
+def svgp_1m_natgrad(x, y, theta, params, *, batch=4096, rho=1.0, jitter=None, mesh=None):
     """One natural-gradient step of step size ``rho`` on the minibatch of
-    :func:`svgp_1m_step`: the new parameters."""
-    xb, yb = _svgp_batch(x, y, batch)
+    :func:`svgp_1m_step` (sharded by rows over a 1-D ``mesh`` when given):
+    the new parameters."""
+    xb, yb = _svgp_batch(x, y, batch, mesh)
     with _jitter(jitter), torch.no_grad():
         return svgp_natgrad_step(svgp_kernel(theta), params, xb, yb, SPARSE_NOISE, x.shape[0],
                                  rho)

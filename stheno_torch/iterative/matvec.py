@@ -87,14 +87,6 @@ _FULL_PRECISION = (None, "high", "float32", "highest")
 _LOW_PRECISION = ("default", "bfloat16", "tensorfloat32")
 
 
-def not_ported(what, item="12b"):
-    """The error of an option this port does not have yet, naming the
-    ``ROADMAP.md`` item that ports it."""
-    return NotImplementedError(
-        f"{what} is not ported to stheno_torch yet (see ROADMAP.md, queue 1 item {item})."
-    )
-
-
 def fused_form(k):
     """``(scales, wrappers, leaf)`` when ``k`` is a chain of scalings and
     input wrappers over a stationary or linear leaf, else ``None``."""

@@ -31,7 +31,10 @@ matvec_fn(...))``, differentiated by autograd): the grid path
 (``toeplitz.py``) passes its FFT matvec. ``fwd_matvec_fn`` replaces it in
 the forward solves only (the compensated operator), and
 ``surrogate_matvec_fn`` in the surrogate only (``surrogate_tile_dtype``).
-Without them the core runs exactly the fused default path above.
+``surrogate_grad_fn(params, noise, x, U, w, alpha, need) -> (p_bar,
+noise_bar, x_bar)`` replaces the surrogate's gradient whole (the
+mesh-sharded one of ``parallel/iterative.py``). Without them the core runs
+exactly the fused default path above.
 JAX ``key``s become ``torch.Generator``s.
 """
 
@@ -136,11 +139,12 @@ class _Config:
 
     def __init__(self, names, kernel_fn, block, cg_tol, max_cg_iters, quad_steps,
                  precond_rank, precond_method, precond_power_iters, matvec_fn=None,
-                 fwd_matvec_fn=None, surrogate_matvec_fn=None):
+                 fwd_matvec_fn=None, surrogate_matvec_fn=None, surrogate_grad_fn=None):
         self.names = names
         self.matvec_fn = matvec_fn
         self.fwd_matvec_fn = fwd_matvec_fn
         self.surrogate_matvec_fn = surrogate_matvec_fn
+        self.surrogate_grad_fn = surrogate_grad_fn
         self.kernel_fn = kernel_fn
         self.block = block
         self.cg_tol = cg_tol
@@ -310,8 +314,13 @@ class _NLMLFunction(torch.autograd.Function):
         # The leaves, noise and x, in the order _surrogate_grads takes them.
         need_sur = [*need[8:], need[2], need[3]]
         grads = [None] * len(need_sur)
-        if any(need_sur):
-            grads = _surrogate_grads(ctx.cfg, leaves, noise, x, U, w, alpha, need_sur)
+        cfg = ctx.cfg
+        if any(need_sur) and cfg.surrogate_grad_fn is not None:
+            p_bar, noise_bar, x_bar = cfg.surrogate_grad_fn(
+                dict(zip(cfg.names, leaves)), noise, x, U, w, alpha, need_sur)
+            grads = [p_bar[k] for k in cfg.names] + [noise_bar, x_bar]
+        elif any(need_sur):
+            grads = _surrogate_grads(cfg, leaves, noise, x, U, w, alpha, need_sur)
         *leaf_bars, noise_bar, x_bar = [None if t is None else t * g for t in grads]
         y_bar = g * alpha if need[1] else None
         return (None, y_bar, noise_bar, x_bar, None, None, None, None, *leaf_bars)
@@ -319,15 +328,18 @@ class _NLMLFunction(torch.autograd.Function):
 
 def _nlml(params, y, noise, x, u, om, pstate, kernel_fn, cg_tol, max_cg_iters, quad_steps,
           precond_rank, precond_method="pivoted", precond_power_iters=1, *, block=4096,
-          matvec_fn=None, fwd_matvec_fn=None, surrogate_matvec_fn=None):
+          matvec_fn=None, fwd_matvec_fn=None, surrogate_matvec_fn=None, surrogate_grad_fn=None):
     """Shared stochastic-NLML core: ``(nlml, health)``, differentiable with
     respect to the tensors in ``params``, ``y``, ``noise`` and ``x``.
 
     ``u (n, p)`` are standard-normal probes and ``om (n, r)`` the subspace
     start block of a fresh eig preconditioner (``None`` otherwise);
     ``pstate`` an optional prebuilt ``(U, lam)``, held constant.
-    ``matvec_fn``, ``fwd_matvec_fn`` and ``surrogate_matvec_fn`` are the
-    hooks of the module docstring."""
+    ``matvec_fn``, ``fwd_matvec_fn``, ``surrogate_matvec_fn`` and
+    ``surrogate_grad_fn`` are the hooks of the module docstring; the last
+    takes the parameter leaves as a dict and ``need``, whether each leaf,
+    ``noise`` and ``x`` (in that order) needs a gradient, and returns
+    ``None`` where one does not."""
     names = list(params)
     leaves = [
         v if isinstance(v, torch.Tensor) else torch.as_tensor(v, dtype=y.dtype, device=y.device)
@@ -336,7 +348,7 @@ def _nlml(params, y, noise, x, u, om, pstate, kernel_fn, cg_tol, max_cg_iters, q
     noise = torch.as_tensor(noise, dtype=y.dtype, device=y.device)
     cfg = _Config(names, kernel_fn, block, cg_tol, max_cg_iters, quad_steps, precond_rank,
                   precond_method, precond_power_iters, matvec_fn, fwd_matvec_fn,
-                  surrogate_matvec_fn)
+                  surrogate_matvec_fn, surrogate_grad_fn)
     state_U, state_lam = (None, None) if pstate is None else (
         pstate[0].detach(), pstate[1].detach())
     val = _NLMLFunction.apply(cfg, y, noise, x, u.detach(),

@@ -20,8 +20,11 @@ the features' frequencies, then ``w``, then ``eps``. Drawing is kept apart
 from building (``_draw`` and ``_build``), so the same draws can be handed
 to either package. At small noise the CG solve runs on the compensated
 operator (``iterative/compensated.py``) where ``compensated`` asks for it
-or ``"auto"`` resolves to it. Not ported yet: a ``mesh`` (``ROADMAP.md``
-queue 1 item 12b), which raises ``NotImplementedError``.
+or ``"auto"`` resolves to it. With a ``mesh``, the CG solve's matvecs
+and the evaluation's cross-Gram product are row-sharded over it
+(``parallel/iterative.py``); there is no compensated sharded matvec, so
+``"auto"`` then resolves to the plain operator and ``compensated=True``
+raises.
 """
 
 import warnings
@@ -30,7 +33,7 @@ import torch
 
 from .. import config
 from ..iterative.cg import batched_cg
-from ..iterative.matvec import kernel_matvec, not_ported
+from ..iterative.matvec import kernel_matvec
 from ..iterative.pchol import make_whitened_solver
 from ..kernels import pairwise
 from ..kernels.features import _checked_plan, _feature_map_from_draws
@@ -80,8 +83,13 @@ def _stall_warning(info, tol, compensated=False):
 
 @config.pin_matmul_precision
 def _build(kernel, x, y, noise, draws, *, num_features, solver, block, cg_tol, max_cg_iters,
-           precond_rank, compensated):
-    """``(sample_fn, cg_info)`` from the draws of :func:`_draw`."""
+           precond_rank, compensated, mesh=None, axis="data"):
+    """``(sample_fn, cg_info)`` from the draws of :func:`_draw`; with a
+    ``mesh``, every Gram product row-sharded over its ``axis``."""
+    if mesh is not None and compensated is True:
+        raise ValueError(
+            "pathwise_sampler: compensated=True has no form over a mesh (no compensated "
+            "sharded matvec); pass compensated=False or 'auto'.")
     x2 = uprank(x)
     y = config.as_tensor(y)
     n, d = x2.shape
@@ -97,20 +105,28 @@ def _build(kernel, x, y, noise, draws, *, num_features, solver, block, cg_tol, m
         v = solve(K, resid)
         v = dense(v) if not isinstance(v, torch.Tensor) else v
     elif solver == "cg":
+        if mesh is not None:
+            from ..parallel.iterative import sharded_kernel_matvec
+
+            def mv(u, nz=None):
+                return sharded_kernel_matvec(kernel, x2, u, mesh, axis=axis, noise=nz, block=block)
+
+            mv_comp, compensated = None, False
+        else:
+            def mv(u, nz=None):
+                return kernel_matvec(kernel, x2, u, noise=nz, block=block)
+
+            def mv_comp(u):
+                return kernel_matvec(kernel, x2, u, block=block, compensated=True)
+
         if precond_rank and precond_rank > 0:
-            solve_w = make_whitened_solver(
-                lambda u: kernel_matvec(kernel, x2, u, block=block), n, noise, precond_rank,
-                dtype=resid.dtype,
-                mv_raw_comp=lambda u: kernel_matvec(kernel, x2, u, block=block, compensated=True),
-                compensated=compensated,
-            )
+            solve_w = make_whitened_solver(mv, n, noise, precond_rank, dtype=resid.dtype,
+                                           mv_raw_comp=mv_comp, compensated=compensated)
             v, cg_info = solve_w(resid, tol=cg_tol, max_iters=max_cg_iters)
             used_comp = solve_w.compensated
         else:
-            v, cg_info = batched_cg(
-                lambda u: kernel_matvec(kernel, x2, u, noise=noise, block=block), resid,
-                tol=cg_tol, max_iters=max_cg_iters,
-            )
+            v, cg_info = batched_cg(lambda u: mv(u, noise), resid, tol=cg_tol,
+                                    max_iters=max_cg_iters)
         _stall_warning(cg_info, cg_tol, used_comp)
     else:
         raise ValueError(f"Unknown solver {solver!r} (use 'chol' or 'cg').")
@@ -118,7 +134,13 @@ def _build(kernel, x, y, noise, draws, *, num_features, solver, block, cg_tol, m
     @config.pin_matmul_precision
     def sample_fn(x_new):
         xn = uprank(x_new)
-        return phi(xn) @ w + kernel_matvec(kernel, xn, v, block=block, x_cols=x2)
+        if mesh is not None:
+            from ..parallel.iterative import _cross_matvec_sharded
+
+            update = _cross_matvec_sharded(kernel, xn, x2, v, mesh, axis=axis, block=block)
+        else:
+            update = kernel_matvec(kernel, xn, v, block=block, x_cols=x2)
+        return phi(xn) @ w + update
 
     return sample_fn, cg_info
 
@@ -159,10 +181,14 @@ def pathwise_sampler(
         block: row-block size of the matrix-free products.
         cg_tol, max_cg_iters, precond_rank: the CG solve's settings
             (``precond_rank=0``: no preconditioner).
-        mesh, axis: not ported (``mesh`` must be ``None``).
+        mesh, axis: a ``DeviceMesh`` and its dimension over which the
+            matrix-free products (``solver="cg"``'s matvecs and every
+            evaluation's cross-Gram product) are row-sharded; every rank
+            gets the same draws.
         return_info: also return the solve's health dict.
         compensated: the two-float policy of the whitened CG solve
             (``"auto"``, ``True`` or ``False``; ``iterative/compensated.py``).
+            With a mesh ``"auto"`` is ``False`` and ``True`` raises.
 
     Returns:
         ``(sample_fn, generator)``, or ``(sample_fn, generator, cg_info)``
@@ -172,8 +198,6 @@ def pathwise_sampler(
         num_samples)``; the draws are fixed, so two calls evaluate the same
         functions. A stalled CG solve warns.
     """
-    if mesh is not None:
-        raise not_ported("pathwise_sampler(mesh=...)", item="12b")
     x2 = uprank(x)
     y = config.as_tensor(y)
     n, d = x2.shape
@@ -182,7 +206,7 @@ def pathwise_sampler(
     sample_fn, cg_info = _build(
         kernel, x2, y, noise, draws, num_features=num_features, solver=solver, block=block,
         cg_tol=cg_tol, max_cg_iters=max_cg_iters, precond_rank=precond_rank,
-        compensated=compensated,
+        compensated=compensated, mesh=mesh, axis=axis,
     )
     if return_info:
         return sample_fn, generator, cg_info

@@ -22,6 +22,16 @@ The sums over the batch (``A A^T``, ``A y`` and the likelihood's) run
 through the chunked contraction of ``matrix/ops.py:_contract``: at a batch
 of 10^6 one float32 product over all its terms loses the digits that the
 collapsed bound's identity needs.
+
+A sharded batch: where the JAX package data-parallelises the step through
+its inputs' shardings (GSPMD inserts one ``psum``), here ``x`` and ``y``
+are ``DTensor``s placed ``Shard(0)`` on a 1-D mesh (the port's convention
+for row-sharded inputs, ``parallel/__init__.py`` point 2). Each rank then
+computes its rows' part of the batch sums (the likelihood's, ``A_b A_b^T``
+and ``A_b y_b``) from the kernel and parameters routed through
+``copy_to_mesh``, and one ``reduce_from_mesh`` sums them over the ranks;
+the O(M^2) terms after it (the KL, the natural-parameter update) are
+replicated. A plain tensor batch takes the single-device path.
 """
 
 import math
@@ -86,6 +96,35 @@ def _centred(y, x, mean):
     return y
 
 
+def _batch(k, params, x, y, mean):
+    """``(k, params, x, y, mean, b, reduce)``: the batch as this rank sees
+    it, ``b`` the whole batch's size and ``reduce(t, what)``, which sums a
+    batch term over the ranks. A plain batch comes back as it is, with the
+    identity for ``reduce``. A sharded batch (``x`` a ``DTensor``) gives
+    this rank's rows of ``x`` and ``y``, the kernel, parameters and mean
+    routed through ``copy_to_mesh``, and one ``reduce_from_mesh``."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return k, params, x, y, mean, _as_col(y).shape[-2], lambda t, what: t
+    from ..parallel._comm import MeshAxis, reduce_from_mesh
+    from ..parallel.cholesky import local_rows
+    from ..parallel.exact import _route, check_routed
+
+    mesh = x.device_mesh
+    if mesh.ndim != 1:
+        raise ValueError("a sharded SVGP batch lies on a 1-D mesh.")
+    ax = MeshAxis(mesh, mesh.mesh_dim_names[0])
+
+    def reduce(t, what):
+        if t.requires_grad:
+            check_routed(t, what)
+        return reduce_from_mesh(t, ax)
+
+    x_loc, y_loc = local_rows(x, ax), local_rows(config.as_tensor(y), ax)
+    return _route(k, ax), _route(params, ax), x_loc, y_loc, _route(mean, ax), x.shape[0], reduce
+
+
 @config.pin_matmul_precision
 def svgp_init(k, z, dtype=None):
     """Initial parameters for inducing inputs ``z`` ``(M, d)`` or ``(M,)``:
@@ -111,16 +150,18 @@ def svgp_elbo(k, params, x, y, noise, num_data, mean=None):
     1)``; ``noise``: the Gaussian observation-noise variance; ``num_data``:
     the dataset size N (the likelihood term is scaled by ``N / B``, so a
     minibatch ELBO is an unbiased estimate of the full one); ``mean``: an
-    optional mean expression, subtracted from ``y``."""
-    y = _centred(y, x, mean)
-    A, k_diag = _whitened_stats(k, params, x)
+    optional mean expression, subtracted from ``y``. ``x`` and ``y`` may be
+    ``DTensor``s placed ``Shard(0)`` on a 1-D mesh (the module docstring):
+    every rank then returns the same value and, under autograd, the same
+    whole gradient."""
+    k_b, p_b, x_b, y_b, mean_b, b, reduce = _batch(k, params, x, y, mean)
+    y_b = _centred(y_b, x_b, mean_b)
+    A, k_diag = _whitened_stats(k_b, p_b, x_b)
+    f_mean, f_var = _marginals(A, k_diag, p_b["q_mu"], torch.tril(p_b["q_sqrt"]))
+    total = reduce(_sum((y_b - f_mean)[..., 0] ** 2 + f_var), "svgp_elbo")
     m_w, S = params["q_mu"], torch.tril(params["q_sqrt"])
-    b = y.shape[-2]
-    noise = config.as_scalar(noise, y.dtype, y.device)
-    f_mean, f_var = _marginals(A, k_diag, m_w, S)
-
-    resid2 = (y - f_mean)[..., 0] ** 2
-    lik = -0.5 * (b * torch.log(2 * math.pi * noise) + _sum(resid2 + f_var) / noise)
+    noise = config.as_scalar(noise, y_b.dtype, y_b.device)
+    lik = -0.5 * (b * torch.log(2 * math.pi * noise) + total / noise)
     m_dim = m_w.shape[-2]
     # KL(N(m, S S^T) || N(0, I)).
     kl = 0.5 * (
@@ -153,13 +194,20 @@ def svgp_natgrad_step(k, params, x, y, noise, num_data, rho, mean=None):
     likelihood: closed form in the whitened natural parameters, with no
     autodiff through a factorisation. ``rho = 1`` with the whole dataset as
     the batch lands on the optimal q(u), the collapsed VFE optimum. Returns
-    new parameters (``z`` untouched)."""
-    y = _centred(y, x, mean)
-    A = _whitened_A(k, params, x)
+    new parameters (``z`` untouched). A sharded batch (``DTensor``s, as
+    :func:`svgp_elbo` takes) sums ``A_b A_b^T`` and ``A_b y_b`` over the
+    ranks in one reduction; the update after it is replicated."""
+    k_b, p_b, x_b, y_b, mean_b, b, reduce = _batch(k, params, x, y, mean)
+    y_b = _centred(y_b, x_b, mean_b)
+    A = _whitened_A(k_b, p_b, x_b)
+    m = A.shape[-2]
+    both = reduce(torch.cat([_contract(A, A.transpose(-1, -2)), _contract(A, y_b)], dim=-1),
+                  "svgp_natgrad_step")
+    AAt, Ay = both[..., :m], both[..., m:]
     m_w, S = params["q_mu"], torch.tril(params["q_sqrt"])
     m_dim = m_w.shape[-2]
-    noise = config.as_scalar(noise, y.dtype, y.device)
-    scale = num_data / y.shape[-2]
+    noise = config.as_scalar(noise, y_b.dtype, y_b.device)
+    scale = num_data / b
     eye = torch.eye(m_dim, dtype=A.dtype, device=A.device)
 
     # Natural parameters of q: Lam = Sigma^{-1}, nu = Sigma^{-1} m. S is a
@@ -167,8 +215,8 @@ def svgp_natgrad_step(k, params, x, y, noise, num_data, rho, mean=None):
     Lam = torch.cholesky_solve(eye, S)
     nu = torch.cholesky_solve(m_w, S)
 
-    Lam_hat = eye + scale * _contract(A, A.transpose(-1, -2)) / noise
-    nu_hat = scale * _contract(A, y) / noise
+    Lam_hat = eye + scale * AAt / noise
+    nu_hat = scale * Ay / noise
 
     Lam_new = (1 - rho) * Lam + rho * Lam_hat
     nu_new = (1 - rho) * nu + rho * nu_hat

@@ -5,16 +5,18 @@ gradient threaded through the carry and dual-averaging step-size
 adaptation during warm-up. The JAX package runs its chains under ``vmap``
 (sharded over a mesh when given one); here they run one after another,
 since ``vmap`` cannot pass through the ctypes kernels, and the sampler is
-host-driven (``_flat.Target``). Randomness comes from an explicit CPU
-``torch.Generator`` where the JAX package takes a key: the two packages
-draw different numbers, so they agree in distribution, not draw by draw.
+host-driven (``_flat.Target``); with a mesh, each rank runs its share of
+the chains (``_flat.run_chains``). Randomness comes from an explicit CPU
+``torch.Generator`` where the JAX package takes a key, one per chain
+seeded from the caller's: the two packages draw different numbers, so
+they agree in distribution, not draw by draw.
 """
 
 import math
 
 import torch
 
-from ._flat import Target
+from ._flat import Target, chain_generators, run_chains
 
 __all__ = ["sample_hmc"]
 
@@ -100,30 +102,31 @@ def sample_hmc(
         init: initial parameters, a dict of tensors (one chain); chains
             start from ``init`` jittered by 0.1 standard normals.
         generator: a CPU ``torch.Generator``.
-        num_chains: chains, run one after another.
-        mesh, chain_axis: chains over several devices are not ported
-            (``ROADMAP.md`` queue 1 item 12b); a mesh raises.
+        num_chains: chains, each with a generator of its own seeded from
+            ``generator`` (after the starts' jitter), run one after another.
+        mesh, chain_axis: a ``DeviceMesh`` and the name of its dimension
+            over which the chains split: each rank runs the chains ``c =
+            rank (mod D)`` (``D`` must divide ``num_chains``) and the
+            results are gathered, the same to the bit as without a mesh.
 
     Returns:
         ``(samples, logps, accept_rate)``: ``samples`` a dict of tensors of
         shape ``(num_chains, num_samples, ...)`` on the parameters' device,
         ``logps`` ``(num_chains, num_samples)``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "sample_hmc: chains over a device mesh are not ported yet (ROADMAP.md, queue 1 "
-            "item 12b); the chains run one after another on one device."
-        )
     target = Target(logpdf, init)
     inits = target.q0 + 0.1 * torch.randn(
         (num_chains, target.dim), generator=generator, dtype=target.dtype
     )
-    runs = [
-        _single_chain(target, inits[c], generator, num_samples, num_warmup, step_size,
-                      n_leapfrog, target_accept)
-        for c in range(num_chains)
-    ]
+    gens = chain_generators(generator, num_chains)
+
+    def run_one(c):
+        qs, logps, accept = _single_chain(target, inits[c], gens[c], num_samples, num_warmup,
+                                          step_size, n_leapfrog, target_accept)
+        return qs, logps, torch.tensor([accept], dtype=torch.float64)
+
+    runs = run_chains(run_one, num_chains, mesh, chain_axis)
     qs = torch.stack([r[0] for r in runs])
     logps = torch.stack([r[1] for r in runs]).to(target.device)
-    accept = sum(r[2] for r in runs) / num_chains
+    accept = sum(float(r[2]) for r in runs) / num_chains
     return target.samples(qs), logps, float(accept)

@@ -18,7 +18,10 @@ on the host, so a subtree stops at its first U-turn instead of idling
 through its remaining leaves, and the chains run one after another. Each
 leapfrog step's log-density and gradient run where the parameters lie
 (``_flat.Target``). Randomness comes from a CPU ``torch.Generator``; the
-two packages agree in distribution, not draw by draw.
+two packages agree in distribution, not draw by draw. Each chain draws
+from its own generator, seeded from the caller's, so with a mesh the
+chains split over the ranks of a mesh dimension and the result is the
+same to the bit (``_flat.run_chains``).
 """
 
 import math
@@ -26,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from ._flat import Target
+from ._flat import Target, chain_generators, run_chains
 
 __all__ = ["sample_nuts"]
 
@@ -278,33 +281,36 @@ def sample_nuts(
 
     ``dispatch_chunk`` bounds the transitions per device program in the
     JAX package; the sampler here runs eagerly, so it is accepted and does
-    not change the result. ``mesh`` (chains over several devices) is not
-    ported (``ROADMAP.md`` queue 1 item 12b) and raises.
+    not change the result.
 
     ``generator`` is a CPU ``torch.Generator``. Chains start from ``init``
-    jittered by 0.1 standard normals and run one after another.
+    jittered by 0.1 standard normals drawn from it; then each chain gets a
+    generator of its own, seeded from it. Without a ``mesh`` the chains run
+    one after another; with one (a ``DeviceMesh``), each rank runs the
+    chains ``c = rank (mod D)`` of its dimension ``chain_axis`` (size
+    ``D``, which must divide ``num_chains``) and the results are gathered
+    over it: the same samples, to the bit, as without the mesh.
 
     Returns ``(samples, accept_rate)`` with ``samples`` a dict of tensors
     shaped ``(num_chains, num_samples, ...)`` on the parameters' device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sample_nuts: chains over a device mesh are not ported yet (ROADMAP.md, queue 1 "
-            "item 12b); the chains run one after another on one device."
-        )
     del dispatch_chunk
     target = Target(logpdf, init)
     inits = target.q0 + 0.1 * torch.randn(
         (num_chains, target.dim), generator=generator, dtype=target.dtype
     )
+    gens = chain_generators(generator, num_chains)
     if adapt_mass:
         collect, window_end = _warmup_schedule(num_warmup)
     else:
         collect = window_end = np.zeros(num_warmup, bool)
-    runs = [
-        _single_chain(target, inits[c], generator, num_warmup, num_samples, step_size,
-                      max_depth, target_accept, collect, window_end, adapt_mass == "dense")
-        for c in range(num_chains)
-    ]
+
+    def run_one(c):
+        qs, accepts = _single_chain(target, inits[c], gens[c], num_warmup, num_samples,
+                                    step_size, max_depth, target_accept, collect, window_end,
+                                    adapt_mass == "dense")
+        return qs, torch.tensor(accepts, dtype=torch.float64)
+
+    runs = run_chains(run_one, num_chains, mesh, chain_axis)
     qs = torch.stack([qs for qs, _ in runs])
-    accepts = [a for _, acc in runs for a in acc]
+    accepts = [a for _, acc in runs for a in acc.tolist()]
     return target.samples(qs), sum(accepts) / max(len(accepts), 1)

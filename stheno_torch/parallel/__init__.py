@@ -4,9 +4,9 @@ Counterpart of ``stheno_tpu/parallel``: the 1-D row-sharded distributed
 Cholesky and triangular solve (``cholesky.py``), the sharded Gram, NLML
 and posterior (``exact.py``), the sparse ELBO and posterior
 (``sparse.py``), the 2-D block-cyclic Cholesky and NLML over a grid of
-ranks (``cholesky2d.py``), process groups and meshes (``hosts.py``), and
-the collectives (``_comm.py``). The sharded matrix-free NLML and matvec
-(``ROADMAP.md`` item 12b's second half) raise ``NotImplementedError``.
+ranks (``cholesky2d.py``), the matrix-free NLML and matvec with row-sharded
+matvecs (``iterative.py``), process groups and meshes (``hosts.py``), and
+the collectives (``_comm.py``).
 
 Design:
 
@@ -61,25 +61,12 @@ Design:
    raises; a single process with no cluster logs and returns).
 """
 
-from ..iterative.matvec import not_ported
 from .cholesky import dist_cholesky, dist_cholesky_with_inv, dist_solve_lower, make_data_mesh
 from .cholesky2d import dist_cholesky_2d, dist_cholesky_2d_with_inv, dist_nlml_2d, make_grid_mesh
 from .exact import dist_nlml, dist_posterior_predict, sharded_gram
 from .hosts import initialize_hosts, make_hybrid_mesh
+from .iterative import sharded_iterative_nlml, sharded_kernel_matvec
 from .sparse import dist_elbo, dist_sparse_posterior
-
-
-def _item_12b(name):
-    def stub(*args, **kwargs):
-        raise not_ported(name, item="12b")
-
-    stub.__name__ = stub.__qualname__ = name
-    stub.__doc__ = "Not ported yet (``ROADMAP.md`` queue 1 item 12b, second half); raises."
-    return stub
-
-
-sharded_iterative_nlml = _item_12b("sharded_iterative_nlml")
-sharded_kernel_matvec = _item_12b("sharded_kernel_matvec")
 
 __all__ = [
     "dist_cholesky",

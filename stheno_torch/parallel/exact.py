@@ -26,6 +26,7 @@ import torch
 
 from .. import config
 from ..kernels import Kernel, elwise, pairwise
+from ..kernels.mean import Mean
 from ..kernels.util import uprank
 from ..matrix import dense
 from ..mo.core import MultiOutputKernel
@@ -45,8 +46,8 @@ _LOG_2_PI = math.log(2 * math.pi)
 
 def _route(obj, ax, memo=None):
     """``obj`` with every tensor it holds through ``copy_to_mesh``: a tensor,
-    a list or tuple of them, or a kernel (copied, with its attributes
-    routed). Anything else is returned as it is."""
+    a list, tuple or dict of them, or a kernel or mean (copied, with its
+    attributes routed). Anything else is returned as it is."""
     memo = {} if memo is None else memo
     if id(obj) in memo:
         return memo[id(obj)]
@@ -54,7 +55,9 @@ def _route(obj, ax, memo=None):
         out = copy_to_mesh(obj, ax)
     elif type(obj) in (list, tuple):
         out = type(obj)(_route(o, ax, memo) for o in obj)
-    elif isinstance(obj, Kernel):
+    elif type(obj) is dict:
+        out = {k: _route(v, ax, memo) for k, v in obj.items()}
+    elif isinstance(obj, (Kernel, Mean)):
         out = copy.copy(obj)
         out.__dict__.update({k: _route(v, ax, memo) for k, v in vars(obj).items()})
     else:

@@ -13,7 +13,13 @@ The 2-D half: the block-cyclic loop's recorded bytes at N = 256, block
 and a 2 x 2 grid (suite ``comm``), and the JAX package's HLO-measured
 bytes on the same grids. The 32-rank ``test_comm_volume_4x8_pod_shape``
 is not mirrored: 32 gloo processes on this CPU do not fit the test run's
-clock. The matvec half waits for ``ROADMAP.md`` item 12b's second half."""
+clock.
+
+The sharded matvec (``parallel/iterative.py``): at D = 4, N = 256, p = 4,
+float64, one all-gather of the ``(N, p)`` result per call,
+``(D - 1)/D N p w`` bytes a rank, for a terminal call too, where the JAX
+package moves none for a terminal call and one gather for two chained
+calls (its test of the same name, here at 4 devices)."""
 
 import jax
 import jax.numpy as jnp
@@ -73,3 +79,30 @@ def test_comm_volume_2d_matches_model(r, c, suite, tmp_path_factory):
     compiled = jax.jit(lambda K: c2d._dist_cholesky_2d_loop(K, mesh, "rows", "cols", B)).lower(
         K).compile()
     np.testing.assert_allclose(_loop_bytes(collective_traffic(compiled)), model, rtol=1e-6)
+
+
+def test_sharded_matvec_comm_matches_model(tmp_path_factory):
+    """The port's model: every call of ``sharded_kernel_matvec`` gathers
+    once, ``(D - 1)/D N p w`` bytes a rank, so one call costs the model and
+    two chained calls twice it, all in all-gathers. The JAX package's
+    compiled matvec: a terminal call moves nothing, two chained calls the
+    model once."""
+    from stheno_tpu import EQ
+    from stheno_tpu.parallel import sharded_kernel_matvec
+
+    n, p = 256, 4
+    model = (D - 1) / D * n * p * W_BYTES
+    for r in W.results("comm", D, tmp_path_factory)["comm_matvec"]:
+        assert float(r["one"]) == float(r["one_gather"]) == model, (float(r["one"]), model)
+        assert float(r["two"]) == 2 * model
+        assert set(str(k) for k in r["kinds"]) == {"all-gather"}
+    x = jnp.linspace(0.0, 10.0, n)
+    v = jnp.asarray(np.random.RandomState(1).randn(n, p))
+    mesh = make_data_mesh(D)
+
+    def mv(x, vv):
+        return sharded_kernel_matvec(EQ(), x, vv, mesh, noise=0.1, block=64)
+
+    assert collective_traffic(jax.jit(mv).lower(x, v).compile())["total"] == 0.0
+    t2 = collective_traffic(jax.jit(lambda x, v: mv(x, mv(x, v))).lower(x, v).compile())
+    np.testing.assert_allclose(t2["total"], model, rtol=1e-6)

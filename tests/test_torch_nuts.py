@@ -11,7 +11,9 @@ same way from the squared deviations. On Gaussian targets both packages'
 means and variances must lie within 4 standard errors of the exact values;
 on a tiny GP posterior both packages' posterior means must agree within 4
 combined standard errors. The diagnostics are the same numpy code on the
-same arrays: rtol 1e-12.
+same arrays: rtol 1e-12. With a mesh (a data mesh or ``make_hybrid_mesh``'s
+chain axis, at D = 1, 2 and 4 ranks), the chains are the same to the bit as
+without one.
 """
 
 import jax
@@ -25,6 +27,7 @@ import stheno_torch as st
 from stheno_tpu import opt as jopt
 from stheno_torch import entry as E
 from stheno_torch import opt as topt
+import tests.torch_parallel_worker as W
 from tests.test_torch_helpers import np_, torch_cpu  # noqa: F401
 
 SIGMAS = 4.0
@@ -163,13 +166,28 @@ def test_nuts_n2000_entry_runs_at_a_small_size():
     assert st.config.adaptive_jitter is False  # Restored after the run.
 
 
-def test_samplers_refuse_a_mesh():
-    lp = lambda p: -0.5 * torch.sum(p["w"] ** 2)  # noqa: E731
-    init = {"w": torch.zeros(2, dtype=torch.float64)}
-    with pytest.raises(NotImplementedError, match="item 12"):
-        topt.sample_nuts(lp, init, torch.Generator(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        topt.sample_hmc(lp, init, torch.Generator(), mesh=object())
+def test_hmc_n2000_entry_runs_at_a_small_size():
+    samples, logps, accept = E.hmc_n2000(0, device="cpu", n=20, num_warmup=8, num_samples=6)
+    assert set(samples) == {"log_ell", "log_s2", "log_noise"}
+    assert all(v.shape == (2, 6) and bool(torch.isfinite(v).all()) for v in samples.values())
+    assert logps.shape == (2, 6) and 0.0 < accept <= 1.0
+    assert st.config.adaptive_jitter is False  # Restored after the run.
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_chains_over_a_mesh_match_chains_in_turn(D, tmp_path_factory):
+    """Each chain draws from its own generator, so NUTS's and HMC's chains
+    split over the ranks of a data mesh, or of ``make_hybrid_mesh``'s chain
+    axis, give every rank the same samples, log-densities and accept rates
+    to the bit as the chains run in turn (here, in this process); a mesh
+    dimension that does not divide the chains raises."""
+    free = W.run_samplers()
+    for r in W.iter_results("iter_chains", D, tmp_path_factory):
+        for tag in ("free", "data", "hybrid"):
+            for k, v in free.items():
+                np.testing.assert_array_equal(r[f"{tag}_{k}"], v, err_msg=f"{tag} {k}")
+        raised = str(r["raised"])
+        assert raised == "" if D == 1 else "does not divide evenly" in raised, raised
 
 
 def test_nuts_warmup_schedule_matches_jax():

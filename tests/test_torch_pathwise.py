@@ -12,8 +12,8 @@ Then the stories of ``tests/test_pathwise.py`` on the port: feature maps
 reproduce their kernels, the draws have the closed-form posterior's
 moments and are fixed functions, a starved CG warns and reports, the
 small-noise solve runs on the compensated operator where the policy asks
-for it, and ``mesh=`` raises ``NotImplementedError`` (``ROADMAP.md`` queue
-1 item 12)."""
+for it. With a ``mesh`` (D = 1, 2 and 4 ranks) the draws match the
+mesh-free build's, and ``compensated=True`` raises."""
 
 import warnings
 
@@ -28,6 +28,7 @@ import stheno_torch as st
 from stheno_tpu.kernels import features as JF
 from stheno_torch.kernels.features import _feature_map_from_draws
 from stheno_torch.model import pathwise as TP
+import tests.torch_parallel_worker as W
 from tests.test_torch_helpers import np_, torch_cpu  # noqa: F401
 
 
@@ -255,11 +256,33 @@ def test_pathwise_small_build_is_finite():
     assert out.shape == (9, 2) and bool(torch.isfinite(out).all())
 
 
-def test_pathwise_mesh_is_not_ported():
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_pathwise_mesh_matches_the_mesh_free_build(D, tmp_path_factory):
+    """``pathwise_sampler(mesh=...)`` at D ranks (the CG solve's matvecs and
+    the evaluation row-sharded, and with the dense solver the evaluation)
+    against the mesh-free build on the same draws (rtol 1e-8), the same on
+    every rank; ``compensated=True`` raises over a mesh."""
+    x = torch.linspace(0.0, 10.0, 64, dtype=torch.float64)
+    xn = torch.linspace(-1.0, 11.0, 50, dtype=torch.float64)
+    res = W.iter_results("iter_pathwise", D, tmp_path_factory)
+    for solver in ("cg", "chol"):
+        fn, _ = st.pathwise_sampler(st.EQ(), x, torch.sin(x), 0.1,
+                                    torch.Generator().manual_seed(3), num_samples=4,
+                                    num_features=256, solver=solver, block=16, cg_tol=1e-10,
+                                    max_cg_iters=500, precond_rank=16)
+        for r in res:
+            np.testing.assert_array_equal(r[f"draws_{solver}"], res[0][f"draws_{solver}"])
+        _close(res[0][f"draws_{solver}"], np_(fn(xn)), rtol=1e-8, atol=1e-10)
+    assert all("no compensated sharded matvec" in str(r["raised"]) for r in res)
+
+
+def test_pathwise_mesh_refuses_compensated():
+    from stheno_torch.parallel import make_data_mesh
+
     x = torch.linspace(0, 10, 48, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="no compensated sharded matvec"):
         st.pathwise_sampler(st.EQ(), x, torch.sin(x), 0.01, torch.Generator(), solver="cg",
-                            mesh=object())
+                            mesh=make_data_mesh(), compensated=True)
 
 
 def test_pathwise_small_noise_compensated_is_not_ported():

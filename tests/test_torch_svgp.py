@@ -5,8 +5,10 @@ and its gradient in (theta, z, q_mu, q_sqrt), the predictive marginals
 the state that ``convert.svgp_params_from_jax`` carries across; the
 stories of ``tests/model/test_svgp.py`` on the port (the collapsed-bound
 identity, the collapsed posterior, unbiased minibatches, natural-gradient
-and Adam training, the mean function); and the N=10^6 entry points
-(``entry.svgp_1m_step``, ``svgp_1m_natgrad``) at a small N."""
+and Adam training, the mean function); the batch sharded
+over D = 1, 2 and 4 ranks against the replicated batch; and the N=10^6
+entry points (``entry.svgp_1m_step``, ``svgp_1m_natgrad``) at a small N,
+with and without a mesh."""
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +20,7 @@ import stheno_tpu as sj
 import stheno_torch as st
 from stheno_torch import entry as E
 from stheno_torch.convert import svgp_params_from_jax
+import tests.torch_parallel_worker as W
 from tests.test_torch_helpers import np_, torch_cpu  # noqa: F401
 
 N, M, NOISE = 60, 12, 0.05
@@ -252,12 +255,10 @@ def test_mean_function_matches_collapsed(problem):
 
 
 def test_batch_split_sum_matches_whole_batch(problem):
-    # The JAX package shards the batch over a mesh and sums the likelihood
-    # (tests/model/test_svgp.py, test_sharded_batch_matches_replicated); the
-    # port's distributed paths are ROADMAP.md queue 1 item 12. On one device
-    # the same sum: the batch of 40 split in two halves, whose ELBOs (each
-    # N/20 times its half's likelihood, less the KL) average to the
-    # batch's.
+    # The sum a sharded batch computes (test_sharded_batch_matches_replicated
+    # below), on one device: the batch of 40 split in two halves, whose
+    # ELBOs (each N/20 times its half's likelihood, less the KL) average to
+    # the batch's.
     k, x, y, z, noise = problem
     params = _optimal(k, x, y, z, noise)
     xb, yb = x[:40, None], y[:40]
@@ -265,6 +266,61 @@ def test_batch_split_sum_matches_whole_batch(problem):
     halves = [st.svgp_elbo(k, params, xb[s], yb[s], noise, N) for s in (slice(0, 20),
                                                                        slice(20, 40))]
     _close(0.5 * (halves[0] + halves[1]), np_(ref), rtol=1e-10)
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_sharded_batch_matches_replicated(D, tmp_path_factory):
+    """``tests/model/test_svgp.py``'s test of the same name: the batch of 40
+    given as ``DTensor``s placed ``Shard(0)`` over D ranks (suite
+    ``parallel``'s case ``iter_svgp``). The ELBO, its gradient in (theta,
+    z, q_mu, q_sqrt) and a rho=0.4 natural-gradient step on every rank
+    equal the replicated batch's to 1e-10, and the ELBO the JAX package's."""
+    n, b, _, noise = W.SVGP_CASE
+    x, y, z = W.svgp_data()
+    T = lambda a: torch.tensor(a, dtype=torch.float64)  # noqa: E731
+    k0 = 1.3 * st.EQ().stretch(0.9)
+    params = st.svgp_natgrad_step(k0, st.svgp_init(k0, T(z)), T(x)[:, None], T(y), noise, n,
+                                  rho=1.0)
+    theta = {k: T(v).requires_grad_(True) for k, v in W.SVGP_THETA.items()}
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    xb, yb = T(x[:b])[:, None], T(y[:b])
+    e = st.svgp_elbo(_kernel(st, theta), leaves, xb, yb, noise, n)
+    want = {"elbo": e}
+    want.update({f"grad_{k}": g for k, g in zip(
+        [*theta, *leaves], torch.autograd.grad(e, [*theta.values(), *leaves.values()]))})
+    with torch.no_grad():
+        step = st.svgp_natgrad_step(_kernel(st, theta), params, xb, yb, noise, n, rho=0.4)
+    want.update({f"step_{k}": v for k, v in step.items()})
+    kj = 1.3 * sj.EQ().stretch(0.9)
+    pj = sj.svgp_natgrad_step(kj, sj.svgp_init(kj, jnp.asarray(z)), jnp.asarray(x)[:, None],
+                              jnp.asarray(y), noise, n, rho=1.0)
+    ej = sj.svgp_elbo(_kernel(sj, {k: jnp.asarray(v) for k, v in W.SVGP_THETA.items()}), pj,
+                      jnp.asarray(x[:b])[:, None], jnp.asarray(y[:b]), noise, n)
+    res = W.iter_results("iter_svgp", D, tmp_path_factory)
+    for key, ref in want.items():
+        for r in res[1:]:
+            np.testing.assert_array_equal(r[key], res[0][key], err_msg=key)
+        _close(res[0][key], np_(ref), rtol=1e-10, atol=1e-13)
+    _close(res[0]["elbo"], ej, rtol=1e-10)
+
+
+def test_svgp_entry_points_take_a_mesh():
+    """``svgp_1m_step`` and ``svgp_1m_natgrad`` with ``mesh=``: the
+    minibatch sharded by rows, the same value, gradient and step as
+    without."""
+    from stheno_torch.parallel import make_data_mesh
+
+    mesh = make_data_mesh()
+    x, y, theta, params = E.svgp_1m_inputs(torch.float64, n=3000, m=12)
+    kw = dict(batch=256, jitter=1e-8)
+    p1, p1m = (E.svgp_1m_natgrad(x, y, theta, params, mesh=m, **kw) for m in (None, mesh))
+    (v, g), (vm, gm) = (E.svgp_1m_step(x, y, theta, p1, grad=True, mesh=m, **kw)
+                        for m in (None, mesh))
+    for k in ("q_mu", "q_sqrt"):
+        _close(p1m[k], np_(p1[k]), rtol=1e-12)
+    _close(vm, np_(v), rtol=1e-12)
+    for k in g:
+        _close(gm[k], np_(g[k]), rtol=1e-10)
 
 
 # --- the N=10^6 entry points, at a small N ----------------------------------

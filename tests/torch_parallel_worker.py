@@ -1,6 +1,9 @@
 """Worker processes of the distributed port's CPU tests
 (``tests/test_torch_parallel.py``, ``test_torch_cholesky2d.py``,
-``test_torch_multihost.py`` and ``test_torch_comm_volume.py``). It imports neither ``jax`` nor
+``test_torch_parallel_iterative.py``, ``test_torch_multihost.py``,
+``test_torch_comm_volume.py``, and the mesh cases of
+``test_torch_nuts.py``, ``test_torch_pathwise.py`` and
+``test_torch_svgp.py``). It imports neither ``jax`` nor
 ``stheno_tpu``; the tests hold what the workers return to the JAX package.
 
     python -m tests.torch_parallel_worker SUITE RANK WORLD STORE OUT
@@ -15,13 +18,15 @@ one.
 
 :func:`results` runs a suite's pools (one per world size, all at once) once
 per test session (under pytest-xdist one worker runs them and the others
-wait on a lock and read their files) and :func:`run_suite` runs a suite in
-the calling process at D=1.
+wait on a lock and read their files), :func:`run_suite` runs a suite in
+the calling process at D=1, and :func:`iter_results` reads one case of
+item 12b's second half at any D (at D=1 running that case alone here).
 """
 
 import contextlib
 import datetime
 import fcntl
+import functools
 import os
 import pathlib
 import subprocess
@@ -659,6 +664,30 @@ def case_comm_volume(mesh):
     return out
 
 
+def case_comm_matvec(mesh):
+    """The sharded matvec's recorded bytes at N=256, p=4, float64: one
+    call, and two chained (the second's right-hand sides the first's
+    output)."""
+    from stheno_torch import EQ
+    from stheno_torch.parallel import sharded_kernel_matvec
+    from stheno_torch.utils.comm import collective_traffic
+
+    n, p = 256, 4
+    x = _t(np.linspace(0.0, 10.0, n))
+    v = _t(np.random.RandomState(1).randn(n, p))
+
+    def mv(vv):
+        return sharded_kernel_matvec(EQ(), x, vv, mesh, noise=0.1, block=64)
+
+    with collective_traffic() as one:
+        mv(v)
+    with collective_traffic() as two:
+        mv(mv(v))
+    return {"one": np.array(one["total"]), "two": np.array(two["total"]),
+            "one_gather": np.array(one["all-gather"]),
+            "kinds": np.array([k for _, k, _, _ in two["instructions"]])}
+
+
 def case_comm_volume_2d(mesh):
     """The 2-D panel loop's recorded bytes at N=256, block 32, on the last
     grid of the world size (2 x 2 at four ranks, 2 x 4 at eight)."""
@@ -681,6 +710,252 @@ def case_comm_volume_2d(mesh):
 
 
 # ---------------------------------------------------------------------------
+# Suite "parallel", item 12b's second half: the sharded matrix-free path
+# (tests/test_torch_parallel_iterative.py) and the samplers', pathwise's and
+# SVGP's meshes (test_torch_nuts.py, test_torch_pathwise.py,
+# test_torch_svgp.py).
+
+#: The NLML core's shared case: n, probes, preconditioner rank, seed, block.
+ITER_CORE = (100, 6, 30, 3, 16)
+ITER_PARAMS = {"log_s2": 0.2, "log_ell": -0.1}
+
+
+def iter_data(n, seed, noise=0.1):
+    """``x``: ``n`` sorted uniform points on [0, 10] and ``y = sin x`` plus
+    ``noise`` standard normals, from ``RandomState(seed)``."""
+    r = np.random.RandomState(seed)
+    x = np.sort(r.rand(n) * 10)
+    return x, np.sin(x) + (noise * r.randn(n) if noise else 0.0)
+
+
+def iter_core_inputs():
+    """The core case's data and probes ``(x, y, u, om)``."""
+    n, p, rank, seed, _ = ITER_CORE
+    x, y = iter_data(n, seed)
+    r = np.random.RandomState(seed + 1)
+    return x, y, r.randn(n, p), r.randn(n, rank)
+
+
+def icm_inputs():
+    """``tests/parallel/test_distributed.py``'s ICM case: ``(xa, ya, B)``."""
+    rng = np.random.RandomState(4)
+    nx, t = 24, 2
+    x = np.sort(rng.rand(nx)) * 5
+    xa = np.stack([np.repeat(x, t), np.tile(np.arange(t, dtype=x.dtype), nx)], axis=1)
+    return xa, rng.randn(nx * t), np.array([[1.0, 0.5], [0.5, 0.8]])
+
+
+def _kf(p):
+    return _eq(p["log_ell"], p["log_s2"])
+
+
+def case_iter_matvec(mesh):
+    from stheno_torch import EQ
+    from stheno_torch.parallel import sharded_kernel_matvec
+    from stheno_torch.parallel.iterative import _cross_matvec_sharded
+
+    r = np.random.RandomState(7)
+    x, v = np.sort(r.rand(100)), r.randn(100, 3)  # 100 rows: padded at D = 8
+    xn = np.linspace(-0.5, 1.5, 37)
+    return {
+        "mv": _np(sharded_kernel_matvec(EQ(), _t(x), _t(v), mesh, noise=0.1, block=16)),
+        "mv_vec": _np(sharded_kernel_matvec(EQ(), _t(x), _t(v[:, 0]), mesh, block=16)),
+        "cross": _np(_cross_matvec_sharded(EQ().stretch(0.3), _t(xn)[:, None], _t(x)[:, None],
+                                           _t(v), mesh, block=8)),
+    }
+
+
+def case_iter_core(mesh):
+    """The NLML core with the sharded hooks on numpy probes: its value and
+    its gradients in the parameters, the noise, ``x`` and ``y``."""
+    from stheno_torch.iterative.nlml import _nlml
+    from stheno_torch.parallel import sharded_kernel_matvec
+    from stheno_torch.parallel.iterative import make_sharded_surrogate_grad
+
+    x, y, u, om = iter_core_inputs()
+    *_, block = ITER_CORE
+    leaves = {k: _t(v).requires_grad_(True) for k, v in ITER_PARAMS.items()}
+    ins = [_t(0.1), _t(x)[:, None], _t(y)]
+    noise, xt, yt = (t.requires_grad_(True) for t in ins)
+
+    def mv(k, xx, v, nz):
+        return sharded_kernel_matvec(k, xx, v, mesh, noise=nz, block=block)
+
+    val, info = _nlml(leaves, yt, noise, xt, _t(u), _t(om), None, _kf, 1e-12, 400, 60,
+                      om.shape[1], "eig", 1, block=block, matvec_fn=mv,
+                      surrogate_grad_fn=make_sharded_surrogate_grad(_kf, mesh, block=block))
+    grads = _grads(val, [*leaves.values(), noise, xt, yt])
+    out = {"value": _np(val), "iters": np.array(info["cg_iters"])}
+    for name, g in zip([*leaves, "noise", "x", "y"], grads):
+        out[f"grad_{name}"] = _np(g)
+    return out
+
+
+def case_iter_nlml(mesh):
+    """``sharded_iterative_nlml`` on ``tests/parallel/test_distributed.py``'s
+    cases: the value, the gradients, a 4-step training loop,
+    ``return_info`` and the ICM model."""
+    from stheno_torch import EQ
+    from stheno_torch.kernels import Coregion
+    from stheno_torch.parallel import sharded_iterative_nlml as nlml
+
+    out = {}
+    x, y = iter_data(96, 8, noise=0.0)
+    out["value"] = _np(nlml(lambda p: EQ(), None, _t(x), _t(y), 0.1,
+                            torch.Generator().manual_seed(0), mesh, num_probes=16, cg_tol=1e-8,
+                            slq_steps=20, precond_rank=30, block=12))
+    x, y = iter_data(96, 9)
+    leaves = {"log_ell": _t(0.1).requires_grad_(True), "log_s2": _t(0.2).requires_grad_(True)}
+    noise = _t(0.1).requires_grad_(True)
+    v = nlml(_kf, leaves, _t(x), _t(y), noise, torch.Generator().manual_seed(1), mesh,
+             num_probes=32, cg_tol=1e-8, slq_steps=25, precond_rank=40, block=12)
+    for name, g in zip(["log_ell", "log_s2", "noise"], _grads(v, [*leaves.values(), noise])):
+        out[f"grad_{name}"] = _np(g)
+    x, y = iter_data(96, 11)
+    p = {"log_ell": _t(0.0), "log_s2": _t(0.0)}
+    gen = torch.Generator().manual_seed(2)
+    vals = []
+    for _ in range(4):
+        leaves = {k: t.requires_grad_(True) for k, t in p.items()}
+        v = nlml(_kf, leaves, _t(x), _t(y), 0.05, gen, mesh, num_probes=8, cg_tol=1e-8,
+                 slq_steps=15, precond_rank=30, block=12)
+        gs = _grads(v, list(leaves.values()))
+        p = {k: (t - 0.02 * g).detach() for (k, t), g in zip(leaves.items(), gs)}
+        vals.append(float(v.detach()))
+    out["loop"] = np.array(vals)
+    x = np.linspace(0.0, 10.0, 96)
+    v, info = nlml(lambda q: torch.exp(q["log_s2"]) * EQ(), {"log_s2": _t(0.1)}, _t(x),
+                   _t(np.sin(x)), 0.1, torch.Generator().manual_seed(0), mesh, num_probes=4,
+                   cg_tol=1e-6, precond_rank=16, block=32, return_info=True)
+    out["info_value"] = _np(v)
+    out["info"] = np.array([info["cg_iters"], float(info["cg_rel_residual"]),
+                            info["cg_converged"]], dtype=np.float64)
+    xa, ya, B = icm_inputs()
+    k = EQ().select([0]) * Coregion(_t(B)).select([1])
+    out["icm"] = _np(nlml(lambda q: k, None, _t(xa), _t(ya), 0.1,
+                          torch.Generator().manual_seed(0), mesh, num_probes=24, cg_tol=1e-9,
+                          slq_steps=40, precond_rank=24, block=8))
+    return out
+
+
+#: The SVGP case (``tests/model/test_svgp.py``'s problem): N, the batch
+#: (its first ``SVGP_B`` points), M, the noise.
+SVGP_CASE = (60, 40, 12, 0.05)
+SVGP_THETA = {"log_s2": float(np.log(1.3)), "log_ell": float(np.log(0.9))}
+
+
+def svgp_data():
+    n, _, m, _ = SVGP_CASE
+    r = np.random.RandomState(0)
+    x = np.sort(r.rand(n) * 8.0)
+    return x, np.sin(x) + 0.2 * r.randn(n), np.linspace(0.0, 8.0, m)
+
+
+def case_iter_svgp(mesh):
+    """SVGP's sharded batch: the batch's rows as ``DTensor``s placed
+    ``Shard(0)``; the ELBO, its gradient and a natural-gradient step."""
+    from stheno_torch import EQ, svgp_elbo, svgp_init, svgp_natgrad_step
+    from stheno_torch.parallel._comm import MeshAxis
+    from stheno_torch.parallel.cholesky import sharded
+
+    n, b, _, noise = SVGP_CASE
+    x, y, z = svgp_data()
+    ax = MeshAxis(mesh, "data")
+    rows = slice(ax.rank * b // ax.size, (ax.rank + 1) * b // ax.size)
+    xs, ys = sharded(_t(x[:b])[rows][:, None], ax, b), sharded(_t(y[:b])[rows], ax, b)
+    k0 = 1.3 * EQ().stretch(0.9)
+    params = svgp_natgrad_step(k0, svgp_init(k0, _t(z)), _t(x)[:, None], _t(y), noise, n,
+                               rho=1.0)
+    theta = {k: _t(v).requires_grad_(True) for k, v in SVGP_THETA.items()}
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    e = svgp_elbo(_kf(theta), leaves, xs, ys, noise, n)
+    out = {"elbo": _np(e)}
+    for name, g in zip([*theta, *leaves], _grads(e, [*theta.values(), *leaves.values()])):
+        out[f"grad_{name}"] = _np(g)
+    with torch.no_grad():
+        step = svgp_natgrad_step(_kf(theta), params, xs, ys, noise, n, rho=0.4)
+    out.update({f"step_{k}": _np(v) for k, v in step.items()})
+    return out
+
+
+def case_iter_pathwise(mesh):
+    """``pathwise_sampler(mesh=...)``: the draws at 50 points under both
+    solvers, and the refusal of ``compensated=True``."""
+    from stheno_torch import EQ, pathwise_sampler
+
+    x = np.linspace(0.0, 10.0, 64)
+    xn = _t(np.linspace(-1.0, 11.0, 50))
+    out = {}
+    for solver in ("cg", "chol"):
+        fn, _, info = pathwise_sampler(EQ(), _t(x), _t(np.sin(x)), 0.1,
+                                       torch.Generator().manual_seed(3), num_samples=4,
+                                       num_features=256, solver=solver, block=16, cg_tol=1e-10,
+                                       max_cg_iters=500, precond_rank=16, mesh=mesh,
+                                       return_info=True)
+        out[f"draws_{solver}"] = _np(fn(xn))
+    try:
+        pathwise_sampler(EQ(), _t(x), _t(np.sin(x)), 0.1, torch.Generator(), solver="cg",
+                         mesh=mesh, compensated=True)
+        out["raised"] = np.array("")
+    except ValueError as e:
+        out["raised"] = np.array(str(e))
+    return out
+
+
+#: The chains' case: their number, and each sampler's settings.
+CHAINS = 4
+NUTS_KW = dict(num_samples=12, num_warmup=12, num_chains=CHAINS, max_depth=4)
+HMC_KW = dict(num_samples=10, num_warmup=10, num_chains=CHAINS, n_leapfrog=4)
+
+
+def chain_target():
+    """A correlated Gaussian over ``w`` (2,), and the start."""
+    prec = torch.linalg.inv(_t([[1.0, 0.6], [0.6, 1.0]]))
+
+    def lp(p):
+        return -0.5 * p["w"] @ prec @ p["w"]
+
+    return lp, {"w": torch.zeros(2, dtype=torch.float64)}
+
+
+def run_samplers(mesh=None, axis="chains"):
+    """NUTS's and HMC's samples, NUTS's and HMC's accept rates and HMC's
+    log-densities with the chains over ``mesh``'s ``axis`` (or in turn)."""
+    from stheno_torch.opt import sample_hmc, sample_nuts
+
+    lp, init = chain_target()
+    sn, an = sample_nuts(lp, init, torch.Generator().manual_seed(5), mesh=mesh,
+                         chain_axis=axis, **NUTS_KW)
+    sh, lph, ah = sample_hmc(lp, init, torch.Generator().manual_seed(6), mesh=mesh,
+                             chain_axis=axis, **HMC_KW)
+    return {"nuts": _np(sn["w"]), "nuts_accept": np.array(an), "hmc": _np(sh["w"]),
+            "hmc_logps": _np(lph), "hmc_accept": np.array(ah)}
+
+
+def case_iter_chains(mesh):
+    """The samplers' chains over the data mesh and over the hybrid mesh's
+    chain axis, each beside the same run with no mesh."""
+    import torch.distributed as dist
+
+    import stheno_torch.parallel as P
+
+    hybrid = P.make_hybrid_mesh(chains=2 if dist.get_world_size() % 2 == 0 else 1)
+    out = {f"free_{k}": v for k, v in run_samplers().items()}
+    out.update({f"data_{k}": v for k, v in run_samplers(mesh, "data").items()})
+    out.update({f"hybrid_{k}": v for k, v in run_samplers(hybrid, "chain").items()})
+    from stheno_torch.opt import sample_nuts
+
+    lp, init = chain_target()
+    try:  # 3 chains do not divide over 2 or 4 ranks.
+        sample_nuts(lp, init, torch.Generator(), mesh=mesh, chain_axis="data", num_samples=2,
+                    num_warmup=2, num_chains=3)
+        out["raised"] = np.array("")
+    except ValueError as e:
+        out["raised"] = np.array(str(e))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Suite "multihost": tests/parallel/test_multihost.py's first half.
 
 
@@ -694,16 +969,39 @@ def case_multihost(mesh):
     ax = MeshAxis(hybrid, "chain")
     pid = dist.get_rank()
     got = all_reduce(torch.arange(2.0).reshape(2, 1) + 10.0 * pid, ax)
-    return {"world": np.array(dist.get_world_size()), "shape": np.array(hybrid.mesh.shape),
-            "names": np.array(hybrid.mesh_dim_names), "sum": _np(got)}
+    out = {"world": np.array(dist.get_world_size()), "shape": np.array(hybrid.mesh.shape),
+           "names": np.array(hybrid.mesh_dim_names), "sum": _np(got)}
+    # The iterative half: the row-sharded matvec and the stochastic NLML
+    # with the row blocks split across the process boundary.
+    from stheno_torch import EQ
 
+    x, v, y = multihost_iterative_data()
+    out["matvec"] = _np(P.sharded_kernel_matvec(EQ(), _t(x), _t(v), mesh, noise=0.1, block=8))
+    val, info = P.sharded_iterative_nlml(
+        lambda p: torch.exp(p["log_s2"]) * EQ(), {"log_s2": _t(0.0)}, _t(x), _t(y), 0.1,
+        torch.Generator().manual_seed(0), mesh, num_probes=16, cg_tol=1e-8, precond_rank=16,
+        block=8, return_info=True)
+    out["nlml"], out["converged"] = _np(val), np.array(info["cg_converged"])
+    return out
+
+
+def multihost_iterative_data(n=64):
+    """``tests/parallel/test_multihost.py``'s iterative data: ``(x, v, y)``."""
+    x = np.linspace(0.0, 10.0, n)
+    v = np.sin(np.arange(2 * n, dtype=np.float64)).reshape(n, 2)
+    return x, v, np.sin(x) + 0.05 * np.cos(3.0 * x)
+
+
+ITER_CASES = (case_iter_matvec, case_iter_core, case_iter_nlml, case_iter_svgp,
+              case_iter_pathwise, case_iter_chains)
 
 SUITES = {
     "parallel": {f.__name__[5:]: f for f in (
         case_factors, case_untileable, case_nlml, case_nlml_matrix, case_multi_output,
         case_posterior, case_elbo, case_hybrid, case_jitter, case_entries, case_flops,
-        case_memory, case_f5, case_grid, case_grid_entries)},
-    "comm": {"comm_volume": case_comm_volume, "comm_volume_2d": case_comm_volume_2d},
+        case_memory, case_f5, case_grid, case_grid_entries, *ITER_CASES)},
+    "comm": {"comm_volume": case_comm_volume, "comm_volume_2d": case_comm_volume_2d,
+             "comm_matvec": case_comm_matvec},
     "grid8": {f.__name__[5:]: f for f in (case_grid, case_grid_entries, case_comm_volume_2d)},
     "multihost": {"multihost": case_multihost},
 }
@@ -820,6 +1118,22 @@ def results(suite, world, tmp_path_factory):
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return _load(out / str(world), suite, world)
+
+
+@functools.cache
+def _iter_local(name):
+    import stheno_torch.parallel as P
+
+    return [SUITES["parallel"][name](P.make_data_mesh())]
+
+
+def iter_results(name, world, tmp_path_factory):
+    """``[rank 0's dict, ...]`` of the suite ``parallel``'s case ``name`` at
+    ``world`` ranks: at one rank run here (once per process), at more read
+    from the suite's pools (:func:`results`)."""
+    if world == 1:
+        return _iter_local(name)
+    return results("parallel", world, tmp_path_factory)[name]
 
 
 def rows(res, key):
