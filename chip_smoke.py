@@ -58,7 +58,14 @@ on the card, and drives the port's paths through their entry points:
   (``item12b_2d_path``), and item 12b's sharded matrix-free step at
   N=262,144 with the samplers', pathwise's and SVGP's meshes
   (``item12b_iterative_path``: K3 and the fused Gram-gradient kernel on
-  each rank's rows).
+  each rank's rows);
+- items 2 and 7 (phase ``item2_7_path``): forward mode on the card, the
+  tangent kernel of K1 (``csrc/gram_jvp.cu``) against its plain version,
+  K2's forward rule against float64 differences, ``entry.flagship_jacfwd``
+  at N=2000 against the reverse gradient and float64, the Hessian of a
+  log-determinant through K2, a Hessian through K1's backward raising;
+  the captured Adam step with the adaptive-jitter probe and with rq's
+  alpha trainable, each against eager steps.
 
 The training step's surrogate, its Gram term's value and gradient, is
 one launch of the fused Gram-gradient kernel (``csrc/gram_matvec_vjp.cu``),
@@ -226,6 +233,13 @@ KERNELS = {
     },
     "gram_matvec_vjp_sharded": {
         "source": "stheno_torch/ops/csrc/gram_matvec_vjp_f64.cu",
+        "replaces": "stheno_tpu/ops/gram.py:92",
+    },
+    # Items 2 and 7 (phase item2_7_path): K1's forward rule, the tangent
+    # kernel. The TPU's forward mode differentiates the XLA Gram (K1's
+    # custom VJP has no forward rule), so it stands for K1's.
+    "gram_jvp": {
+        "source": "stheno_torch/ops/csrc/gram_jvp.cu",
         "replaces": "stheno_tpu/ops/gram.py:92",
     },
 }
@@ -705,10 +719,11 @@ def _kernel_modules():
     from stheno_torch.ops import gram as K1
     from stheno_torch.ops import gram_bwd as K1B
     from stheno_torch.ops import gram_matvec as K3
+    from stheno_torch.ops import gram_jvp as K1J
     from stheno_torch.ops import gram_matvec_vjp as K3V
 
     return {"gram": K1, "gram_bwd": K1B, "chol_tile": K2, "gram_matvec": K3,
-            "gram_matvec_vjp": K3V}
+            "gram_matvec_vjp": K3V, "gram_jvp": K1J}
 
 
 def _counts():
@@ -728,7 +743,8 @@ def _set_counts(counts):
         mods["gram_matvec"].route_launches[r] = counts[f"gram_matvec_{r}"]
 
 
-ZERO_COUNTS = {k: 0 for k in ("gram", "gram_bwd", "chol_tile", "gram_matvec", "gram_matvec_vjp",
+ZERO_COUNTS = {k: 0 for k in ("gram", "gram_bwd", "chol_tile", "gram_jvp", "gram_matvec",
+                              "gram_matvec_vjp",
                               "gram_matvec_mma", "gram_matvec_ffma", "gram_matvec_dmma")}
 
 
@@ -5166,6 +5182,372 @@ def phase_item12b_iterative_path(smi):
     ]
 
 
+# ---------------------------------------------------------------------------
+# Items 2 and 7 (phase item2_7_path): forward mode through K1 and K2, the
+# device-side jitter probe and rq's alpha on the device.
+
+#: The tangent kernel's check shapes: the flagship's N=2000 Gram (x is y,
+#: depth 1) and a ragged one (rows and columns off the tile, depth 3).
+JVP_SHAPES = ((2000, 2000, 1), (333, 517, 3))
+#: The captured steps compared with eager ones (adaptive jitter, rq alpha).
+CAPTURED_STEPS = 3
+
+
+def _jvp_tol(kind, x, y, xt, yt, at, alpha=1.3, block=256):
+    """Per-entry tolerance ``(B, n, m)`` of the tangent kernel against its
+    plain version, in float64. The entry is ``w(d2) s + h(d2) at`` with ``w
+    = 2 g'``: both round d2 within dd2 = 4 d eps (|x_i|^2 + |y_j|^2)
+    (``_gram_atol``), so w and h may differ by their spread over [d2 - dd2,
+    d2 + dd2] (each is monotone in d2); s = <x_i - y_j, xt_i - yt_j> sums d
+    terms of two roundings each (4 d eps of its absolute sum S); the
+    epilogue's exps and products a few eps of each term. linear: the two
+    inner products' rounding, 2 d eps of their absolute sums."""
+    from stheno_torch.ops.gram import _alpha_factor, _apply_kind, _g_prime, arith_dtype
+
+    eps = torch.finfo(arith_dtype(x.dtype)).eps
+    B = (xt if xt is not None else yt).shape[0]
+    n, d = x.shape
+    m = y.shape[0]
+    xf, yf = x.double(), y.double()
+    xtf = None if xt is None else xt.double()
+    ytf = None if yt is None else yt.double()
+    if kind == "linear":
+        tol = torch.zeros((B, n, m), dtype=torch.float64, device=x.device)
+        if xtf is not None:
+            tol += xtf.abs() @ yf.abs().T
+        if ytf is not None:
+            tol += xf.abs() @ ytf.abs().mT
+        return 2 * d * eps * tol + 4 * eps
+    a = torch.tensor(alpha, dtype=torch.float64, device=x.device)
+    atf = torch.zeros(B, dtype=torch.float64, device=x.device) if at is None else at.double()
+
+    def w(t):
+        return 2 * _g_prime(kind, t, _apply_kind(kind, t, None, a), a)
+
+    def h(t):
+        return _alpha_factor(t, _apply_kind(kind, t, None, a), a)
+
+    yn = (yf * yf).sum(1)
+    out = torch.empty((B, n, m), dtype=torch.float64, device=x.device)
+    for r in range(0, n, block):
+        xb = xf[r:r + block]
+        diff = xb[:, None, :] - yf[None, :, :]
+        d2 = (diff * diff).sum(-1)
+        dd2 = 4 * d * eps * ((xb * xb).sum(1)[:, None] + yn[None, :])
+        lo = torch.clamp_min(d2 - dd2, 0.0)
+        w0 = w(d2)
+        dw = torch.maximum((w(d2 + dd2) - w0).abs(), (w(lo) - w0).abs())
+        tdiff = 0.0
+        if xtf is not None:
+            tdiff = tdiff + xtf[:, r:r + block, None, :]
+        if ytf is not None:
+            tdiff = tdiff - ytf[:, None, :, :]
+        S = (diff.abs() * tdiff.abs()).sum(-1)  # (B, rows, m)
+        s = (diff * tdiff).sum(-1)
+        t = w0.abs() * (4 * d * eps * S + 4 * eps * s.abs()) + dw * (s.abs() + 4 * d * eps * S)
+        if kind == "rq":
+            h0 = h(d2)
+            dh = torch.maximum((h(d2 + dd2) - h0).abs(), (h(lo) - h0).abs())
+            t = t + (4 * eps * h0.abs() + dh) * atf.abs()[:, None, None]
+        out[:, r:r + block] = t + 4 * eps
+    return out
+
+
+def _hold_jvp(kind, x, y, xt, yt, at, tag, cases):
+    """The tangent kernel against its plain version within ``_jvp_tol``,
+    run twice with equal bits; returns the largest absolute error."""
+    from stheno_torch.ops import gram_jvp as KJ
+
+    got = KJ.gram_jvp(kind, x, y, xt, yt, 1.3, at)
+    again = KJ.gram_jvp(kind, x, y, xt, yt, 1.3, at)
+    ref = KJ.gram_jvp_plain(kind, x, y, xt, yt, 1.3, at)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"gram_jvp {kind} {tag}: two runs differ")
+    err, over = _hold(got, ref, _jvp_tol(kind, x, y, xt, yt, at), f"gram_jvp {kind} {tag}")
+    cases.append({"kind": kind, "case": tag, "max_abs_err": err, "of_tol": over})
+    return err
+
+
+def _jvp_kernel_checks():
+    """``gram_jvp`` against ``gram_jvp_plain`` for every kind, in float32
+    and float64, at B = 1 and 3, at ``JVP_SHAPES`` (the flagship's with x
+    is y and one tangent for both roles, as ``_Gram``'s rule passes it; the
+    ragged one with separate x and y tangents and rq's alpha tangent).
+    Returns ``(largest float32 error, cases)``."""
+    from stheno_torch.ops.gram import KINDS
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases, err32 = [], 0.0
+    for dtype in (torch.float32, torch.float64):
+        for n, m, d in JVP_SHAPES:
+            same = n == m and d == 1
+            x = torch.linspace(0.0, 10.0, n, device="cuda", dtype=dtype)[:, None] if same else \
+                torch.randn(n, d, generator=gen, device="cuda", dtype=dtype)
+            y = x if same else torch.randn(m, d, generator=gen, device="cuda", dtype=dtype)
+            for B in (1, 3):
+                xt = torch.randn(B, n, d, generator=gen, device="cuda", dtype=dtype)
+                yt = xt if same else torch.randn(B, m, d, generator=gen, device="cuda",
+                                                 dtype=dtype)
+                at = torch.randn(B, generator=gen, device="cuda", dtype=dtype)
+                for kind in KINDS:
+                    tag = f"{str(dtype)[6:]} {n}x{m}x{d} B={B}"
+                    e = _hold_jvp(kind, x, y, xt, yt, at, tag, cases)
+                    if dtype == torch.float32:
+                        err32 = max(err32, e)
+    return err32, cases
+
+
+def _chol_tile_jvp_check(n=1024, h=1e-4):
+    """K2's forward rule at n=1024 against a central finite difference of
+    the float64 factor (``torch.linalg.cholesky`` and its inverse) along a
+    symmetric direction, relative to the largest entry: gate 1e-3 (float32
+    factors of a matrix of condition about 10^2)."""
+    from stheno_torch.ops import chol_tile as K2
+
+    A = _spd(n, 11)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    D = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.float64)
+    D = (D + D.T) / (2 * math.sqrt(n))
+    (L, Linv), (dL, dLinv) = torch.func.jvp(K2.chol_tile, (A,), (D.float(),))
+    A64 = A.double()
+    eye = torch.eye(n, device="cuda", dtype=torch.float64)
+
+    def factor(M):
+        Lm = torch.linalg.cholesky(M)
+        return Lm, torch.linalg.solve_triangular(Lm, eye, upper=False)
+
+    (Lp, Ip), (Lm, Im) = factor(A64 + h * D), factor(A64 - h * D)
+    fd_L, fd_I = (Lp - Lm) / (2 * h), (Ip - Im) / (2 * h)
+    rel = {"L": max_err(dL, fd_L) / float(fd_L.abs().max()),
+           "Linv": max_err(dLinv, fd_I) / float(fd_I.abs().max())}
+    check(max(rel.values()) <= 1e-3, f"chol_tile's jvp against float64 differences: {rel}")
+    return {"n": n, "rel_err": rel, "jvp_ms": time_ms(lambda: torch.func.jvp(
+        K2.chol_tile, (A,), (D.float(),)), reps=5)}
+
+
+def _adaptive_adam_check():
+    """An Adam step with ``config.adaptive_jitter`` on, captured: the
+    noise-free EQ GP on 2000 points of [0, 10] (ell = 1), a numerically
+    rank-deficient Gram in float32 that needs the probe's k >= 2. For
+    ``CAPTURED_STEPS`` replays against as many eager steps on the card from
+    the same values: the probe's jitter equal, the parameters within rel
+    1e-5 (``phase_opt_adam``'s gate)."""
+    from stheno_torch import EQ, GP, config
+    from stheno_torch.matrix import ops
+    from stheno_torch.opt import AdamDriver, Vars
+
+    x = torch.linspace(0.0, 10.0, 2000, device="cuda")
+    y = torch.sin(x)
+
+    def f(v):
+        g = GP(v.positive(1.0, name="s2") * EQ().stretch(v.positive(1.0, name="ell")))
+        return -g.measure.logpdf(g(x, 1e-9), y)
+
+    seen = []
+    probe = ops.adaptive_jitter_eps
+
+    def spy(mat, base):
+        eps = probe(mat, base)
+        seen.append(eps)
+        return eps
+
+    ops.adaptive_jitter_eps = spy
+    config.set_adaptive_jitter(True)
+    try:
+        driver = AdamDriver(f, Vars(dtype=torch.float32, device="cuda"), rate=1e-2)
+        graph_eps = seen[-1]
+        captured = []
+        for _ in range(CAPTURED_STEPS):
+            driver.run(1)
+            captured.append((float(graph_eps), _latent(driver.vs)))
+        seen.clear()
+        vs = Vars(dtype=torch.float32, device="cuda")
+        with torch.no_grad():
+            f(vs)
+        params = {k: v.clone().requires_grad_(True) for k, v in vs.latent_dict().items()}
+        opt = torch.optim.Adam(list(params.values()), lr=1e-2, betas=(0.9, 0.999), eps=1e-8,
+                               capturable=True)
+        eager = []
+        for _ in range(CAPTURED_STEPS):
+            seen.clear()
+            opt.zero_grad(set_to_none=True)
+            f(vs.with_latent(params)).backward()
+            opt.step()
+            eager.append((float(seen[-1]), {k: v.detach().double().cpu()
+                                            for k, v in params.items()}))
+    finally:
+        ops.adaptive_jitter_eps = probe
+        config.set_adaptive_jitter(False)
+    base = config.jitter(torch.float32)
+    out = {"eps": [c[0] for c in captured], "eps_eager": [e[0] for e in eager],
+           "k": [round(math.log10(c[0] / base)) for c in captured], "param_rel": []}
+    for (ec, pc), (ee, pe) in zip(captured, eager):
+        check(ec == ee, f"captured adaptive jitter {ec} against eager {ee}")
+        rel = max(float((pc[k] - pe[k]).abs().max() / pe[k].abs().max().clamp_min(1e-30))
+                  for k in pc)
+        out["param_rel"].append(rel)
+        check(rel <= 1e-5, f"captured adaptive-jitter step against eager: rel {rel}")
+    check(min(out["k"]) >= 2, f"the rank-deficient Gram's probe took k {out['k']}")
+    return out
+
+
+def _rq_alpha_check():
+    """A captured Adam step of ``GP(s2 RQ(alpha).stretch(ell))`` with
+    alpha trainable (noise 0.1, N=2000, float32): alpha's gradient, read
+    after each of ``CAPTURED_STEPS`` replays, changes from replay to replay
+    (the kernels read alpha on the device) and equals the eager steps'
+    within rel 1e-5."""
+    from stheno_torch import GP, RQ
+    from stheno_torch.opt import AdamDriver, Vars
+
+    x = torch.linspace(0.0, 10.0, 2000, device="cuda")
+    y = torch.sin(x) + 0.3 * torch.cos(3.2 * x)
+
+    def f(v):
+        k = v.positive(1.0, name="s2") * RQ(v.positive(1.0, name="alpha")).stretch(
+            v.positive(1.0, name="ell"))
+        g = GP(k)
+        return -g.measure.logpdf(g(x, 0.1), y)
+
+    driver, counts = _launched(lambda: AdamDriver(f, Vars(dtype=torch.float32, device="cuda"),
+                                                  rate=5e-2))
+    grads = []
+    for _ in range(CAPTURED_STEPS):
+        driver.run(1)
+        grads.append(float(driver.params["alpha"].grad))
+    vs = Vars(dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        f(vs)
+    params = {k: v.clone().requires_grad_(True) for k, v in vs.latent_dict().items()}
+    opt = torch.optim.Adam(list(params.values()), lr=5e-2, betas=(0.9, 0.999), eps=1e-8,
+                           capturable=True)
+    eager = []
+    for _ in range(CAPTURED_STEPS):
+        opt.zero_grad(set_to_none=True)
+        f(vs.with_latent(params)).backward()
+        opt.step()
+        eager.append(float(params["alpha"].grad))
+    rel = [abs(g - e) / max(abs(e), 1e-30) for g, e in zip(grads, eager)]
+    check(len(set(grads)) == len(grads), f"alpha's gradient did not move across replays: {grads}")
+    check(max(rel) <= 1e-5, f"captured rq step's alpha gradient against eager: {rel}")
+    check(counts["gram"] >= 1 and counts["gram_bwd"] >= 1,
+          f"the rq step's capture launched {counts}")
+    return {"alpha_grad": grads, "alpha_grad_eager": eager, "rel": rel,
+            "capture_launches": counts}
+
+
+def phase_item2_7_path(smi):
+    """Items 2 and 7 on the card:
+
+    (a) the tangent kernel (``csrc/gram_jvp.cu``) against its plain
+        version for every kind, float32 and float64, B = 1 and 3, at the
+        flagship's 2000 x 2000 and a ragged shape (``_jvp_kernel_checks``);
+        K2's forward rule against float64 differences at n=1024;
+    (b) the main path of item 2, driven once with the counts at 0:
+        ``entry.flagship_jacfwd`` at N=2000 in float32, which must launch
+        K1, the tangent kernel and K2; its value and gradient against
+        ``torch.autograd.grad`` of the same NLML on the card
+        (``entry.flagship_step``) and against the port's float64
+        ``flagship_jacfwd`` on the CPU, rel 5e-2 on the gradient's norm
+        (the JAX package's float32 gradient error, stheno_tpu/config.py:
+        95-96) and 1e-3 on the value;
+    (c) ``torch.func.hessian`` of ``logdet(s A)`` at n=2048 (the auto
+        policy's K2 recursion) against ``-n / s^2``, rel 1e-3; a Hessian
+        through K1's backward raises;
+    (d) item 7: a captured Adam step with the adaptive jitter on a Gram
+        that needs k >= 2 against eager steps; a captured rq step with
+        alpha trainable against eager steps;
+    (e) the tangent kernel's row of the kernels line at the flagship's
+        shape, B = 3, float32: times beside its bound (the B output tiles
+        and the inputs, moved once), the plain version and
+        ``torch.func.jvp`` (under ``vmap``) through the plain ``exp(-0.5
+        ||x_i - x_j||^2)``, the distances by broadcasting (``torch.cdist``
+        has no forward-mode rule).
+    """
+    from stheno_torch import entry as E
+    from stheno_torch.matrix import ops
+    from stheno_torch.ops import gram as K1
+    from stheno_torch.ops import gram_jvp as KJ
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = {"phase": "item2_7_path", "nvidia_smi": smi}
+    err32, cases = _jvp_kernel_checks()
+    report["gram_jvp_cases"] = len(cases)
+    report["gram_jvp_worst"] = max(cases, key=lambda c: c["of_tol"])
+    report["chol_tile_jvp"] = _chol_tile_jvp_check()
+    emit(report)
+
+    # (b) the main path: one forward-mode gradient of the flagship's NLML.
+    x, y, params = E.flagship_n2000_inputs()
+    (val, grads), counts = _launched(lambda: E.flagship_jacfwd(x, y, params))
+    for k in ("gram", "gram_jvp", "chol_tile"):
+        check(counts[k] >= 1, f"flagship_jacfwd launched no {k}: {counts}")
+    rv, rg, _, _ = E.flagship_step(x, y, x[:4], params)
+    xc, yc, pc = E.flagship_n2000_inputs(torch.float64, "cpu")
+    cv, cg = E.flagship_jacfwd(xc, yc, pc)
+    gvec = lambda g: torch.stack([g[k].double().cpu() for k in params])  # noqa: E731
+    main = {"value": float(val), "grad": {k: float(v) for k, v in grads.items()},
+            "launches": counts,
+            "value_rel_reverse": _rel(val, rv), "value_rel_f64": _rel(val, cv),
+            "grad_rel_reverse": float((gvec(grads) - gvec(rg)).norm() / gvec(rg).norm()),
+            "grad_rel_f64": float((gvec(grads) - gvec(cg)).norm() / gvec(cg).norm()),
+            "grad_f64": {k: float(v) for k, v in cg.items()},
+            "jacfwd_ms": time_ms(lambda: E.flagship_jacfwd(x, y, params), reps=5),
+            "reverse_ms": time_ms(lambda: E.flagship_step(x, y, x[:4], params), reps=5)}
+    emit({"phase": "item2_7_path", "flagship_jacfwd": main})
+    for k in ("value_rel_reverse", "value_rel_f64"):
+        check(main[k] <= 1e-3, f"flagship_jacfwd {k}: {main}")
+    for k in ("grad_rel_reverse", "grad_rel_f64"):
+        check(main[k] <= 5e-2, f"flagship_jacfwd {k}: {main}")
+
+    # (c) second derivatives.
+    n, s0 = 2048, 1.3
+    A = _spd(n, 21)
+    (hess, hcounts) = _launched(lambda: torch.func.hessian(
+        lambda s: ops.logdet(ops.as_matrix(s * A)))(torch.tensor(s0, device="cuda")))
+    hrel = _rel(hess, -n / s0**2)
+    check(hcounts["chol_tile"] >= 1, f"the Hessian of logdet took no K2: {hcounts}")
+    check(hrel <= 1e-3, f"Hessian of logdet(s A) at n={n}: {float(hess)} against {-n / s0**2}")
+    xs = torch.linspace(0.0, 1.0, 64, device="cuda")[:, None]
+    try:
+        torch.func.hessian(lambda z: K1.gram("eq", z, z).sum())(xs)
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    check("forward rule" in raised, f"a Hessian through K1's backward did not raise: {raised!r}")
+    report = {"phase": "item2_7_path", "logdet_hessian": {"n": n, "value": float(hess),
+                                                          "rel": hrel, "launches": hcounts},
+              "k1_hessian_raises": raised[:80]}
+
+    # (d) item 7.
+    report["adaptive_jitter_adam"] = _adaptive_adam_check()
+    report["rq_alpha_adam"] = _rq_alpha_check()
+    emit(report)
+
+    # (e) the tangent kernel's row.
+    B, m = 3, 2000
+    xk = torch.linspace(0.0, 10.0, m, device="cuda")[:, None]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xt = torch.randn(B, m, 1, generator=gen, device="cuda")
+    # torch.cdist has no forward-mode rule: the squared distances by
+    # broadcasting instead.
+    lib_k = lambda z: torch.exp(-0.5 * (z[:, None] - z[None]).square().sum(-1))  # noqa: E731
+    lib = lambda: torch.func.vmap(  # noqa: E731
+        lambda t: torch.func.jvp(lib_k, (xk,), (t,))[1])(xt)
+    b_ms, b_by = bound((B * m * m + 2 * m + 2 * B * m) * 4, B * m * m * 6, torch.float32)
+    row = {"name": "gram_jvp", "route": "cuda", "source": KERNELS["gram_jvp"]["source"],
+           "replaces": KERNELS["gram_jvp"]["replaces"],
+           "launches": counts["gram_jvp"], "max_abs_err": err32,
+           "ms": time_ms(lambda: KJ.gram_jvp("eq", xk, xk, xt, xt), inner=20),
+           "device_ms": device_ms_per_call(lambda: KJ.gram_jvp("eq", xk, xk, xt, xt)),
+           "plain_ms": time_ms(lambda: KJ.gram_jvp_plain("eq", xk, xk, xt, xt), reps=5),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lib, reps=5),
+           "shape": [B, m, m, 1]}
+    emit({"phase": "item2_7_path", "kernel": row})
+    return [row]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU.", file=sys.stderr)
@@ -5241,6 +5623,10 @@ def _run_phases():
     idle = [k["name"] for k in item12b_it if k["launches"] < 1]
     check(not idle, f"kernels that item 12b's sharded matrix-free path never launched: {idle}")
     kernels.extend(item12b_it)
+    item2_7 = run("item2_7_path", phase_item2_7_path, smi)
+    idle = [k["name"] for k in item2_7 if k["launches"] < 1]
+    check(not idle, f"kernels that items 2 and 7's paths never launched: {idle}")
+    kernels.extend(item2_7)
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     # The card's name and power limit again, beside the kernels' numbers.
     print(smi, flush=True)

@@ -43,7 +43,7 @@ def main():
 
     def spy(mat, base):
         eps = probe(mat, base)
-        probed.append(eps)
+        probed.append(float(eps))
         return eps
 
     ops.adaptive_jitter_eps = spy

@@ -40,6 +40,7 @@ __all__ = [
     "as_tensor",
     "as_scalar",
     "capturing",
+    "forward_mode_active",
     "no_host_sync",
 ]
 
@@ -275,3 +276,15 @@ def capturing():
     return _no_host_sync or (
         torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
     )
+
+
+def forward_mode_active():
+    """Whether a forward-mode derivative is being taken: a ``torch.func``
+    jvp level (``jvp``, ``jacfwd``, ``hessian``) is on the transform stack,
+    or a ``torch.autograd.forward_ad`` dual level is open."""
+    from torch._C._functorch import TransformType
+    from torch._functorch.pyfunctorch import retrieve_all_functorch_interpreters
+
+    if any(i.key() == TransformType.Jvp for i in retrieve_all_functorch_interpreters()):
+        return True
+    return torch.autograd.forward_ad._current_level >= 0 and torch._C._is_fwd_grad_enabled()

@@ -9,6 +9,9 @@ the model of ``bench.py:bench_n2000``:
   inputs;
 - :func:`entry` returns the step and its example arguments at the JAX
   shapes (n=1024, m=256, float32);
+- :func:`flagship_jacfwd` is the same NLML's gradient by forward mode
+  (``torch.func.jacfwd``) at N=2000 (:func:`flagship_n2000_inputs`): on
+  the card it runs K1's tangent kernel and K2's forward rule;
 - :func:`nlml_n2000` is the reference's headline, the periodic-EQ NLML at
   N=2000 (:func:`n2000_inputs`), as a value or a value and gradient;
 - the matrix-free path of ``bench.py:bench_iterative_262k`` (the exact GP
@@ -123,6 +126,8 @@ from .utils import resumable_minimise
 __all__ = [
     "flagship_step",
     "entry",
+    "flagship_n2000_inputs",
+    "flagship_jacfwd",
     "periodic_nlml",
     "n2000_inputs",
     "nlml_n2000",
@@ -228,6 +233,39 @@ def entry(device=None):
         "log_noise": torch.tensor(-2.0, device=dev),
     }
     return flagship_step, (x, y, x_new, params)
+
+
+def flagship_n2000_inputs(dtype=torch.float32, device=None, *, n=2000):
+    """``(x, y, params)`` of the flagship's EQ model at N=2000: ``x`` on [0,
+    10], ``y = sin x + 0.3 cos 3.2x`` (the headline's data) and
+    :func:`entry`'s log-hyperparameters."""
+    dev = config.resolve_device(device)
+    x = torch.linspace(0.0, 10.0, n, dtype=dtype, device=dev)
+    y = torch.sin(x) + 0.3 * torch.cos(3.2 * x)
+    params = {k: torch.tensor(v, dtype=dtype, device=dev)
+              for k, v in (("log_ell", 0.0), ("log_s2", 0.0), ("log_noise", -2.0))}
+    return x, y, params
+
+
+@config.pin_matmul_precision
+def flagship_jacfwd(x, y, params):
+    """The flagship NLML of :func:`flagship_step` and its gradient with
+    respect to ``params`` by forward mode: ``(value, grads)``, ``grads`` a
+    dict like ``params``. One ``torch.func.jacfwd`` over the stacked
+    log-hyperparameters, so each factorisation and Gram carries all their
+    tangents at once: on the card K1's tangent kernel takes the Gram's in
+    one launch, and the factorisation's tiles K2's forward rule."""
+    x, y = config.as_tensor(x), config.as_tensor(y)
+    names = list(params)
+    p = torch.stack([config.as_tensor(params[k], device=x.device) for k in names]).detach()
+
+    def nlml(p):
+        f, noise = _eq_model(dict(zip(names, p)))
+        val = -f.measure.logpdf(f(x, noise), y)
+        return val, val
+
+    jac, val = torch.func.jacfwd(nlml, has_aux=True)(p)
+    return val, dict(zip(names, jac))
 
 
 def periodic_nlml(x, y, ell, period=1.0, noise=0.1):
@@ -543,7 +581,7 @@ def sparse_jitter(z, ell):
     """The jitter that the adaptive probe picks for the inducing Gram of
     ``EQ().stretch(ell)`` at ``z`` (from ``config.jitter`` of its dtype)."""
     K_z = dense(pairwise(EQ().stretch(ell), z))
-    return adaptive_jitter_eps(K_z, config.jitter(K_z.dtype))
+    return float(adaptive_jitter_eps(K_z, config.jitter(K_z.dtype)))
 
 
 @contextlib.contextmanager

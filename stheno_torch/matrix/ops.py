@@ -17,12 +17,25 @@ rank-structured outer products for the quadratic forms, ``d tr(B^{-1} A)
 gradient ever flows back through the factorisation itself. ``sample``
 takes a ``torch.Generator`` where the JAX function takes a key.
 
+Forward mode (``torch.func.jvp``, ``jacfwd``, ``hessian`` and
+``torch.autograd.forward_ad`` dual tensors) mirrors the JAX package's
+fallback (``_fwd_fallback_call``): while a forward level is active, each
+reduction runs its plain body on the undetached factor, whose tangents
+flow ``mat -> L -> value`` through the differentiable factorisation (the
+tile kernel K2 has a forward rule, ``ops/chol_tile.py``); only the
+analytic reverse adjoint is bypassed. The Functions are in
+``setup_context`` style, so ``torch.func.grad``, ``jacrev`` and ``vmap``
+take them.
+
 Differences from the JAX package: a factorisation is "under autodiff"
-when grad mode is on and the matrix requires grad; the fast-path backend
-test is ``mat.is_cuda``; XLA's optimisation barrier and the forward-mode
-fallback have no PyTorch counterpart; the ``A^{-1}`` product of the
-logdet adjoint stays in full float32 (TF32 is no three-pass equivalent
-of the TPU's ``Precision.HIGH``).
+when grad mode is on and the matrix requires grad, or a forward level is
+active; the fast-path backend test is ``mat.is_cuda``; XLA's
+optimisation barrier has no PyTorch counterpart; the ``A^{-1}`` product
+of the logdet adjoint stays in full float32 (TF32 is no three-pass
+equivalent of the TPU's ``Precision.HIGH``); the adaptive-jitter probe
+bisects its rungs on the device (four factorisations, no host read)
+where the JAX ``while_loop`` walks them in order, with the same result
+wherever success is monotone in the jitter.
 
 A Woodbury matrix ``D + L M R^T`` never densifies: ``solve`` (and with it
 ``iqf``, ``iqf_diag`` and ``ratio``) takes the Woodbury identity through
@@ -501,28 +514,54 @@ def _cached_if_constant(a, key, compute):
     return value
 
 
+#: The probe stops at ``base * 1e12``, as the JAX loop does.
+_CAP = 1e12
+
+
 def adaptive_jitter_eps(mat, base):
     """Smallest jitter in ``{base * 10^k}`` under which ``chol(mat + eps I)``
-    succeeds, probed on a detached copy (one host sync per probe, so it
-    raises while a CUDA graph is captured)."""
-    if config.capturing():
-        raise RuntimeError(
-            "The adaptive-jitter probe reads each factorisation's status on the host, which "
-            "CUDA graph capture does not allow: turn config.adaptive_jitter off to capture "
-            "a step."
-        )
-    n = mat.shape[-1]
-    eye = torch.eye(n, dtype=mat.dtype, device=mat.device)
+    succeeds, probed on a detached copy, as a 0-dim float64 tensor on
+    ``mat``'s device: the JAX ``while_loop``'s result. Each rung is the
+    previous one times 10, in float64, as that loop multiplies, and the
+    first rung at or above ``base * 1e12`` is returned untried.
+
+    The probe reads nothing back to the host, so a CUDA graph captures it:
+    a masked bisection over the rungs, four factorisations for the 13 or
+    14 candidates (``cholesky_ex``'s status stays on the device, and a step
+    whose interval is already one candidate changes nothing). It finds the
+    linear walk's rung wherever success is monotone in the jitter, as
+    adding to the diagonal of a symmetric matrix keeps it positive
+    definite."""
+    base = float(base)
+    cap, last, top = base * _CAP, base, 0
+    while last < cap:
+        last, top = last * 10.0, top + 1
     sg = mat.detach()
-    eps, cap = float(base), float(base) * 1e12
-    while eps < cap and bool(torch.any(torch.linalg.cholesky_ex(sg + eps * eye)[1] > 0)):
-        eps *= 10.0
-    return eps
+    dev = sg.device
+    eye = torch.eye(sg.shape[-1], dtype=sg.dtype, device=dev)
+    rung = torch.full((), base, dtype=torch.float64, device=dev)
+    rungs = [rung]
+    for _ in range(top):
+        rung = rung * 10.0
+        rungs.append(rung)
+    rungs = torch.stack(rungs)
+    lo = torch.zeros((1,), dtype=torch.long, device=dev)
+    hi = torch.full((1,), top, dtype=torch.long, device=dev)
+    for _ in range(top.bit_length()):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        eps = rungs.index_select(0, mid)[0]
+        ok = (torch.linalg.cholesky_ex(sg + eps * eye)[1] == 0).all()
+        active = lo < hi
+        hi = torch.where(active & ok, mid, hi)
+        lo = torch.where(active & ~ok, mid + 1, lo)
+    return rungs.index_select(0, hi)[0]
 
 
 def _under_autodiff(mat):
-    """True when a gradient flows through this factorisation."""
-    return torch.is_grad_enabled() and mat.requires_grad
+    """True when a derivative flows through this factorisation: reverse
+    mode (grad mode on and ``mat`` requires grad, as under
+    ``torch.func.grad``/``jacrev``) or forward mode."""
+    return (torch.is_grad_enabled() and mat.requires_grad) or config.forward_mode_active()
 
 
 def _auto_policy_use_fast(mat):
@@ -627,7 +666,7 @@ def solve(a, b):
     if b_arr.ndim != dense(a).ndim:
         y = _solve_triangular(L, b_arr, lower=True)
         return torch.linalg.solve_triangular(_t(L.mat), y, upper=True)
-    return _SolveChol.apply(*_chol_arrays(a), b_arr)
+    return _reduce(_SolveChol, _solve_body, a, b_arr)
 
 
 def _wb_core(a):
@@ -711,11 +750,61 @@ def _chol_apply_inv(L, Linv, b):
     return torch.linalg.solve_triangular(_t(L), half, upper=True)
 
 
+def _logdet_body(mat, L, Linv):
+    return 2 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+
+
+def _iqf_diag_body(mat, L, Linv, b, c, sym):
+    lb = _half_solve(L, Linv, b)
+    lc = lb if sym else _half_solve(L, Linv, c)
+    return torch.sum(lb * lc, dim=-2)
+
+
+def _iqf_body(mat, L, Linv, b, c, sym):
+    lb = _half_solve(L, Linv, b)
+    lc = lb if sym else _half_solve(L, Linv, c)
+    return _t(lb) @ lc
+
+
+def _solve_body(mat, L, Linv, b):
+    return _chol_apply_inv(L, Linv, b)
+
+
+def _ratio_body(mat, L, Linv, a):
+    half = _half_solve(L, Linv, a)
+    half2 = _half_solve(L, Linv, _t(half))
+    return torch.diagonal(half2, dim1=-2, dim2=-1).sum(-1)
+
+
+def _chol_arrays_nostop(a):
+    """Like :func:`_chol_arrays` but with the factors undetached: the
+    forward-mode path, whose tangents flow ``a -> L -> value`` through the
+    differentiable factorisation instead of an analytic rule."""
+    mat = dense(a)
+    L = cholesky(a)
+    return mat, L.mat, getattr(L, "_cache", {}).get("inv")
+
+
+def _reduce(fn, body, a, *operands):
+    """A dense Cholesky-backed reduction: the Function ``fn`` with its
+    analytic adjoint, or, while a forward level is active, its plain
+    ``body`` on the undetached factor (the JAX package's
+    ``_fwd_fallback_call``)."""
+    if config.forward_mode_active():
+        return body(*_chol_arrays_nostop(a), *operands)
+    return fn.apply(*_chol_arrays(a), *operands)
+
+
 class _LogdetChol(torch.autograd.Function):
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, mat, L, Linv):
-        ctx.save_for_backward(L, Linv)
-        return 2 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+    def forward(mat, L, Linv):
+        return _logdet_body(mat, L, Linv)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[1:])
 
     @staticmethod
     @config.pin_matmul_precision
@@ -728,13 +817,17 @@ class _IqfDiagChol(torch.autograd.Function):
     """``diag(b^T A^{-1} c)``; ``sym`` marks ``c is b`` (the NLML case),
     whose backward reuses one solve and needs no symmetric projection."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, mat, L, Linv, b, c, sym):
-        lb = _half_solve(L, Linv, b)
-        lc = lb if sym else _half_solve(L, Linv, c)
+    def forward(mat, L, Linv, b, c, sym):
+        return _iqf_diag_body(mat, L, Linv, b, c, sym)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, L, Linv, b, c, sym = inputs
         ctx.sym = sym
         ctx.save_for_backward(L, Linv, b, None if sym else c)
-        return torch.sum(lb * lc, dim=-2)
 
     @staticmethod
     @config.pin_matmul_precision
@@ -755,13 +848,17 @@ class _IqfDiagChol(torch.autograd.Function):
 class _IqfChol(torch.autograd.Function):
     """``b^T A^{-1} c``; ``sym`` marks ``c is b``."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, mat, L, Linv, b, c, sym):
-        lb = _half_solve(L, Linv, b)
-        lc = lb if sym else _half_solve(L, Linv, c)
+    def forward(mat, L, Linv, b, c, sym):
+        return _iqf_body(mat, L, Linv, b, c, sym)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, L, Linv, b, c, sym = inputs
         ctx.sym = sym
         ctx.save_for_backward(L, Linv, b, None if sym else c)
-        return _t(lb) @ lc
 
     @staticmethod
     @config.pin_matmul_precision
@@ -780,11 +877,15 @@ class _IqfChol(torch.autograd.Function):
 
 
 class _SolveChol(torch.autograd.Function):
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, mat, L, Linv, b):
-        x = _chol_apply_inv(L, Linv, b)
-        ctx.save_for_backward(L, Linv, x)
-        return x
+    def forward(mat, L, Linv, b):
+        return _solve_body(mat, L, Linv, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[1], inputs[2], output)
 
     @staticmethod
     @config.pin_matmul_precision
@@ -846,7 +947,7 @@ def iqf(a, b, c=None):
         lb = solve(L, b_arr)
         lc = lb if sym else solve(L, c_arr)
         return Dense(_t(lb) @ lc)
-    return Dense(_IqfChol.apply(*_chol_arrays(a), b_arr, c_arr, sym))
+    return Dense(_reduce(_IqfChol, _iqf_body, a, b_arr, c_arr, sym))
 
 
 @config.pin_matmul_precision
@@ -865,7 +966,7 @@ def iqf_diag(a, b, c=None):
         lb = solve(L, b_arr)
         lc = lb if sym else solve(L, c_arr)
         return torch.sum(lb * lc, dim=-2)
-    return _IqfDiagChol.apply(*_chol_arrays(a), b_arr, c_arr, sym)
+    return _reduce(_IqfDiagChol, _iqf_diag_body, a, b_arr, c_arr, sym)
 
 
 @config.pin_matmul_precision
@@ -887,7 +988,7 @@ def logdet(a):
     L = cholesky(a)
     if not isinstance(L, LowerTriangular):
         return 2 * torch.sum(torch.log(diag_of(L)), dim=-1)
-    return _LogdetChol.apply(*_chol_arrays(a))
+    return _reduce(_LogdetChol, _logdet_body, a)
 
 
 def _logdet_woodbury(a):
@@ -918,18 +1019,21 @@ def ratio(a, b):
     if not isinstance(L, LowerTriangular):
         half = solve(L, a_arr)
         return torch.diagonal(solve(L, _t(half)), dim1=-2, dim2=-1).sum(-1)
-    return _RatioChol.apply(*_chol_arrays(b), a_arr)
+    return _reduce(_RatioChol, _ratio_body, b, a_arr)
 
 
 class _RatioChol(torch.autograd.Function):
     """``tr(B^{-1} A)`` from ``B``'s factor."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, mat, L, Linv, a):
-        half = _half_solve(L, Linv, a)
-        half2 = _half_solve(L, Linv, _t(half))
-        ctx.save_for_backward(L, Linv, a)
-        return torch.diagonal(half2, dim1=-2, dim2=-1).sum(-1)
+    def forward(mat, L, Linv, a):
+        return _ratio_body(mat, L, Linv, a)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[1:])
 
     @staticmethod
     @config.pin_matmul_precision

@@ -21,7 +21,7 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["library", "check"]
+__all__ = ["library", "check", "ptr"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "stheno_torch"
@@ -91,21 +91,23 @@ def _build(target, sources):
 
 
 def _declare(lib):
-    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.stheno_gram.argtypes = [i, i, p, p, p, i, i, i, d, i, i, p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.stheno_gram.argtypes = [i, i, p, p, p, i, i, i, p, i, i, p]
     lib.stheno_gram.restype = i
-    lib.stheno_gram_bwd.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, i, d, i, i, i, i, p]
+    lib.stheno_gram_bwd.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, i, p, i, i, i, i, p]
     lib.stheno_gram_bwd.restype = i
     lib.stheno_chol_tile.argtypes = [p, p, p, p, p, i, p]
     lib.stheno_chol_tile.restype = i
-    lib.stheno_gram_matvec.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, d, p]
+    lib.stheno_gram_matvec.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, p, p]
     lib.stheno_gram_matvec.restype = i
-    lib.stheno_gram_matvec_dmma.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, d, p]
+    lib.stheno_gram_matvec_dmma.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, p, p]
     lib.stheno_gram_matvec_dmma.restype = i
-    lib.stheno_gram_matvec_mma.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, d, p]
+    lib.stheno_gram_matvec_mma.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, p, p]
     lib.stheno_gram_matvec_mma.restype = i
-    lib.stheno_gram_matvec_vjp.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, d, i, i,
+    lib.stheno_gram_matvec_vjp.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, i, i,
                                            i, p]
+    lib.stheno_gram_jvp.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.stheno_gram_jvp.restype = i
     lib.stheno_gram_matvec_vjp.restype = i
     return lib
 
@@ -120,6 +122,11 @@ def library():
                 _build(target, _sources())
             _lib = _declare(ctypes.CDLL(str(target)))
         return _lib
+
+
+def ptr(t):
+    """A tensor's device pointer for a launch, 0 (null) for None."""
+    return 0 if t is None else t.data_ptr()
 
 
 def check(code, name):

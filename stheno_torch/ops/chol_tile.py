@@ -180,16 +180,26 @@ def chol_tile_plain(A):
 
 
 def _phi(X):
-    """Lower triangle with the diagonal halved (Cholesky-adjoint projector)."""
-    return torch.tril(X) - 0.5 * torch.diag_embed(torch.diagonal(X))
+    """Lower triangle with the diagonal halved (Cholesky-adjoint projector);
+    batched over leading dimensions (a ``vmap`` of tangents)."""
+    return torch.tril(X) - 0.5 * torch.diag_embed(torch.diagonal(X, dim1=-2, dim2=-1))
 
 
 class _CholTile(torch.autograd.Function):
+    """``(L, inv(L))`` of the tile, with the Cholesky adjoint as its
+    backward (plain torch on the saved outputs, so forward-over-reverse
+    differentiates it), a forward rule that uses the carried inverse and
+    a vmap rule (one factorisation per matrix of the batch), so that
+    ``torch.func.jvp``, ``jacfwd`` and ``hessian`` go through K2."""
+
     @staticmethod
-    def forward(ctx, A):
-        L, Linv = _chol_tile_impl(A, _factor_cuda if A.is_cuda else _factor_plain)
-        ctx.save_for_backward(L, Linv)
-        return L, Linv
+    def forward(A):
+        return _chol_tile_impl(A, _factor_cuda if A.is_cuda else _factor_plain)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*output)
+        ctx.save_for_forward(*output)
 
     @staticmethod
     def backward(ctx, Lbar, Linvbar):
@@ -200,6 +210,22 @@ class _CholTile(torch.autograd.Function):
         # Cholesky adjoint (Murray 2016), symmetrised for symmetric inputs.
         Abar = LinvT @ _phi(L.T @ Lbar) @ Linv
         return 0.5 * (Abar + Abar.T)
+
+    @staticmethod
+    def jvp(ctx, Adot):
+        L, Linv = ctx.saved_tensors
+        # The factorisation reads A's symmetric part, so its tangent is the
+        # symmetric part of Adot (as the backward symmetrises):
+        # dL = L Phi(L^{-1} dA L^{-T}), d inv(L) = -L^{-1} dL L^{-1}.
+        Adot = 0.5 * (Adot + Adot.mT)
+        Ldot = L @ _phi(Linv @ Adot @ Linv.T)
+        return Ldot, -(Linv @ Ldot @ Linv)
+
+    @staticmethod
+    def vmap(info, in_dims, A):
+        (d,) = in_dims
+        outs = [_CholTile.apply(a) for a in A.movedim(d, 0)]
+        return (torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])), (0, 0)
 
 
 def chol_tile(A):

@@ -55,8 +55,9 @@ __host__ __device__ constexpr int fwd_tn() {
 template <int KIND, typename SI, typename S, int D>
 __global__ void __launch_bounds__(kGramThreads, 4)
 gram_kernel(const SI* __restrict__ x, const SI* __restrict__ y, S* __restrict__ out, int n, int m,
-            int d, typename Arith<S>::T alpha, int vec_ok) {
+            int d, const typename Arith<S>::T* __restrict__ alpha_p, int vec_ok) {
   using T = typename Arith<S>::T;
+  const T alpha = KIND == kRq ? __ldg(alpha_p) : T(1);  // rq's alpha, read once
   constexpr int V = kVec<S>, R = kFwdRows<S>, TM = fwd_tm<S>(), TN = fwd_tn<S>();
   constexpr int DC = D == 0 ? 8 : D;  // depth per pass
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -125,7 +126,7 @@ gram_kernel(const SI* __restrict__ x, const SI* __restrict__ y, S* __restrict__ 
 
 template <int KIND, typename SI, typename S>
 void launch_depth(int dt, const SI* x, const SI* y, S* out, int n, int m, int d,
-                  typename Arith<S>::T alpha, int vec_ok, int tiles, cudaStream_t s) {
+                  const typename Arith<S>::T* alpha, int vec_ok, int tiles, cudaStream_t s) {
   switch (dt) {
     case 1: gram_kernel<KIND, SI, S, 1><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
     case 2: gram_kernel<KIND, SI, S, 2><<<tiles, kGramThreads, 0, s>>>(x, y, out, n, m, d, alpha, vec_ok); break;
@@ -139,7 +140,7 @@ void launch_depth(int dt, const SI* x, const SI* y, S* out, int n, int m, int d,
 // wrapper's tiling (ops/gram.py:tile_shape) is then not the kernel's.
 template <typename SI, typename S>
 cudaError_t launch(int kind, const void* xp, const void* yp, void* outp, int n, int m, int d,
-                   double alpha, int tm, int tn, cudaStream_t s) {
+                   const void* alpha, int tm, int tn, cudaStream_t s) {
   const long long tiles = ((n + (long long)tm - 1) / tm) * ((m + tn - 1) / tn);
   if (tm != fwd_tm<S>() || tn != fwd_tn<S>() || tiles > 0x7fffffff) return cudaErrorInvalidValue;
   const SI* x = static_cast<const SI*>(xp);
@@ -147,7 +148,7 @@ cudaError_t launch(int kind, const void* xp, const void* yp, void* outp, int n, 
   S* out = static_cast<S*>(outp);
   const int vec_ok = m % kVec<S> == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int dt = depth_template(d);
-  const auto a = static_cast<typename Arith<S>::T>(alpha);
+  const auto* a = static_cast<const typename Arith<S>::T*>(alpha);
   switch (kind) {
     case kEq: launch_depth<kEq, SI, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
     case kRq: launch_depth<kRq, SI, S>(dt, x, y, out, n, m, d, a, vec_ok, (int)tiles, s); break;
@@ -165,11 +166,14 @@ cudaError_t launch(int kind, const void* xp, const void* yp, void* outp, int n, 
 // Launches K1 on `stream`: one block of 256 threads per (tm, tn) tile of
 // out. `kind` follows the Kind enum of gram_kind.cuh, `dtype` the
 // DtypeCode of gram_elem.cuh (float32, float64, bfloat16: x, y and out all
-// of it; or float32 x and y with a bfloat16 out). Returns cudaGetLastError() after the launch; the caller
+// of it; or float32 x and y with a bfloat16 out). `alpha` points to rq's
+// alpha on the device in the arithmetic type (float32 for bfloat16), read
+// once by each thread; other kinds may pass null. Returns cudaGetLastError() after the launch; the caller
 // raises if it is not 0.
 extern "C" int stheno_gram(int kind, int dtype, const void* x, const void* y, void* out, int n,
-                           int m, int d, double alpha, int tm, int tn, void* stream) {
-  if (n <= 0 || m <= 0 || d < 0) return (int)cudaErrorInvalidValue;
+                           int m, int d, const void* alpha, int tm, int tn, void* stream) {
+  if (n <= 0 || m <= 0 || d < 0 || (kind == kRq && alpha == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32: return (int)launch<float, float>(kind, x, y, out, n, m, d, alpha, tm, tn, s);

@@ -39,7 +39,7 @@
 
 namespace stheno {
 cudaError_t gram_bwd_f64(int kind, const void* x, const void* y, const void* gbar, void* out,
-                         void* work, const BwdArgs& g, double alpha, cudaStream_t s);
+                         void* work, const BwdArgs& g, const void* alpha, cudaStream_t s);
 }  // namespace stheno
 
 // Launches K1's backward on `stream`. `kind` follows the Kind enum of
@@ -48,20 +48,22 @@ cudaError_t gram_bwd_f64(int kind, const void* x, const void* y, const void* gba
 // (n, m); the S x S grid (S = splits) of row groups of `rows` and column
 // spans of `span`, whole 16-byte vectors (ops/gram_bwd.py:launch_shape).
 // out holds the x part (n d, when want_x), the y part (m d, when want_y
-// and not fold) and S alpha partials (rq with want_alpha); with fold (x is
+// and not fold) and S alpha partials (rq with want_alpha); `alpha` points to
+// rq's alpha on the device in the arithmetic type (null for other kinds); with fold (x is
 // y, want_x and want_y) the x part is the sum of both roles. work holds S such slices (2 S with fold) when
 // there are several. Returns cudaGetLastError() after the launches; the
 // caller raises if it is not 0.
 extern "C" int stheno_gram_bwd(int kind, int dtype, const void* x, const void* y,
                                const void* gbar, void* out, void* work, int n, int m, int d,
-                               int rows, int span, int splits, double alpha, int want_x,
+                               int rows, int span, int splits, const void* alpha, int want_x,
                                int want_y, int want_alpha, int fold, void* stream) {
   const int vec = dtype == kF64 ? 2 : dtype == kBf16 ? 8 : 4;
   want_alpha = want_alpha && kind == kRq;
   if (n <= 0 || m <= 0 || d <= 0 || dtype < kF32 || dtype > kBf16 ||
       splits <= 0 || splits > 65535 || rows <= 0 || span <= 0 || span % vec != 0 ||
       (long long)rows * splits < n || (long long)span * splits < m ||
-      (long long)span * (splits - 1) >= m || (fold && (n != m || !want_x || !want_y)))
+      (long long)span * (splits - 1) >= m || (fold && (n != m || !want_x || !want_y)) ||
+      (kind == kRq && alpha == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t nx = want_x ? (size_t)n * d : 0;
   const size_t ny = want_y && !fold ? (size_t)m * d : 0;

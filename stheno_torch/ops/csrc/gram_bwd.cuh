@@ -36,8 +36,10 @@ constexpr int kBwdRows = ((D == 1 || D == 2) ? 4 : 2) / (sizeof(S) == 2 ? 2 : 1)
 template <int KIND, typename S, int D>
 __global__ void __launch_bounds__(kGramThreads, 2)
 gram_bwd_kernel(const S* __restrict__ x, const S* __restrict__ y, const S* __restrict__ gbar,
-                typename Arith<S>::T* __restrict__ dst, BwdArgs g, typename Arith<S>::T alpha) {
+                typename Arith<S>::T* __restrict__ dst, BwdArgs g,
+                const typename Arith<S>::T* __restrict__ alpha_p) {
   using T = typename Arith<S>::T;
+  const T alpha = KIND == kRq ? __ldg(alpha_p) : T(1);  // rq's alpha, read once
   constexpr int V = kVec<S>, R = kBwdRows<S, D>, TM = kGramWarps * R, TN = 32 * V;
   constexpr int DC = D == 0 ? 8 : D;  // depth per pass
   constexpr T kScale = KIND == kLinear ? T(1) : T(2);
@@ -257,7 +259,7 @@ gram_bwd_kernel(const S* __restrict__ x, const S* __restrict__ y, const S* __res
 
 template <int KIND, typename S>
 void bwd_depth(int dt, const S* x, const S* y, const S* gbar, typename Arith<S>::T* dst,
-               const BwdArgs& g, typename Arith<S>::T alpha, cudaStream_t s) {
+               const BwdArgs& g, const typename Arith<S>::T* alpha, cudaStream_t s) {
   const dim3 grid(g.splits, g.splits);
   switch (dt) {
     case 1: gram_bwd_kernel<KIND, S, 1><<<grid, kGramThreads, 0, s>>>(x, y, gbar, dst, g, alpha); break;
@@ -272,7 +274,7 @@ void bwd_depth(int dt, const S* x, const S* y, const S* gbar, typename Arith<S>:
 // the fixed-order sum of its slices into `out`, when there are several).
 template <typename S>
 cudaError_t bwd_launch(int kind, const void* xp, const void* yp, const void* gp, void* outp,
-                       void* workp, const BwdArgs& g, double alpha, cudaStream_t s) {
+                       void* workp, const BwdArgs& g, const void* alpha, cudaStream_t s) {
   using T = typename Arith<S>::T;
   const S* x = static_cast<const S*>(xp);
   const S* y = static_cast<const S*>(yp);
@@ -280,7 +282,7 @@ cudaError_t bwd_launch(int kind, const void* xp, const void* yp, const void* gp,
   const int slices = g.fold ? 2 * g.splits : g.splits;
   T* dst = static_cast<T*>(slices > 1 ? workp : outp);
   const int dt = depth_template(g.d);
-  const T a = static_cast<T>(alpha);
+  const T* a = static_cast<const T*>(alpha);
   switch (kind) {
     case kEq: bwd_depth<kEq, S>(dt, x, y, gbar, dst, g, a, s); break;
     case kRq: bwd_depth<kRq, S>(dt, x, y, gbar, dst, g, a, s); break;

@@ -6,7 +6,7 @@
 namespace stheno {
 
 cudaError_t gram_bwd_f64(int kind, const void* x, const void* y, const void* gbar, void* out,
-                         void* work, const BwdArgs& g, double alpha, cudaStream_t s) {
+                         void* work, const BwdArgs& g, const void* alpha, cudaStream_t s) {
   return bwd_launch<double>(kind, x, y, gbar, out, work, g, alpha, s);
 }
 

@@ -102,7 +102,9 @@ __device__ __forceinline__ float ffma_epilogue(float d2, float inner, float alph
 template <int KIND, int D, int PC>
 __global__ void __launch_bounds__(kThreads)
 gmv_kernel(const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ v,
-           float* __restrict__ dst, int n, int m, int d, int p, int span, float alpha) {
+           float* __restrict__ dst, int n, int m, int d, int p, int span,
+           const float* __restrict__ alpha_p) {
+  const float alpha = KIND == kRq ? __ldg(alpha_p) : 1.f;  // rq's alpha, read once
   constexpr int R = rows_per_thread<PC>();
   constexpr int TM = kThreads * R;
   constexpr int DS = D > 0 ? D : 1;
@@ -216,7 +218,7 @@ gmv_kernel(const float* __restrict__ x, const float* __restrict__ y, const float
 
 template <int KIND, int D, int PC>
 cudaError_t launch_main(const float* x, const float* y, const float* v, float* dst, int n, int m,
-                        int d, int p, int span, int splits, float alpha, cudaStream_t s) {
+                        int d, int p, int span, int splits, const float* alpha, cudaStream_t s) {
   constexpr int TM = kThreads * rows_per_thread<PC>();
   const dim3 grid((n + TM - 1) / TM, (p + PC - 1) / PC, splits);
   gmv_kernel<KIND, D, PC><<<grid, kThreads, 0, s>>>(x, y, v, dst, n, m, d, p, span, alpha);
@@ -225,7 +227,7 @@ cudaError_t launch_main(const float* x, const float* y, const float* v, float* d
 
 template <int KIND, int D>
 cudaError_t by_width(int pc, const float* x, const float* y, const float* v, float* dst, int n,
-                     int m, int d, int p, int span, int splits, float alpha, cudaStream_t s) {
+                     int m, int d, int p, int span, int splits, const float* alpha, cudaStream_t s) {
   switch (pc) {
     case 1: return launch_main<KIND, D, 1>(x, y, v, dst, n, m, d, p, span, splits, alpha, s);
     case 4: return launch_main<KIND, D, 4>(x, y, v, dst, n, m, d, p, span, splits, alpha, s);
@@ -237,7 +239,7 @@ cudaError_t by_width(int pc, const float* x, const float* y, const float* v, flo
 
 template <int KIND>
 cudaError_t by_depth(int pc, const float* x, const float* y, const float* v, float* dst, int n,
-                     int m, int d, int p, int span, int splits, float alpha, cudaStream_t s) {
+                     int m, int d, int p, int span, int splits, const float* alpha, cudaStream_t s) {
   if (d == 1) return by_width<KIND, 1>(pc, x, y, v, dst, n, m, d, p, span, splits, alpha, s);
   return by_width<KIND, 0>(pc, x, y, v, dst, n, m, d, p, span, splits, alpha, s);
 }
@@ -248,12 +250,13 @@ cudaError_t by_depth(int pc, const float* x, const float* y, const float* v, flo
 // for p <= 16. `kind` follows the Kind enum of gram_kind.cuh; `pc` (1, 4,
 // 8 or 16) is the output columns a thread accumulates; the column sweep
 // is split into `splits` ranges of `span` columns. With splits > 1,
-// `work` holds splits * n * p partial sums (else it is not read). Returns
+// `work` holds splits * n * p partial sums (else it is not read). `alpha`
+// points to rq's float32 alpha on the device (null for other kinds). Returns
 // cudaGetLastError() after the launches; the caller raises if it is not 0.
 extern "C" int stheno_gram_matvec(int kind, const void* x_, const void* y_, const void* v_,
                                   void* out_, void* work_, int n, int m, int d, int p, int pc,
-                                  int span, int splits, double alpha_, void* stream) {
-  if (n <= 0 || m <= 0 || d <= 0 || p <= 0 || p > 16 || span <= 0 || splits <= 0 ||
+                                  int span, int splits, const void* alpha_, void* stream) {
+  if ((kind == stheno::kRq && alpha_ == nullptr) || n <= 0 || m <= 0 || d <= 0 || p <= 0 || p > 16 || span <= 0 || splits <= 0 ||
       splits > 65535 || (long long)span * splits < m || (splits > 1 && work_ == nullptr))
     return (int)cudaErrorInvalidValue;
   const float* x = static_cast<const float*>(x_);
@@ -262,7 +265,7 @@ extern "C" int stheno_gram_matvec(int kind, const void* x_, const void* y_, cons
   float* out = static_cast<float*>(out_);
   float* work = static_cast<float*>(work_);
   float* dst = splits > 1 ? work : out;
-  const float alpha = (float)alpha_;
+  const float* alpha = static_cast<const float*>(alpha_);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (kind) {

@@ -152,7 +152,8 @@ template <int KIND, int D, int W>
 __global__ void __launch_bounds__(kDmmaThreads)
 gmv_dmma_kernel(const double* __restrict__ x, const double* __restrict__ y,
                 const double* __restrict__ v, double* __restrict__ dst, int n, int m, int d,
-                int p, int span, double alpha) {
+                int p, int span, const double* __restrict__ alpha_p) {
+  const double alpha = KIND == kRq ? __ldg(alpha_p) : 1.0;  // rq's alpha, read once
   constexpr int RC = W % 8 == 1;   // the last column on DFMA
   constexpr int NB = W - RC;       // columns on the tensor cores
   constexpr int NT = NB / 8;       // their 8-column tiles
@@ -303,7 +304,7 @@ gmv_dmma_kernel(const double* __restrict__ x, const double* __restrict__ y,
 
 template <int KIND, int D, int W>
 cudaError_t dmma_launch_main(const double* x, const double* y, const double* v, double* dst,
-                             int n, int m, int d, int p, int span, int splits, double alpha,
+                             int n, int m, int d, int p, int span, int splits, const double* alpha,
                              cudaStream_t s) {
   if (W % 8 == 1 && p != W) return cudaErrorInvalidValue;  // a DFMA column ends p
   const dim3 grid((n + kDmmaRows - 1) / kDmmaRows, (p + W - 1) / W, splits);
@@ -314,7 +315,7 @@ cudaError_t dmma_launch_main(const double* x, const double* y, const double* v, 
 
 template <int KIND, int D>
 cudaError_t dmma_by_width(int nb, const double* x, const double* y, const double* v, double* dst,
-                          int n, int m, int d, int p, int span, int splits, double alpha,
+                          int n, int m, int d, int p, int span, int splits, const double* alpha,
                           cudaStream_t s) {
   switch (nb) {
     case 1: return dmma_launch_main<KIND, D, 1>(x, y, v, dst, n, m, d, p, span, splits, alpha, s);
@@ -333,7 +334,7 @@ cudaError_t dmma_by_width(int nb, const double* x, const double* y, const double
 
 template <int KIND>
 cudaError_t dmma_by_depth(int nb, const double* x, const double* y, const double* v, double* dst,
-                          int n, int m, int d, int p, int span, int splits, double alpha,
+                          int n, int m, int d, int p, int span, int splits, const double* alpha,
                           cudaStream_t s) {
   if (d == 1) return dmma_by_width<KIND, 1>(nb, x, y, v, dst, n, m, d, p, span, splits, alpha, s);
   return dmma_by_width<KIND, 0>(nb, x, y, v, dst, n, m, d, p, span, splits, alpha, s);
@@ -345,13 +346,14 @@ cudaError_t dmma_by_depth(int nb, const double* x, const double* y, const double
 // `kind` follows the Kind enum of gram_kind.cuh; `nb` (8, 16, 24, 32 or
 // 64) is the output columns a block holds; the column sweep is split into
 // `splits` ranges of `span` columns. With splits > 1, `work` holds
-// splits * n * p partial sums (else it is not read). Returns
+// splits * n * p partial sums (else it is not read). `alpha` points to
+// rq's alpha on the device (null for other kinds). Returns
 // cudaGetLastError() after the launches; the caller raises if it is not 0.
 extern "C" int stheno_gram_matvec_dmma(int kind, const void* x_, const void* y_, const void* v_,
                                        void* out_, void* work_, int n, int m, int d, int p,
-                                       int nb, int span, int splits, double alpha,
+                                       int nb, int span, int splits, const void* alpha_,
                                        void* stream) {
-  if (n <= 0 || m <= 0 || d <= 0 || p <= 0 || span <= 0 || splits <= 0 || splits > 65535 ||
+  if ((kind == stheno::kRq && alpha_ == nullptr) || n <= 0 || m <= 0 || d <= 0 || p <= 0 || span <= 0 || splits <= 0 || splits > 65535 ||
       (long long)span * splits < m || (splits > 1 && work_ == nullptr))
     return (int)cudaErrorInvalidValue;
   const double* x = static_cast<const double*>(x_);
@@ -360,6 +362,7 @@ extern "C" int stheno_gram_matvec_dmma(int kind, const void* x_, const void* y_,
   double* out = static_cast<double*>(out_);
   double* work = static_cast<double*>(work_);
   double* dst = splits > 1 ? work : out;
+  const double* alpha = static_cast<const double*>(alpha_);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (kind) {

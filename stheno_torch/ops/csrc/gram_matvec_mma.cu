@@ -201,7 +201,9 @@ template <int KIND, int D, int NB>
 __global__ void __launch_bounds__(kWgThreads)
 gmv_mma_kernel(const float* __restrict__ x, const float* __restrict__ y,
                const float* __restrict__ vh, const float* __restrict__ vl,
-               float* __restrict__ dst, int n, int m, int d, int p, int span, float alpha) {
+               float* __restrict__ dst, int n, int m, int d, int p, int span,
+               const float* __restrict__ alpha_p) {
+  const float alpha = KIND == kRq ? __ldg(alpha_p) : 1.f;  // rq's alpha, read once
   constexpr int DS = D > 0 ? D : 1;
   constexpr int TILE = kCols * NB;     // floats of one v tile
   constexpr int STAGE = 2 * TILE + kCols * DS;
@@ -344,7 +346,7 @@ gmv_mma_kernel(const float* __restrict__ x, const float* __restrict__ y,
 
 template <int KIND, int D, int NB>
 cudaError_t launch_mma(const float* x, const float* y, const float* vh, const float* vl,
-                       float* dst, int n, int m, int d, int p, int span, int splits, float alpha,
+                       float* dst, int n, int m, int d, int p, int span, int splits, const float* alpha,
                        cudaStream_t s) {
   constexpr int smem = mma_smem_floats<NB, (D > 0 ? D : 1)>() * (int)sizeof(float);
   auto kernel = gmv_mma_kernel<KIND, D, NB>;
@@ -357,7 +359,7 @@ cudaError_t launch_mma(const float* x, const float* y, const float* vh, const fl
 
 template <int KIND, int D>
 cudaError_t mma_by_width(int nb, const float* x, const float* y, const float* vh, const float* vl,
-                         float* dst, int n, int m, int d, int p, int span, int splits, float alpha,
+                         float* dst, int n, int m, int d, int p, int span, int splits, const float* alpha,
                          cudaStream_t s) {
   switch (nb) {
     case 24: return launch_mma<KIND, D, 24>(x, y, vh, vl, dst, n, m, d, p, span, splits, alpha, s);
@@ -370,7 +372,7 @@ cudaError_t mma_by_width(int nb, const float* x, const float* y, const float* vh
 
 template <int KIND>
 cudaError_t mma_by_depth(int nb, const float* x, const float* y, const float* vh, const float* vl,
-                         float* dst, int n, int m, int d, int p, int span, int splits, float alpha,
+                         float* dst, int n, int m, int d, int p, int span, int splits, const float* alpha,
                          cudaStream_t s) {
   if (d == 1) return mma_by_width<KIND, 1>(nb, x, y, vh, vl, dst, n, m, d, p, span, splits, alpha, s);
   return mma_by_width<KIND, 0>(nb, x, y, vh, vl, dst, n, m, d, p, span, splits, alpha, s);
@@ -385,13 +387,14 @@ cudaError_t mma_by_depth(int nb, const float* x, const float* y, const float* vh
 // splits > 1 `work` holds splits * n * p partial sums. `vsplit` holds
 // 2 * ceil(m / 64) * ceil(p / nb) * 64 * nb floats: v's high and low
 // parts in their shared-memory order, written here by gmv_split_v.
+// `alpha` points to rq's float32 alpha on the device (null for other kinds).
 // Returns cudaGetLastError() after the launches; the caller raises if it
 // is not 0.
 extern "C" int stheno_gram_matvec_mma(int kind, const void* x_, const void* y_, const void* v_,
                                       void* out_, void* work_, void* vsplit_, int n, int m, int d,
-                                      int p, int nb, int span, int splits, double alpha_,
+                                      int p, int nb, int span, int splits, const void* alpha_,
                                       void* stream) {
-  if (n <= 0 || m <= 0 || d <= 0 || p <= 0 || span <= 0 || span % kCols != 0 || splits <= 0 ||
+  if ((kind == stheno::kRq && alpha_ == nullptr) || n <= 0 || m <= 0 || d <= 0 || p <= 0 || span <= 0 || span % kCols != 0 || splits <= 0 ||
       splits > 65535 || (long long)span * splits < m || (splits > 1 && work_ == nullptr) ||
       vsplit_ == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -401,7 +404,7 @@ extern "C" int stheno_gram_matvec_mma(int kind, const void* x_, const void* y_, 
   float* out = static_cast<float*>(out_);
   float* work = static_cast<float*>(work_);
   float* dst = splits > 1 ? work : out;
-  const float alpha = (float)alpha_;
+  const float* alpha = static_cast<const float*>(alpha_);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int psplits = (p + nb - 1) / nb;
   const size_t count = (size_t)((m + kCols - 1) / kCols) * psplits * kCols * nb;

@@ -92,7 +92,7 @@ namespace stheno {
 cudaError_t gram_matvec_vjp_f64(int kind, int d, int qc, const double* x, const double* y,
                                 const double* a, const double* v, double* out, double* work,
                                 int n, int m_pad, int q, int span, int splits, int qsplits,
-                                double alpha, int want_alpha, int want_value, int tm,
+                                const double* alpha, int want_alpha, int want_value, int tm,
                                 cudaStream_t s);
 }  // namespace stheno
 
@@ -100,7 +100,8 @@ cudaError_t gram_matvec_vjp_f64(int kind, int d, int qc, const double* x, const 
 // gram_kind.cuh (not linear); `is_double` selects float64 (else float32).
 // x is (n, d) and y (m_pad, d) with d in {1, 2, 4, 8}, a (n, q), v
 // (qsplits, m_pad, qc) with qc in {4, 8, 20, 36}; m_pad and span are
-// multiples of 64. out holds n * d gradient entries, then n alpha
+// multiples of 64. `alpha` points to rq's alpha on the device in the
+// arithmetic type (null for other kinds). out holds n * d gradient entries, then n alpha
 // partials when want_alpha, then n value partials when want_value; with
 // splits * qsplits > 1, work holds that many such slices. tm is the rows
 // per block the caller sized the split for; a launch refuses a tm that is
@@ -109,23 +110,24 @@ cudaError_t gram_matvec_vjp_f64(int kind, int d, int qc, const double* x, const 
 extern "C" int stheno_gram_matvec_vjp(int kind, int is_double, const void* x, const void* y,
                                       const void* a, const void* v, void* out, void* work, int n,
                                       int m_pad, int d, int q, int qc, int span, int splits,
-                                      int qsplits, double alpha, int want_alpha,
+                                      int qsplits, const void* alpha, int want_alpha,
                                       int want_value, int tm, void* stream) {
   if (n <= 0 || m_pad <= 0 || m_pad % kVjpTN != 0 || q <= 0 || span <= 0 ||
       span % kVjpTN != 0 || splits <= 0 || splits > 65535 || qsplits <= 0 || qsplits > 65535 ||
       (long long)span * splits < m_pad || (long long)qsplits * qc < q ||
-      (splits * qsplits > 1 && work == nullptr))
+      (splits * qsplits > 1 && work == nullptr) || (kind == kRq && alpha == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_double)
     return (int)stheno::gram_matvec_vjp_f64(
         kind, d, qc, static_cast<const double*>(x), static_cast<const double*>(y),
         static_cast<const double*>(a), static_cast<const double*>(v), static_cast<double*>(out),
-        static_cast<double*>(work), n, m_pad, q, span, splits, qsplits, alpha, want_alpha,
+        static_cast<double*>(work), n, m_pad, q, span, splits, qsplits,
+        static_cast<const double*>(alpha), want_alpha,
         want_value, tm, s);
   const VjpArgs g{n, m_pad, q, span, splits, qsplits, want_alpha, want_value, tm};
   return (int)vjp_launch<float>(kind, d, qc, static_cast<const float*>(x),
                                 static_cast<const float*>(y), static_cast<const float*>(a),
                                 static_cast<const float*>(v), static_cast<float*>(out),
-                                static_cast<float*>(work), g, (float)alpha, s);
+                                static_cast<float*>(work), g, static_cast<const float*>(alpha), s);
 }

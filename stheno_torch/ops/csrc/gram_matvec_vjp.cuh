@@ -76,9 +76,10 @@ template <int KIND, int D, int QC>
 __global__ void __launch_bounds__(kVjpThreads)
 gmv_vjp_kernel(const float* __restrict__ x, const float* __restrict__ y,
                const float* __restrict__ a, const float* __restrict__ v,
-               float* __restrict__ dst, int n, int m_pad, int q, int span, float alpha,
-               int want_alpha, int want_value) {
+               float* __restrict__ dst, int n, int m_pad, int q, int span,
+               const float* __restrict__ alpha_p, int want_alpha, int want_value) {
   using T = float;
+  const T alpha = KIND == kRq ? __ldg(alpha_p) : T(1);  // rq's alpha, read once
   constexpr int kPer = 4;  // floats per 16 bytes
   constexpr int R = vjp_rows<QC, D>();
   constexpr int TM = kVjpThreads * R;
@@ -231,8 +232,9 @@ template <int KIND, int D, int QC>
 __global__ void __launch_bounds__(kVjpThreads)
 gmv_vjp_dmma_kernel(const double* __restrict__ x, const double* __restrict__ y,
                     const double* __restrict__ a, const double* __restrict__ v,
-                    double* __restrict__ dst, int n, int m_pad, int q, int span, double alpha,
-                    int want_alpha, int want_value) {
+                    double* __restrict__ dst, int n, int m_pad, int q, int span,
+                    const double* __restrict__ alpha_p, int want_alpha, int want_value) {
+  const double alpha = KIND == kRq ? __ldg(alpha_p) : 1.0;  // rq's alpha, read once
   constexpr int MR = dmma_groups<D>();
   constexpr int KS = QC / 4;  // k-steps of the dot
   constexpr int TM = 4 * 8 * MR;
@@ -377,7 +379,7 @@ struct VjpArgs {
 // column split would then not fill the card as it planned.
 template <int KIND, int D, int QC, typename T>
 cudaError_t vjp_launch_main(const T* x, const T* y, const T* a, const T* v, T* dst,
-                            const VjpArgs& g, T alpha, cudaStream_t s) {
+                            const VjpArgs& g, const T* alpha, cudaStream_t s) {
   if constexpr (std::is_same<T, double>::value) {
     constexpr int TM = 4 * 8 * dmma_groups<D>();
     if (g.tm != TM) return cudaErrorInvalidValue;
@@ -396,7 +398,7 @@ cudaError_t vjp_launch_main(const T* x, const T* y, const T* a, const T* v, T* d
 
 template <int KIND, int D, typename T>
 cudaError_t vjp_by_width(int qc, const T* x, const T* y, const T* a, const T* v, T* dst,
-                         const VjpArgs& g, T alpha, cudaStream_t s) {
+                         const VjpArgs& g, const T* alpha, cudaStream_t s) {
   switch (qc) {
     case 4: return vjp_launch_main<KIND, D, 4, T>(x, y, a, v, dst, g, alpha, s);
     case 8: return vjp_launch_main<KIND, D, 8, T>(x, y, a, v, dst, g, alpha, s);
@@ -408,7 +410,7 @@ cudaError_t vjp_by_width(int qc, const T* x, const T* y, const T* a, const T* v,
 
 template <int KIND, typename T>
 cudaError_t vjp_by_depth(int d, int qc, const T* x, const T* y, const T* a, const T* v, T* dst,
-                         const VjpArgs& g, T alpha, cudaStream_t s) {
+                         const VjpArgs& g, const T* alpha, cudaStream_t s) {
   switch (d) {
     case 1: return vjp_by_width<KIND, 1, T>(qc, x, y, a, v, dst, g, alpha, s);
     case 2: return vjp_by_width<KIND, 2, T>(qc, x, y, a, v, dst, g, alpha, s);
@@ -422,7 +424,7 @@ cudaError_t vjp_by_depth(int d, int qc, const T* x, const T* y, const T* a, cons
 // the fixed-order reduction into `out` when the sweep is split).
 template <typename T>
 cudaError_t vjp_launch(int kind, int d, int qc, const T* x, const T* y, const T* a, const T* v,
-                       T* out, T* work, const VjpArgs& g, T alpha, cudaStream_t s) {
+                       T* out, T* work, const VjpArgs& g, const T* alpha, cudaStream_t s) {
   const int parts = g.splits * g.qsplits;
   T* dst = parts > 1 ? work : out;
   cudaError_t err;

@@ -28,7 +28,9 @@ The gradient is an ``autograd.Function`` whose backward is K1's backward
 kernel (``ops/gram_bwd.py``, ``csrc/gram_bwd.cu``) on the card and its
 plain version on the CPU: ``xbar_i = 2 sum_j W_ij (x_i - y_j)`` with ``W =
 gbar * g'(d2)``, the gradient of the JAX package's ``_gram_bwd`` in its
-direct form.
+direct form. Its forward rule is the tangent kernel
+(``ops/gram_jvp.py``, ``csrc/gram_jvp.cu``). rq's alpha reaches every
+kernel as a device pointer (:func:`device_alpha`).
 """
 
 import math
@@ -39,7 +41,8 @@ from torch.autograd.function import once_differentiable
 from .. import config
 from . import _build
 
-__all__ = ["gram", "gram_plain", "launch_shape", "tile_shape", "KINDS", "DTYPES", "launches"]
+__all__ = ["gram", "gram_plain", "launch_shape", "tile_shape", "device_alpha", "KINDS", "DTYPES",
+           "launches"]
 
 #: Kernel functions, in the order of the ``Kind`` enum of ``csrc/gram_kind.cuh``.
 KINDS = ("eq", "rq", "matern12", "matern32", "matern52", "linear")
@@ -144,6 +147,30 @@ def launch_shape(n, m, dtype):
     return tm, tn, -(-n // tm) * -(-m // tn)
 
 
+#: rq's alpha on the device, per (value, dtype, device), for alphas given
+#: as numbers: each is filled in once and kept (no copy from host memory).
+_ALPHAS = {}
+
+
+def device_alpha(kind, alpha, dtype, device):
+    """rq's ``alpha`` as the 0-dim ``dtype`` tensor on ``device`` that the
+    kernels read (once per thread, through a pointer), or None for the
+    other kinds, which read none. A tensor is cast there on the device; a
+    number is filled in by a kernel, once per value outside a CUDA graph
+    capture, and inside one at each replay (a tensor kept from a capture
+    would hold what the fill had not yet written)."""
+    if kind != "rq":
+        return None
+    if isinstance(alpha, torch.Tensor):
+        return alpha.detach().to(device=device, dtype=dtype).contiguous()
+    key = (alpha, dtype, torch.device(device))
+    if config.capturing():
+        return torch.full((), alpha, dtype=dtype, device=device)
+    if key not in _ALPHAS:
+        _ALPHAS[key] = torch.full((), alpha, dtype=dtype, device=device)
+    return _ALPHAS[key]
+
+
 def _launch(kind, x, y, alpha, out_dtype):
     global launches
     lib = _build.library()
@@ -154,11 +181,12 @@ def _launch(kind, x, y, alpha, out_dtype):
         return out
     tm, tn = tile_shape(out_dtype)
     code = _DTYPE_CODES[x.dtype] if out_dtype == x.dtype else _F32_BF16
+    a = device_alpha(kind, alpha, arith_dtype(x.dtype), x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.stheno_gram(
             KINDS.index(kind), code, x.data_ptr(), y.data_ptr(),
-            out.data_ptr(), n, m, d, float(alpha) if kind == "rq" else 1.0, tm, tn, stream,
+            out.data_ptr(), n, m, d, _build.ptr(a), tm, tn, stream,
         )
     _build.check(code, "gram")
     launches += 1
@@ -194,16 +222,18 @@ class _Gram(torch.autograd.Function):
     """``gram(kind, x, y, alpha)``, differentiable in ``x``, ``y`` and rq's
     ``alpha`` (a tensor): forward K1, backward K1's backward kernel
     (``ops/gram_bwd.py``), which recomputes ``d2`` and ``g'`` and does not
-    keep K. Where ``x`` is ``y`` one launch sums both roles. On CPU tensors
-    the backward is the plain version in torch, itself differentiable, so
-    a second derivative there works; on CUDA tensors it raises. Inputs:
-    ``x, y, alpha, kind, out_dtype``."""
+    keep K. Where ``x`` is ``y`` one launch sums both roles. Forward mode
+    (``jvp``) is the tangent kernel (``ops/gram_jvp.py``), launched once for
+    a batch of directions by its own Function's vmap rule, so
+    ``torch.func.jacfwd`` takes K1. On CPU tensors the backward is the
+    plain version in torch, itself differentiable, so a second derivative
+    there works; on CUDA tensors the backward kernel has no derivative, so
+    a second derivative (reverse over reverse, or ``torch.func.hessian``'s
+    forward over reverse) raises. Inputs: ``x, y, alpha, kind,
+    out_dtype``."""
 
     @staticmethod
-    def forward(ctx, x, y, alpha, kind, out_dtype):
-        ctx.kind = kind
-        ctx.same = x is y
-        ctx.save_for_backward(x, y, alpha)
+    def forward(x, y, alpha, kind, out_dtype):
         if x.is_cuda and (out_dtype == x.dtype or (x.dtype, out_dtype) == _MIXED):
             return _launch(kind, x, y, alpha, out_dtype)
         if x.is_cuda:
@@ -211,17 +241,68 @@ class _Gram(torch.autograd.Function):
         return gram_plain(kind, x, y, alpha).to(out_dtype)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, y, alpha, kind, out_dtype = inputs
+        ctx.kind = kind
+        ctx.out_dtype = out_dtype
+        ctx.same = x is y
+        ctx.save_for_backward(x, y, alpha)
+        ctx.save_for_forward(x, y, alpha)
+
+    @staticmethod
     def backward(ctx, gbar):
-        return (_gram_backward_once if gbar.is_cuda else _gram_backward)(ctx, gbar)
+        if not gbar.is_cuda:
+            return _gram_backward(ctx, gbar)
+        if config.forward_mode_active():
+            raise NotImplementedError(
+                "gram: a forward-mode derivative of K1's gradient on the card (as "
+                "torch.func.hessian takes, forward over reverse) is not supported: the CUDA "
+                "backward kernel has no forward rule. Take the Hessian on the CPU, or "
+                "differentiate by torch.func.jacfwd alone."
+            )
+        return _gram_backward_once(ctx, gbar)
+
+    @staticmethod
+    def jvp(ctx, xt, yt, at, *_):
+        from .gram_jvp import _GramJvp
+
+        x, y, alpha = ctx.saved_tensors
+        if ctx.same and xt is None:
+            xt = yt
+        if ctx.same and yt is None:
+            yt = xt
+        at = at if ctx.kind == "rq" else None
+        if xt is None and yt is None and at is None:
+            return x.new_zeros((x.shape[0], y.shape[0]), dtype=ctx.out_dtype)
+        return _GramJvp.apply(x, y, alpha, xt, yt, at, ctx.kind).to(ctx.out_dtype)
+
+    @staticmethod
+    def vmap(info, in_dims, x, y, alpha, kind, out_dtype):
+        # A batch of inputs (not of tangents): one Gram per member.
+        outs = [
+            _Gram.apply(*(_member(t, d, i) for t, d in zip((x, y, alpha), in_dims)), kind,
+                        out_dtype)
+            for i in range(info.batch_size)
+        ]
+        return torch.stack(outs), 0
+
+
+def _member(t, d, i):
+    """Member ``i`` of a vmap rule's input batched at dim ``d`` (None: not
+    batched, or no tensor)."""
+    return t if t is None or d is None else t.select(d, i)
 
 
 def gram(kind, x, y, alpha=1.0, out_dtype=None):
     """Gram matrix ``g(||x_i - y_j||^2)`` (or ``x_i . y_j`` for linear) of
     ``x (n, d)`` and ``y (m, d)``, float32, float64 or bfloat16: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors.
-    Differentiable in ``x``, ``y`` and, for ``rq``, ``alpha``.
-    ``out_dtype`` (default: the inputs') rounds the tile once to another
-    floating dtype (see the module docstring)."""
+    Differentiable in ``x``, ``y`` and, for ``rq``, ``alpha``, in reverse
+    and in forward mode. ``out_dtype`` (default: the inputs') rounds the
+    tile once to another floating dtype (see the module docstring). rq's
+    ``alpha`` reaches the kernels as a device operand (:func:`device_alpha`),
+    so a tensor alpha costs no host read and a CUDA graph replays its
+    current value."""
     if kind not in KINDS:
         raise ValueError(f"Unknown gram kind {kind!r}.")
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
@@ -234,16 +315,8 @@ def gram(kind, x, y, alpha=1.0, out_dtype=None):
     if x.device != y.device:
         raise ValueError(f"gram: x on {x.device}, y on {y.device}")
     if not isinstance(alpha, torch.Tensor):
-        # On the host: a number copied to the card would synchronise the
-        # stream on every call (a pageable copy), and the kernel takes
-        # alpha by value.
-        alpha = torch.as_tensor(alpha, dtype=arith_dtype(x.dtype))
-    elif kind == "rq" and config.capturing():
-        raise RuntimeError(
-            "gram: rq's alpha, given as a tensor, is read on the host at each launch (the "
-            "kernel takes it by value), so a CUDA graph would replay the value it had at "
-            "capture. Give alpha as a number to capture an rq Gram."
-        )
+        alpha = (device_alpha("rq", alpha, arith_dtype(x.dtype), x.device) if x.is_cuda
+                 else torch.as_tensor(alpha, dtype=arith_dtype(x.dtype)))
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if not out_dtype.is_floating_point:
         raise TypeError(f"gram: out_dtype must be a floating dtype, got {out_dtype}.")

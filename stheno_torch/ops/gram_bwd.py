@@ -28,7 +28,8 @@ once to bfloat16). ``ops/gram.py:_Gram`` takes it as its backward.
 import torch
 
 from . import _build
-from .gram import _DTYPE_CODES, KINDS, _alpha_factor, _apply_kind, _d2, _g_prime, arith_dtype
+from .gram import (_DTYPE_CODES, KINDS, _alpha_factor, _apply_kind, _d2, _g_prime, arith_dtype,
+                   device_alpha)
 
 __all__ = ["gram_bwd", "gram_bwd_plain", "launch_shape", "launches"]
 
@@ -151,12 +152,13 @@ def _launch(kind, x, y, gbar, alpha, want_x, want_y, want_alpha, same):
     out = torch.empty(count, dtype=ct, device=x.device)
     work = torch.empty(slices * count, dtype=ct, device=x.device) if slices > 1 else None
     gbar = gbar.contiguous()
+    a = device_alpha(kind, alpha, ct, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.stheno_gram_bwd(
             KINDS.index(kind), _DTYPE_CODES[x.dtype], x.data_ptr(), y.data_ptr(),
             gbar.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(), n, m, d,
-            rows, span, splits, float(alpha) if kind == "rq" else 1.0, int(want_x),
+            rows, span, splits, _build.ptr(a), int(want_x),
             int(want_y), int(want_alpha), int(fold), stream,
         )
     _build.check(code, "gram_bwd")

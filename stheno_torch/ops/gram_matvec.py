@@ -47,7 +47,7 @@ import math
 import torch
 
 from . import _build
-from .gram import KINDS, gram_plain
+from .gram import KINDS, device_alpha, gram_plain
 
 __all__ = [
     "dmma_launch_shape",
@@ -247,7 +247,8 @@ def _launch(kind, x, y, v, alpha):
     work = torch.empty((splits, n, p), dtype=x.dtype, device=x.device) if splits > 1 else None
     ptrs = (x.data_ptr(), y.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if work is None else work.data_ptr())
-    dims = (n, m, d, p, width, span, splits, float(alpha) if kind == "rq" else 1.0)
+    a = device_alpha(kind, alpha, x.dtype, x.device)
+    dims = (n, m, d, p, width, span, splits, _build.ptr(a))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if kernel == "mma":

@@ -47,7 +47,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
-from .gram import KINDS, _alpha_factor, _apply_kind, _g_prime
+from .gram import KINDS, _alpha_factor, _apply_kind, _g_prime, device_alpha
 from .gram_matvec import gram_matvec
 
 __all__ = ["gram_matvec_vjp", "gram_matvec_vjp_plain", "launch_shape", "launches", "MAX_DEPTH"]
@@ -157,13 +157,14 @@ def _launch(kind, x, y, A, V, alpha, want_alpha, want_value):
     out = torch.empty(count, dtype=x.dtype, device=x.device)
     parts = splits * qsplits
     work = torch.empty(parts * count, dtype=x.dtype, device=x.device) if parts > 1 else None
+    a = device_alpha(kind, alpha, x.dtype, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.stheno_gram_matvec_vjp(
             KINDS.index(kind), int(x.dtype == torch.float64), xp.data_ptr(), yp.data_ptr(),
             A.data_ptr(), vp.data_ptr(), out.data_ptr(),
             None if work is None else work.data_ptr(), n, m_pad, depth, q, qc, span, splits,
-            qsplits, float(alpha) if kind == "rq" else 1.0, int(want_alpha), int(want_value),
+            qsplits, _build.ptr(a), int(want_alpha), int(want_value),
             _rows_per_block(qc, depth, x.element_size()), stream,
         )
     _build.check(code, "gram_matvec_vjp")

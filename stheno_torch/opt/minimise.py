@@ -66,8 +66,9 @@ class AdamDriver:
     names its own line); the parameters and the optimiser state are then
     restored in place, so the driver starts from the initial values. The
     objective ``f`` must make no host sync (no ``float``, ``bool`` or
-    ``.item()`` of a device value, no copy from host memory) and
-    ``config.adaptive_jitter`` must be off. A capture that fails raises;
+    ``.item()`` of a device value, no copy from host memory). The
+    adaptive-jitter probe (``config.adaptive_jitter``) and rq's alpha stay
+    on the device, so both are captured. A capture that fails raises;
     nothing runs eagerly instead.
 
     On the CPU the same steps run eagerly.
@@ -75,13 +76,6 @@ class AdamDriver:
 
     def __init__(self, f, vs, rate=5e-2, steps_per_dispatch=1):
         cuda = vs.device.type == "cuda"
-        if cuda and config.adaptive_jitter:
-            raise NotImplementedError(
-                "AdamDriver captures its step in a CUDA graph on the card, and the "
-                "adaptive-jitter probe (config.adaptive_jitter) reads each factorisation's "
-                "status on the host, which a graph cannot: turn adaptive jitter off, or run "
-                "on the CPU. A device-side probe is still to be ported."
-            )
         self.vs = vs
         self._loss = _make_loss(f, vs)
         self.params = _leaves(vs)

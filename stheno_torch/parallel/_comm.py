@@ -25,7 +25,13 @@ and the autograd regions of decision 4 in ``parallel/__init__.py``:
   so the replicated work after it, which every rank runs, hands each rank
   the whole cotangent once and no sum multiplies it;
 - :func:`gather_from_mesh`: the ranks' blocks stacked forward (a
-  replicated result), this rank's block of the cotangent backward.
+  replicated result), this rank's block of the cotangent backward;
+- :func:`replicate_from_root` and :func:`root_gradient`: rank 0's value
+  forward and the cotangent as it is backward, and the identity forward
+  and rank 0's cotangent backward. Replicated work that every rank runs
+  on its own hands its outputs through the first and reads its inputs
+  through the second, so its results and their gradients hold rank 0's
+  bits on every rank, however a rank's own arithmetic rounded.
 
 The collectives themselves have no autograd kernel: they write into
 buffers that autograd cannot see through, so a gradient would be cut or,
@@ -66,6 +72,8 @@ __all__ = [
     "copy_to_mesh",
     "reduce_from_mesh",
     "gather_from_mesh",
+    "replicate_from_root",
+    "root_gradient",
 ]
 
 _HERE = os.path.abspath(__file__)
@@ -211,6 +219,29 @@ class _GatherFromMesh(torch.autograd.Function):
         return g[r * n:(r + 1) * n], None
 
 
+class _FromRoot(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ax):
+        return broadcast_from(t.contiguous().clone(), 0, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _RootGradient(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ax, site):
+        ctx.ax, ctx.site = ax, site
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        return _inplace("broadcast", g, ctx.ax, lambda b: dist.broadcast(
+            b, ctx.ax.global_rank(0), group=ctx.ax.group), ctx.site), None, None
+
+
 def copy_to_mesh(t, ax):
     """``t`` (a replicated tensor) as the input of a rank-local computation:
     the identity, whose backward sums the gradient over the ranks. A tensor
@@ -224,6 +255,23 @@ def reduce_from_mesh(t, ax):
     """The sum of the ranks' ``t``, on every rank; the backward passes the
     gradient through unchanged."""
     return _ReduceFromMesh.apply(t, ax, _site())
+
+
+def replicate_from_root(t, ax):
+    """``t``, a result of replicated work that every rank computes on its
+    own, as rank 0's on every rank (one broadcast); the backward passes
+    each rank's cotangent on unchanged."""
+    return _FromRoot.apply(t, ax)
+
+
+def root_gradient(t, ax):
+    """``t`` (a replicated input) as the input of replicated work that every
+    rank runs on its own: the identity, whose backward hands every rank
+    rank 0's gradient (one broadcast). A tensor through which no gradient
+    flows is returned as it is."""
+    if not (torch.is_grad_enabled() and t.requires_grad):
+        return t
+    return _RootGradient.apply(t, ax, _site() + " (backward)")
 
 
 def gather_from_mesh(t, ax):

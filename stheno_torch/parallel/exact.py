@@ -44,22 +44,23 @@ __all__ = ["sharded_gram", "dist_nlml", "dist_posterior_predict"]
 _LOG_2_PI = math.log(2 * math.pi)
 
 
-def _route(obj, ax, memo=None):
-    """``obj`` with every tensor it holds through ``copy_to_mesh``: a tensor,
-    a list, tuple or dict of them, or a kernel or mean (copied, with its
-    attributes routed). Anything else is returned as it is."""
+def _route(obj, ax, memo=None, to=copy_to_mesh):
+    """``obj`` with every tensor it holds through ``to`` (``copy_to_mesh``
+    by default): a tensor, a list, tuple or dict of them, or a kernel or
+    mean (copied, with its attributes routed). Anything else is returned as
+    it is."""
     memo = {} if memo is None else memo
     if id(obj) in memo:
         return memo[id(obj)]
     if isinstance(obj, torch.Tensor):
-        out = copy_to_mesh(obj, ax)
+        out = to(obj, ax)
     elif type(obj) in (list, tuple):
-        out = type(obj)(_route(o, ax, memo) for o in obj)
+        out = type(obj)(_route(o, ax, memo, to) for o in obj)
     elif type(obj) is dict:
-        out = {k: _route(v, ax, memo) for k, v in obj.items()}
+        out = {k: _route(v, ax, memo, to) for k, v in obj.items()}
     elif isinstance(obj, (Kernel, Mean)):
         out = copy.copy(obj)
-        out.__dict__.update({k: _route(v, ax, memo) for k, v in vars(obj).items()})
+        out.__dict__.update({k: _route(v, ax, memo, to) for k, v in vars(obj).items()})
     else:
         out = obj
     memo[id(obj)] = out

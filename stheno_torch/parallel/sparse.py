@@ -28,7 +28,7 @@ from ..kernels import elwise, pairwise
 from ..kernels.util import uprank
 from ..matrix import dense
 from ..matrix.ops import _contract, _kinv_from_chol, adaptive_jitter_eps
-from ._comm import MeshAxis, copy_to_mesh, reduce_from_mesh
+from ._comm import MeshAxis, copy_to_mesh, reduce_from_mesh, replicate_from_root, root_gradient
 from .exact import _route, check_routed
 
 __all__ = ["dist_elbo", "dist_sparse_posterior"]
@@ -172,12 +172,20 @@ def dist_sparse_posterior(kernel, z, x, y, noise, x_new, mesh, axis="data", meth
     with ``q(u) = N(m_u, L_z A^{-1} L_z^T)``. Differentiable as
     :func:`dist_elbo` is, and in ``x_new``: the O(M^3) work after the
     reduction reads the inputs as they are, so its gradient reaches each
-    rank once."""
+    rank once.
+
+    Every rank runs that work on its own, from the same bits. Its results
+    are rank 0's on every rank by construction: the mean and variance are
+    broadcast from rank 0 (``replicate_from_root``), and so are the
+    gradients that the work hands the inputs it reads directly (the
+    kernel's tensors, ``z``, ``x_new``, ``noise_z``: ``root_gradient``), so
+    no rank's own rounding shows in a replicated output or gradient."""
     ax = MeshAxis(mesh, axis)
     _, A, c = _sparse_core(kernel, z, x, y, noise, ax, method, noise_z)
-    z, x_new = uprank(config.as_tensor(z)), uprank(config.as_tensor(x_new))
+    kernel = _route(kernel, ax, to=root_gradient)
+    z, x_new = (root_gradient(uprank(config.as_tensor(t)), ax) for t in (z, x_new))
     if noise_z is not None:
-        noise_z = config.as_tensor(noise_z, A.dtype, A.device)
+        noise_z = root_gradient(config.as_tensor(noise_z, A.dtype, A.device), ax)
     L_z = _inducing_chol(kernel, z, noise_z)
     L_A = _chol(A)
     v = _solve_tri(L_z, dense(pairwise(kernel, z, x_new)))  # L_z^{-1} k_z*
@@ -185,4 +193,4 @@ def dist_sparse_posterior(kernel, z, x, y, noise, x_new, mesh, axis="data", meth
     # mean = v^T A^{-1} c = (L_A^{-1} v)^T (L_A^{-1} c).
     mean = w.mT @ _solve_tri(L_A, c[:, None])[:, 0]
     var = elwise(kernel, x_new)[:, 0] - (v * v).sum(0) + (w * w).sum(0)
-    return mean, torch.clamp_min(var, 0.0)
+    return replicate_from_root(mean, ax), replicate_from_root(torch.clamp_min(var, 0.0), ax)

@@ -175,13 +175,6 @@ class _GraphSteps:
     buffers and one read of a device flag."""
 
     def __init__(self, objective, optimizer, params, opt_state, k):
-        if config.adaptive_jitter:
-            raise NotImplementedError(
-                "resumable_minimise captures its steps in CUDA graphs on the card, and the "
-                "adaptive-jitter probe (config.adaptive_jitter) reads each factorisation's "
-                "status on the host, which a graph cannot: turn adaptive jitter off, or run "
-                "on the CPU."
-            )
         self.k = k
         dev = _device(params)
         self.P, self.S = _clone(params), _clone(opt_state)

@@ -630,6 +630,20 @@ def test_dist_sparse_posterior_gradient(D, method, name, tmp_path_factory):
 
 
 @pytest.mark.parametrize("D", DS)
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("name", ["mean", "var", "s", "z", "noise", "x_new"])
+def test_sparse_posterior_replicated_by_construction(D, method, name, tmp_path_factory):
+    """F6: the sparse posterior's outputs and gradients are rank 0's on
+    every rank, bit for bit, also where every rank but 0 rounds its own
+    replicated work differently (case ``f6``: a nudged triangular solve);
+    and the nudge moves them by no more than rounding."""
+    res = port("f6", D, tmp_path_factory)
+    key = f"{method}_{name}"
+    plain, nudged = replicated(res, f"plain_{key}"), replicated(res, f"nudged_{key}")
+    close(nudged, plain, 1e-12, key)
+
+
+@pytest.mark.parametrize("D", DS)
 def test_inplace_collective_under_gradient_raises(D, tmp_path_factory):
     """A collective on an operand that requires a gradient raises instead
     of cutting or corrupting the gradient."""

@@ -308,14 +308,21 @@ def test_resumes_from_a_jax_checkpoint(tmp_path, steps):
     np.testing.assert_allclose(it["objective_trace"], ij["objective_trace"][6:], rtol=RTOL)
 
 
-def test_the_card_refuses_adaptive_jitter(tmp_path):
+def test_the_card_refuses_adaptive_jitter(tmp_path, monkeypatch):
+    # The refusal is gone: with the probe on the device the graph buffers
+    # are built and stepped with adaptive jitter on (the captures stood in
+    # for), as eagerly.
+    monkeypatch.setattr(resilience, "_capture", _fake_capture)
     config.set_adaptive_jitter(True)
     try:
-        with pytest.raises(NotImplementedError, match="adaptive-jitter"):
-            resilience._GraphSteps(_quad(torch), T.adam(0.1), {"x": torch.zeros(2)},
-                                   T.adam(0.1).init({"x": torch.zeros(2)}), 1)
+        p0 = {k: torch.tensor(v, dtype=torch.float64) for k, v in (("ell", 0.1), ("s2", 0.2))}
+        run = resilience._GraphSteps(_nlml(st, _t), T.adam(0.1), p0, T.adam(0.1).init(p0), 1)
+        val, ok = run.value_and_grad()
+        ref = _nlml(st, _t)(p0)
     finally:
         config.set_adaptive_jitter(False)
+    assert ok
+    np.testing.assert_allclose(float(val), float(ref), rtol=1e-12)
 
 
 class _Stream:

@@ -440,6 +440,43 @@ def case_f5(mesh):
     return out
 
 
+def case_f6(mesh):
+    """F6: the sparse posterior's mean, variance and gradients with respect
+    to (s, z, noise, x_new), VFE, FITC and DTC, at n = 64 and 8 inducing
+    points, computed as in case ``f5`` (``plain_*``) and again with every
+    rank but 0 nudging each triangular solve of ``parallel/sparse.py`` by
+    one part in 2^52 (``nudged_*``): the work after the reduction, which
+    each rank runs on its own, then rounds differently on each rank, as
+    another summation order would. Its results are rank 0's on every rank
+    by construction, so both sets hold the same bits on every rank."""
+    import stheno_torch.parallel as P
+    import stheno_torch.parallel.sparse as S
+    from stheno_torch import EQ
+    from stheno_torch.parallel._comm import MeshAxis
+
+    rank = MeshAxis(mesh, "data").rank
+    solve = S._solve_tri
+    x, y, z = elbo_data(64, 8)
+    xn = np.linspace(-1.0, 11.0, 17)
+    out = {}
+    for tag in ("plain", "nudged"):
+        if tag == "nudged" and rank != 0:
+            S._solve_tri = lambda L, b: solve(L, b) * (1.0 + 2.0**-52)
+        try:
+            for method in ("vfe", "fitc", "dtc"):
+                leaves = [_t(a).requires_grad_(True) for a in (1.3, z, 0.1, xn)]
+                mean, var = P.dist_sparse_posterior(
+                    EQ().stretch(leaves[0]), leaves[1][:, None], _t(x)[:, None], _t(y),
+                    leaves[2], leaves[3][:, None], mesh, method=method)
+                grads = _grads(mean.sum() + var.sum(), leaves)
+                out[f"{tag}_{method}_mean"], out[f"{tag}_{method}_var"] = _np(mean), _np(var)
+                for name, g in zip(("s", "z", "noise", "x_new"), grads):
+                    out[f"{tag}_{method}_{name}"] = _np(g)
+        finally:
+            S._solve_tri = solve
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The 2-D block-cyclic path (tests/parallel/test_cholesky2d.py and the 2-D
 # tests of test_distributed.py), on every grid of the world size.
@@ -999,7 +1036,7 @@ SUITES = {
     "parallel": {f.__name__[5:]: f for f in (
         case_factors, case_untileable, case_nlml, case_nlml_matrix, case_multi_output,
         case_posterior, case_elbo, case_hybrid, case_jitter, case_entries, case_flops,
-        case_memory, case_f5, case_grid, case_grid_entries, *ITER_CASES)},
+        case_memory, case_f5, case_f6, case_grid, case_grid_entries, *ITER_CASES)},
     "comm": {"comm_volume": case_comm_volume, "comm_volume_2d": case_comm_volume_2d,
              "comm_matvec": case_comm_matvec},
     "grid8": {f.__name__[5:]: f for f in (case_grid, case_grid_entries, case_comm_volume_2d)},
