@@ -63,9 +63,15 @@ on the card, and drives the port's paths through their entry points:
   tangent kernel of K1 (``csrc/gram_jvp.cu``) against its plain version,
   K2's forward rule against float64 differences, ``entry.flagship_jacfwd``
   at N=2000 against the reverse gradient and float64, the Hessian of a
-  log-determinant through K2, a Hessian through K1's backward raising;
-  the captured Adam step with the adaptive-jitter probe and with rq's
-  alpha trainable, each against eager steps.
+  log-determinant through K2; second derivatives through K1's backward:
+  its tangent kernel (``csrc/gram_bwd_jvp.cu``) against its plain
+  version, ``entry.flagship_hessian`` at N=2000 (K1, its backward, both
+  tangent kernels and K2) against float64, reverse over reverse against
+  it; the captured Adam step with the adaptive-jitter probe and with rq's
+  alpha trainable, each against eager steps. Phase ``opt_nuts`` runs
+  NUTS's chains batched (one batched evaluation and one host read a
+  round), then NUTS and HMC in float64 batched against one chain at a
+  time.
 
 The training step's surrogate, its Gram term's value and gradient, is
 one launch of the fused Gram-gradient kernel (``csrc/gram_matvec_vjp.cu``),
@@ -242,6 +248,13 @@ KERNELS = {
         "source": "stheno_torch/ops/csrc/gram_jvp.cu",
         "replaces": "stheno_tpu/ops/gram.py:92",
     },
+    # The forward rule of K1's backward (second derivatives through K1).
+    # It replaces no Pallas kernel: on the TPU, forward mode differentiates
+    # the XLA backward _gram_bwd op by op, so it stands for that.
+    "gram_bwd_jvp": {
+        "source": "stheno_torch/ops/csrc/gram_bwd_jvp.cu",
+        "replaces": "stheno_tpu/ops/gram.py:198",
+    },
 }
 
 # The matrix-free path's size (bench.py:bench_iterative_262k).
@@ -322,6 +335,14 @@ JAX_F32_ITEM9 = {
     "kron_grad_rel": 9.940651953351669e-01,
     "grid_mean_rel": 1.893446987080664e-01,
 }
+
+
+# The JAX package's own float32 error on the Hessian of the flagship NLML
+# at N=2000 on the CPU (jax.hessian; scripts/jax_hessian_f32_error.py,
+# recorded in PERF.md): the largest entry's error over the largest float64
+# entry. Phase item2_7_path allows twice it for entry.flagship_hessian in
+# float32 against the port's float64 Hessian on the CPU.
+JAX_F32_HESSIAN = 1.321915940074644e-05
 
 
 class SmokeFailure(AssertionError):
@@ -718,12 +739,13 @@ def _kernel_modules():
     from stheno_torch.ops import chol_tile as K2
     from stheno_torch.ops import gram as K1
     from stheno_torch.ops import gram_bwd as K1B
+    from stheno_torch.ops import gram_bwd_jvp as K1BJ
     from stheno_torch.ops import gram_matvec as K3
     from stheno_torch.ops import gram_jvp as K1J
     from stheno_torch.ops import gram_matvec_vjp as K3V
 
     return {"gram": K1, "gram_bwd": K1B, "chol_tile": K2, "gram_matvec": K3,
-            "gram_matvec_vjp": K3V, "gram_jvp": K1J}
+            "gram_matvec_vjp": K3V, "gram_jvp": K1J, "gram_bwd_jvp": K1BJ}
 
 
 def _counts():
@@ -743,8 +765,8 @@ def _set_counts(counts):
         mods["gram_matvec"].route_launches[r] = counts[f"gram_matvec_{r}"]
 
 
-ZERO_COUNTS = {k: 0 for k in ("gram", "gram_bwd", "chol_tile", "gram_jvp", "gram_matvec",
-                              "gram_matvec_vjp",
+ZERO_COUNTS = {k: 0 for k in ("gram", "gram_bwd", "chol_tile", "gram_jvp", "gram_bwd_jvp",
+                              "gram_matvec", "gram_matvec_vjp",
                               "gram_matvec_mma", "gram_matvec_ffma", "gram_matvec_dmma")}
 
 
@@ -2253,20 +2275,78 @@ def phase_opt_adam():
 NUTS_STEPS = {"num_warmup": 96, "num_samples": 64}
 
 
+#: The float64 check of the batched chains against chains in turn: chains,
+#: warm-up and sampling steps, NUTS's tree depth.
+CHAINS_F64 = {"num_chains": 2, "num_warmup": 8, "num_samples": 8}
+CHAINS_F64_DEPTH = 4
+
+
+def _chains_f64_check():
+    """``entry.nuts_n2000`` and ``entry.hmc_n2000`` in float64 on the card
+    at ``CHAINS_F64``, their chains batched (the samplers' driver) and one
+    at a time (``entry._nuts_n2000``, ``_hmc_n2000`` with
+    ``_flat._drive_in_turn``): every sample, HMC's
+    log-densities, NUTS's accept statistics and HMC's accept rate equal
+    within 1e-9 (relative to the largest), NUTS's tree depths equal."""
+    from stheno_torch import entry as E
+    from stheno_torch.opt import _flat
+
+    def rel(a, b):
+        a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+    out = {}
+    for name, fn, kw in (("nuts", E._nuts_n2000, {"max_depth": CHAINS_F64_DEPTH}),
+                         ("hmc", E._hmc_n2000, {})):
+        kw = {**CHAINS_F64, **kw, "dtype": torch.float64}
+        c0, p0 = _flat.batch_calls, _flat.batch_points
+        t0 = time.perf_counter()
+        got = fn(5, None, None, **kw)
+        wall = time.perf_counter() - t0
+        calls, points = _flat.batch_calls - c0, _flat.batch_points - p0
+        t0 = time.perf_counter()
+        ref = fn(5, None, _flat._drive_in_turn, **kw)
+        wall_turn = time.perf_counter() - t0
+        rels = {f"sample_{k}": rel(got[0][k], ref[0][k]) for k in ref[0]}
+        if name == "nuts":
+            rels["accept_rate"] = rel(got[1], ref[1])
+            rels["accepts"] = rel(got[2], ref[2])
+            depths = bool(torch.equal(got[3], ref[3]))
+        else:
+            rels["logps"] = rel(got[1], ref[1])
+            rels["accept_rate"] = rel(got[2], ref[2])
+            depths = None
+        out[name] = {"rel": rels, "depths_equal": depths, "batch_calls": calls,
+                     "points": points, "wall_s": wall, "wall_in_turn_s": wall_turn}
+    emit({"phase": "opt_nuts", "chains_f64": out, "settings": {**CHAINS_F64,
+                                                               "max_depth": CHAINS_F64_DEPTH}})
+    for name, r in out.items():
+        for k, v in r["rel"].items():
+            check(v <= 1e-9, f"{name} batched against in turn, float64, {k}: {v}")
+    check(out["nuts"]["depths_equal"], "NUTS batched against in turn: tree depths differ")
+    return out
+
+
 def phase_opt_nuts():
     """The NUTS path of ``bench.py:bench_nuts`` through
     ``entry.nuts_n2000`` (N=2000, float32, 4 chains, depth 6, dense metric,
-    adaptive jitter) at ``NUTS_STEPS``: wall time, the smallest ESS and
-    largest split R-hat over the three log-hyperparameters, ESS/s; gated
-    as bench.py gates it (finite ESS, R-hat < 1.7)."""
+    adaptive jitter) at ``NUTS_STEPS``, its chains batched (each round's
+    pending leapfrog steps one batched evaluation and one host read):
+    wall time, the smallest ESS and largest split R-hat over the three
+    log-hyperparameters, ESS/s, the batched evaluations (host reads) and
+    the positions they evaluated; gated as bench.py gates it (finite ESS,
+    R-hat < 1.7). Then the float64 check of the batched chains against
+    chains in turn (``_chains_f64_check``)."""
     from stheno_torch import entry as E
-    from stheno_torch.opt import effective_sample_size, potential_scale_reduction
+    from stheno_torch.opt import _flat, effective_sample_size, potential_scale_reduction
 
     _set_counts(ZERO_COUNTS)
+    c0, p0 = _flat.batch_calls, _flat.batch_points
     t0 = time.perf_counter()
     samples, accept = E.nuts_n2000(0, **NUTS_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    calls, points = _flat.batch_calls - c0, _flat.batch_points - p0
     counts = _counts()
     for name in ("gram", "gram_bwd", "chol_tile"):
         check(counts[name] >= 1, f"NUTS launched no {name}: {counts}")
@@ -2278,10 +2358,14 @@ def phase_opt_nuts():
     rhat = max(potential_scale_reduction(v) for v in samples.values())
     report = {"phase": "opt_nuts", "launches": counts, "wall_s": wall, "min_ess": ess,
               "max_rhat": rhat, "ess_per_s": ess / wall, "accept": accept,
+              "batch_calls": calls, "points": points, "points_per_call": points / max(calls, 1),
               "posterior_mean": {k: float(v.double().mean()) for k, v in samples.items()},
               "cut": {"steps": NUTS_STEPS, "bench_nuts": {"num_warmup": 192, "num_samples": 128}}}
     emit(report)
     check(math.isfinite(ess) and rhat < 1.7, f"NUTS mixing: ESS {ess}, R-hat {rhat}")
+    check(calls >= 1 and points > calls, f"NUTS's chains were not batched: {calls} calls for "
+          f"{points} positions")
+    _chains_f64_check()
     return counts
 
 
@@ -2550,8 +2634,13 @@ def _launched(fn):
 
 def _own_peak(fn):
     """The peak memory that ``fn()`` allocates above what was allocated
-    before it, in bytes."""
+    before it, in bytes. Reference cycles that hold tensors are collected
+    first: were the collector to free them while ``fn`` runs, the peak
+    would count less than ``fn`` holds (the paths' own cycles do hold
+    tensors, and when the collector runs depends on all the objects a run
+    has made)."""
     torch.cuda.synchronize()
+    gc.collect()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     fn()
@@ -2618,7 +2707,7 @@ def _blr_exact(x, y, params):
 def _k1_rq_dsl(x, alpha):
     """K1 and its backward, rq, at the decomposition model's N=2000 Gram (x
     is y): each against its plain version (``_gram_atol``, ``_hold_bwd``),
-    CUDA-event times, plain and library times (``(1 + cdist^2 / 2 alpha)^
+    CUDA-event and device times, plain and library times (``(1 + cdist^2 / 2 alpha)^
     -alpha`` and ``autograd.grad`` through it) and bounds (inputs and the
     output read or written once; the forward's ``exp``/``log`` pair and a
     dozen flops an entry, the backward's about 20)."""
@@ -2643,6 +2732,8 @@ def _k1_rq_dsl(x, alpha):
     b_ms, b_by = bound((2 * n + n * n) * 4, 20 * n * n, torch.float32)
     bwd = {"kind": "rq", "shape": [n, n, 1], "max_abs_err": bwd_err, "cases": cases,
            "ms": time_ms(lambda: torch.autograd.grad(Kg, xg, gbar, retain_graph=True), inner=20),
+           "device_ms": device_ms_per_call(lambda: KB.gram_bwd("rq", x, x, gbar, alpha,
+                                                               same=True)),
            "plain_ms": time_ms(lambda: KB.gram_bwd_plain("rq", x, x, gbar, alpha, same=True),
                                reps=5, warmup=1),
            "library_ms": time_ms(lambda: torch.autograd.grad(KL, xl, gbar, retain_graph=True),
@@ -2859,8 +2950,8 @@ def phase_dsl_path(smi):
     return [
         {"name": name, "route": "cuda", "source": KERNELS[name]["source"],
          "replaces": KERNELS[name]["replaces"], "launches": path_counts[base],
-         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")}}
+         **{k: row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms") if k in row}}
         for name, base, row in (("gram_dsl", "gram", k1), ("gram_bwd_dsl", "gram_bwd", k1b),
                                 ("chol_tile_dsl", "chol_tile", k2))
     ]
@@ -4551,8 +4642,10 @@ def _item12b_run_grid(mesh, run):
                    "bytes": sum(c_ * k for _, _, c_, k in traffic["instructions"] if k > 1),
                    "model": _item12b_loop_model(m, b, r, c)}
     del K
-    # The largest tensor and the step's own peak, in one run.
+    # The largest tensor and the step's own peak, in one run (cycles
+    # collected first, as _own_peak does).
     torch.cuda.synchronize()
+    gc.collect()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     out["largest_tensor"] = _largest_tensor(step)
@@ -4732,7 +4825,7 @@ ITERATIVE_CHAINS = (2, 16, 16, 4)
 
 def _sampler_runs(mesh):
     """``entry.nuts_n2000`` and ``entry.hmc_n2000`` at ``ITERATIVE_CHAINS``
-    with the chains over ``mesh``'s data axis (``None``: in turn): each
+    with the chains over ``mesh``'s data axis (``None``: no mesh): each
     chain's samples (and HMC's log-densities) as lists, and the accept
     rates."""
     from stheno_torch import entry as E
@@ -5297,6 +5390,270 @@ def _jvp_kernel_checks():
     return err32, cases
 
 
+def _bwd_jvp_tols(kind, x, y, gbar, xt, yt, at, gt, alpha=1.3, block=128):
+    """Per-entry tolerances ``(xbar', ybar', dalpha')`` of the backward's
+    tangent kernel against its plain version, in float64 (``B`` directions
+    each). Both sum the same terms ``t = W' r + W rt`` (``W = gbar g'``,
+    ``W' = gt g' + gbar g'' d2' + gbar (d g'/d alpha) at``, ``d2' = 2 s``,
+    ``s = <r, rt>``) in other orders (8 sqrt(terms) eps of their absolute
+    sum, as ``_bwd_tols``), from d2 that each rounds within dd2 = 4 d eps
+    (|x_i|^2 + |y_j|^2) (``_gram_atol``): so g', g'' and rq's alpha terms
+    may differ by their spread over [d2 - dd2, d2 + dd2] (each is
+    monotone there, or bounded by its two ends' distance); s sums d terms
+    (4 d eps of its absolute sum S), each product a few eps. Where the
+    clamp at 0 may bite (d2 < dd2) one of the two may drop the g'' term
+    the other keeps: its whole size is allowed. Near d2 = 0 that is as
+    large as Matérn-1/2's and Matérn-3/2's second derivatives are
+    ill-conditioned there (g'' grows as 1 / d^3 and 1 / d). r and rt are
+    differences the two round alike. linear: the sums' rounding only."""
+    from stheno_torch.ops.gram import (_alpha_factor, _alpha_second, _apply_kind, _g_prime,
+                                       _g_second, arith_dtype)
+
+    eps = torch.finfo(arith_dtype(x.dtype)).eps
+    n, d = x.shape
+    m = y.shape[0]
+    B = gt.shape[0]
+    f = lambda t: None if t is None else t.double()  # noqa: E731
+    xf, yf, gb_all, xtf, ytf, gtf = f(x), f(y), f(gbar), f(xt), f(yt), f(gt)
+    atf = torch.zeros(B, dtype=torch.float64, device=x.device) if at is None else at.double()
+    a = torch.as_tensor(float(alpha), dtype=torch.float64, device=x.device)
+    rx, ry, ra = (8 * math.sqrt(k) * eps for k in (m, n, n * m))
+    tx = torch.zeros((B, n, d), dtype=torch.float64, device=x.device)
+    ty = torch.zeros((B, m, d), dtype=torch.float64, device=x.device)
+    ta = torch.zeros(B, dtype=torch.float64, device=x.device)
+    yn = (yf * yf).sum(1)
+
+    def terms(t):
+        K = _apply_kind(kind, t, None, a)
+        gpa, haa = _alpha_second(t, K, a) if kind == "rq" else (0 * t, 0 * t)
+        return (_g_prime(kind, t, K, a), _g_second(kind, t, K, a), gpa, haa,
+                _alpha_factor(t, K, a) if kind == "rq" else 0 * t)
+
+    for s0 in range(0, n, block):
+        xb, gb = xf[s0:s0 + block], gb_all[s0:s0 + block].abs()
+        gtb = gtf[:, s0:s0 + block].abs()
+        xtb = 0.0 if xtf is None else xtf[:, s0:s0 + block, None, :]
+        ytb = 0.0 if ytf is None else ytf[:, None, :, :]
+        if kind == "linear":
+            tx[:, s0:s0 + block] = rx * (gtb @ yf.abs() + (
+                0.0 if ytf is None else gb @ ytf.abs()))
+            ty += ry * (gtb.mT @ xb.abs() + (
+                0.0 if xtf is None else gb.T @ xtf[:, s0:s0 + block].abs()))
+            continue
+        diff = xb[:, None, :] - yf[None, :, :]  # (rows, m, d)
+        tdiff = torch.broadcast_to(xtb - ytb, (B,) + diff.shape)  # (B, rows, m, d)
+        d2 = (diff * diff).sum(-1)
+        dd2 = 4 * d * eps * ((xb * xb).sum(1)[:, None] + yn[None, :])
+        lo, hi = torch.clamp_min(d2 - dd2, 0.0), d2 + dd2
+        c, l_, h_ = terms(d2), terms(lo), terms(hi)
+        sp = [torch.maximum((u - v).abs(), (w - v).abs()) for v, u, w in zip(c, l_, h_)]
+        gp, gpp, gpa, haa, hh = (t.abs() for t in c)
+        dgp, dgpp, dgpa, dhaa, dhh = sp
+        s = (diff * tdiff).sum(-1)  # (B, rows, m)
+        S = (diff.abs() * tdiff.abs()).sum(-1)
+        es = 4 * d * eps * S
+        two_s = 2 * s.abs()
+        at_ = atf.abs()[:, None, None]
+        wd = gtb * gp + gb * gpp * two_s + gb * gpa * at_
+        bite = (d2 < dd2).to(torch.float64)
+        dwd = (gtb * dgp + gb * (dgpp * two_s + gpp * 2 * es + torch.maximum(gpp, l_[1].abs())
+                                  * (two_s + 2 * es) * bite)
+               + gb * dgpa * at_ + 4 * eps * wd)
+        w, dw = gb * gp, gb * dgp + 4 * eps * gb * gp
+        ar, atd = diff.abs(), tdiff.abs()
+        mag = wd[..., None] * ar + w[..., None] * atd
+        err = dwd[..., None] * ar + dw[..., None] * atd
+        tx[:, s0:s0 + block] = 2 * (err + rx * mag).sum(2)
+        ty += 2 * (err + ry * mag).sum(1)
+        if kind == "rq":
+            amag = gtb * hh + gb * (gpa * two_s + haa * at_)
+            aerr = gtb * dhh + gb * (dgpa * two_s + gpa * 2 * es + dhaa * at_) + 4 * eps * amag
+            ta += (aerr + ra * amag).sum((1, 2))
+    return tx + 4 * eps, ty + 4 * eps, ta + 4 * eps
+
+
+def _hold_bwd_jvp(kind, x, y, gbar, xt, yt, at, gt, tag, cases, same):
+    """The backward's tangent kernel (with rq's alpha) against its plain
+    version within ``_bwd_jvp_tols``, run twice with equal bits; returns
+    the largest absolute error of its x and y parts."""
+    from stheno_torch.ops import gram_bwd_jvp as KBJ
+
+    kw = dict(want_alpha=True, same=same)
+    yt_in = None if same else yt
+    got = KBJ.gram_bwd_jvp(kind, x, y, gbar, 1.3, xt, yt_in, at, gt, **kw)
+    again = KBJ.gram_bwd_jvp(kind, x, y, gbar, 1.3, xt, yt_in, at, gt, **kw)
+    ref = KBJ.gram_bwd_jvp_plain(kind, x, y, gbar, 1.3, xt, yt_in, at, gt, **kw)
+    torch.cuda.synchronize()
+    check(all((a is None and b is None) or (a is not None and b is not None and torch.equal(a, b))
+              for a, b in zip(got, again)), f"gram_bwd_jvp {kind} {tag}: two runs differ")
+    check((got[1] is None) == same, f"gram_bwd_jvp {kind} {tag}: ybar' {got[1]}")
+    tx, ty, ta = _bwd_jvp_tols(kind, x, y, gbar, xt, yt, at, gt)
+    if same:
+        tx = tx + ty
+    case = {"kind": kind, "case": tag}
+    errs = []
+    for name, g, r, t in (("x", got[0], ref[0], tx), ("y", got[1], ref[1], ty)):
+        if g is None:
+            continue
+        err, over = _hold(g, r, t, f"gram_bwd_jvp {kind} {tag} d/d{name}")
+        case[f"{name}_max_abs_err"], case[f"{name}_of_tol"] = err, over
+        errs.append(err)
+    if kind == "rq":
+        err, over = _hold(got[2], ref[2], ta, f"gram_bwd_jvp rq {tag} d/dalpha")
+        case["alpha_abs_err"], case["alpha_of_tol"] = err, over
+    cases.append(case)
+    return max(errs)
+
+
+#: The backward's tangent kernel's check shapes ``(n, m, d, same)``: the
+#: flagship's N=2000 Gram with x as y (one tangent for both roles, as
+#: ``_GramBwd``'s rule passes it) and with x apart from y (y on [10.4,
+#: 20.4]: two grids of spacing 0.005 on one interval put pairs within
+#: float32's rounding of d2 = 0, where Matérn-1/2's g'' is infinite), and
+#: two ragged ones.
+BWD_JVP_SHAPES = ((2000, 2000, 1, True), (2000, 2000, 1, False), (333, 517, 3, False),
+                  (333, 333, 3, True))
+
+
+def _bwd_jvp_kernel_checks():
+    """``gram_bwd_jvp`` against ``gram_bwd_jvp_plain`` for every kind, in
+    float32 and float64, at B = 1 and 3, at ``BWD_JVP_SHAPES``, with
+    tangents of x, y, rq's alpha and the cotangent. Returns ``(largest
+    float32 error, cases)``."""
+    from stheno_torch.ops.gram import KINDS
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cases, err32 = [], 0.0
+    for dtype in (torch.float32, torch.float64):
+        for n, m, d, same in BWD_JVP_SHAPES:
+            rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda",  # noqa: E731
+                                             dtype=dtype)
+            if d == 1:
+                x = torch.linspace(0.0, 10.0, n, device="cuda", dtype=dtype)[:, None]
+                y = x if same else torch.linspace(10.4, 20.4, m, device="cuda",
+                                                  dtype=dtype)[:, None]
+            else:
+                x = rnd(n, d)
+                y = x if same else rnd(m, d)
+            gbar = rnd(n, m)
+            for B in (1, 3):
+                xt, gt, at = rnd(B, n, d), rnd(B, n, m), rnd(B)
+                yt = xt if same else rnd(B, m, d)
+                for kind in KINDS:
+                    tag = f"{str(dtype)[6:]} {n}x{m}x{d}{' same' if same else ''} B={B}"
+                    e = _hold_bwd_jvp(kind, x, y, gbar, xt, yt, at, gt, tag, cases, same)
+                    if dtype == torch.float32:
+                        err32 = max(err32, e)
+    return err32, cases
+
+
+def _flagship_hessian_checks():
+    """(ii) ``entry.flagship_hessian`` at N=2000: float32 on the card (its
+    launches counted), against the port's float64 Hessian on the CPU
+    within twice ``JAX_F32_HESSIAN`` (largest entry's error over the
+    largest entry); float64 on the card against the same within 1e-8.
+    (iii) reverse over reverse (``torch.autograd.grad`` with
+    ``create_graph=True``, twice) of the same NLML on the card, against
+    (ii) in the same dtype: float64 within 1e-8; float32 within 4 eps
+    kappa(A) of float32 (A the NLML's covariance at these inputs, its
+    condition number read in float64 on the card: the second pass's
+    products of A^{-1} round at eps kappa). Returns ``(report, launches of
+    (ii)'s float32 run)``."""
+    from stheno_torch import entry as E
+    from stheno_torch.matrix import ops as M
+
+    def rel(a, b):
+        a, b = a.double().cpu(), b.double().cpu()
+        return float((a - b).abs().max() / b.abs().max())
+
+    def rr(x, y, params):
+        names = list(params)
+        p = torch.stack([params[k] for k in names]).detach().requires_grad_(True)
+        f, noise = E._eq_model(dict(zip(names, p)))
+        val = -f.measure.logpdf(f(x, noise), y)
+        (g,) = torch.autograd.grad(val, p, create_graph=True)
+        return torch.stack([torch.autograd.grad(g[i], p, retain_graph=True)[0]
+                            for i in range(len(names))])
+
+    x, y, params = E.flagship_n2000_inputs()
+    H32, counts = _launched(lambda: E.flagship_hessian(x, y, params))
+    for k in ("gram", "gram_bwd", "gram_jvp", "gram_bwd_jvp", "chol_tile"):
+        check(counts[k] >= 1, f"flagship_hessian launched no {k}: {counts}")
+    x64, y64, p64 = E.flagship_n2000_inputs(torch.float64)
+    H64 = E.flagship_hessian(x64, y64, p64)
+    xc, yc, pc = E.flagship_n2000_inputs(torch.float64, "cpu")
+    Hc = E.flagship_hessian(xc, yc, pc)
+    R32, rcounts = _launched(lambda: rr(x, y, params))
+    R64 = rr(x64, y64, p64)
+    with torch.no_grad():
+        f64, noise64 = E._eq_model(p64)
+        ev = torch.linalg.eigvalsh(M.dense(f64(x64, noise64).var))
+    kappa = float(ev.max() / ev.min())
+    rr_tol = 4 * torch.finfo(torch.float32).eps * kappa
+    out = {"hessian_f32": H32.tolist(), "hessian_f64_cpu": Hc.tolist(), "launches": counts,
+           "f32_rel": rel(H32, Hc), "f32_gate": 2 * JAX_F32_HESSIAN, "f64_rel": rel(H64, Hc),
+           "rr_f32_rel": rel(R32, H32), "rr_f32_gate": rr_tol, "kappa": kappa,
+           "rr_f64_rel": rel(R64, H64), "rr_launches": rcounts,
+           "hessian_ms": time_ms(lambda: E.flagship_hessian(x, y, params), reps=5),
+           "jacfwd_ms": time_ms(lambda: E.flagship_jacfwd(x, y, params), reps=5),
+           "rr_ms": time_ms(lambda: rr(x, y, params), reps=5)}
+    emit({"phase": "item2_7_path", "flagship_hessian": out})
+    check(out["f32_rel"] <= 2 * JAX_F32_HESSIAN,
+          f"flagship_hessian float32 against float64: {out['f32_rel']}")
+    check(out["f64_rel"] <= 1e-8, f"flagship_hessian float64 on the card against the CPU's: "
+          f"{out['f64_rel']}")
+    check(out["rr_f64_rel"] <= 1e-8, f"reverse over reverse float64: {out['rr_f64_rel']}")
+    check(out["rr_f32_rel"] <= rr_tol, f"reverse over reverse float32: {out['rr_f32_rel']} "
+          f"against {rr_tol}")
+    for k in ("gram_bwd", "gram_jvp", "gram_bwd_jvp"):
+        check(rcounts[k] >= 1, f"reverse over reverse launched no {k}: {rcounts}")
+    return out, counts
+
+
+def _bwd_jvp_row(counts, err32):
+    """(iv) The backward's tangent kernel's row of the kernels line at the
+    flagship's shape (2000 x 2000, x as y, d = 1), B = 3, float32, eq:
+    times beside its bound (gbar and the B tangent tiles read once, the
+    inputs and the B outputs moved once; the operations, some 60 an entry,
+    bind less), its plain version and ``torch.func.jvp`` of
+    ``torch.func.vjp`` through the plain ``exp(-0.5 ||x_i - x_j||^2)``
+    under ``vmap`` over the B directions."""
+    from stheno_torch.ops import gram_bwd_jvp as KBJ
+
+    B, m = 3, 2000
+    xk = torch.linspace(0.0, 10.0, m, device="cuda")[:, None]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    gbar = torch.randn(m, m, generator=gen, device="cuda")
+    xt = torch.randn(B, m, 1, generator=gen, device="cuda")
+    gt = torch.randn(B, m, m, generator=gen, device="cuda")
+    lib_k = lambda z: torch.exp(-0.5 * (z[:, None] - z[None]).square().sum(-1))  # noqa: E731
+
+    def lib_bwd(z, g):
+        return torch.func.vjp(lib_k, z)[1](g)[0]
+
+    lib = lambda: torch.func.vmap(  # noqa: E731
+        lambda t, u: torch.func.jvp(lib_bwd, (xk, gbar), (t, u))[1])(xt, gt)
+
+    def call():
+        return KBJ.gram_bwd_jvp("eq", xk, xk, gbar, 1.0, xt, None, None, gt, same=True)
+
+    def plain():
+        return KBJ.gram_bwd_jvp_plain("eq", xk, xk, gbar, 1.0, xt, None, None, gt, same=True)
+
+    b_ms, b_by = bound(((1 + B) * m * m + 2 * m + 2 * B * m) * 4, m * m * (20 + 13 * B),
+                       torch.float32)
+    row = {"name": "gram_bwd_jvp", "route": "cuda", "source": KERNELS["gram_bwd_jvp"]["source"],
+           "replaces": KERNELS["gram_bwd_jvp"]["replaces"],
+           "launches": counts["gram_bwd_jvp"], "max_abs_err": err32,
+           "ms": time_ms(call, inner=20),
+           "device_ms": device_ms_per_call(call),
+           "plain_ms": time_ms(plain, reps=5),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lib, reps=5),
+           "shape": [B, m, m, 1]}
+    emit({"phase": "item2_7_path", "kernel": row})
+    return row
+
+
 def _chol_tile_jvp_check(n=1024, h=1e-4):
     """K2's forward rule at n=1024 against a central finite difference of
     the float64 factor (``torch.linalg.cholesky`` and its inverse) along a
@@ -5452,8 +5809,17 @@ def phase_item2_7_path(smi):
         (the JAX package's float32 gradient error, stheno_tpu/config.py:
         95-96) and 1e-3 on the value;
     (c) ``torch.func.hessian`` of ``logdet(s A)`` at n=2048 (the auto
-        policy's K2 recursion) against ``-n / s^2``, rel 1e-3; a Hessian
-        through K1's backward raises;
+        policy's K2 recursion) against ``-n / s^2``, rel 1e-3; then second
+        derivatives through K1's backward: (i) its tangent kernel
+        (``csrc/gram_bwd_jvp.cu``) against its plain version for every
+        kind, float32 and float64, B = 1 and 3, x as y and apart, at
+        2000 x 2000 and ragged shapes (``_bwd_jvp_kernel_checks``); (ii)
+        ``entry.flagship_hessian`` at N=2000, which must launch K1, its
+        backward, both tangent kernels and K2, in float32 against the
+        port's float64 on the CPU within twice ``JAX_F32_HESSIAN`` and in
+        float64 within 1e-8; (iii) reverse over reverse of the same NLML on
+        the card against (ii) (``_flagship_hessian_checks``); (iv) the
+        tangent kernel's row of the kernels line (``_bwd_jvp_row``);
     (d) item 7: a captured Adam step with the adaptive jitter on a Gram
         that needs k >= 2 against eager steps; a captured rq step with
         alpha trainable against eager steps;
@@ -5466,7 +5832,6 @@ def phase_item2_7_path(smi):
     """
     from stheno_torch import entry as E
     from stheno_torch.matrix import ops
-    from stheno_torch.ops import gram as K1
     from stheno_torch.ops import gram_jvp as KJ
 
     gc.collect()
@@ -5509,16 +5874,15 @@ def phase_item2_7_path(smi):
     hrel = _rel(hess, -n / s0**2)
     check(hcounts["chol_tile"] >= 1, f"the Hessian of logdet took no K2: {hcounts}")
     check(hrel <= 1e-3, f"Hessian of logdet(s A) at n={n}: {float(hess)} against {-n / s0**2}")
-    xs = torch.linspace(0.0, 1.0, 64, device="cuda")[:, None]
-    try:
-        torch.func.hessian(lambda z: K1.gram("eq", z, z).sum())(xs)
-        raised = ""
-    except NotImplementedError as e:
-        raised = str(e)
-    check("forward rule" in raised, f"a Hessian through K1's backward did not raise: {raised!r}")
-    report = {"phase": "item2_7_path", "logdet_hessian": {"n": n, "value": float(hess),
-                                                          "rel": hrel, "launches": hcounts},
-              "k1_hessian_raises": raised[:80]}
+    bj_err32, bj_cases = _bwd_jvp_kernel_checks()
+    emit({"phase": "item2_7_path", "logdet_hessian": {"n": n, "value": float(hess), "rel": hrel,
+                                                      "launches": hcounts},
+          "gram_bwd_jvp_cases": len(bj_cases),
+          "gram_bwd_jvp_worst": max(bj_cases, key=lambda c: max(
+              v for k, v in c.items() if k.endswith("of_tol")))})
+    _, h_counts = _flagship_hessian_checks()
+    bwd_jvp_row = _bwd_jvp_row(h_counts, bj_err32)
+    report = {"phase": "item2_7_path"}
 
     # (d) item 7.
     report["adaptive_jitter_adam"] = _adaptive_adam_check()
@@ -5545,7 +5909,7 @@ def phase_item2_7_path(smi):
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lib, reps=5),
            "shape": [B, m, m, 1]}
     emit({"phase": "item2_7_path", "kernel": row})
-    return [row]
+    return [row, bwd_jvp_row]
 
 
 def main():

@@ -1,7 +1,7 @@
 """Items 2 and 7's measurements on one GPU, and ``chip_smoke.py``'s phase
 ``item2_7_path`` alone.
 
-    python3 scripts/torch_item2_7.py [check] [measure]
+    python3 scripts/torch_item2_7.py [check] [measure] [dense] [--root DIR]
 
 ``check`` builds the kernels and runs ``chip_smoke.phase_item2_7_path``
 (the tangent kernel against its plain version, K2's forward rule,
@@ -26,6 +26,11 @@ the tangent kernel's row of the kernels line).
 - ``adam_adaptive``: the captured Adam driver of ``entry.adam_n2000`` (k =
   1), ``run(100)`` after ``run(2)``, steps/s with ``config.adaptive_jitter``
   off and on (two turns each, off, on, on, off), and the probe's jitter.
+
+``dense`` runs ``dense_value_grad`` alone. ``--root DIR`` imports
+``stheno_torch`` from the checkout at DIR (default: this one) and measures
+it with this checkout's ``chip_smoke.py``, so that two checkouts compare
+in one run on one card (``dense`` and ``measure`` only).
 """
 
 import gc
@@ -85,7 +90,7 @@ def value_nlml(cs, smi):
     print(json.dumps(out), flush=True)
 
 
-def dense_value_grad(cs, smi):
+def dense_value_grad(cs, smi, root=None):
     from stheno_torch import EQ, GP
 
     for n in DENSE_N:
@@ -103,7 +108,7 @@ def dense_value_grad(cs, smi):
         val, g = (t.detach() for t in step())
         ms = _collected_ms(step, 5 if n <= 16_384 else 3)
         gc.collect()
-        out = {"measure": "dense_value_grad", "nvidia_smi": smi, "n": n, "ms": ms,
+        out = {"measure": "dense_value_grad", "nvidia_smi": smi, "root": root, "n": n, "ms": ms,
                "own_peak_bytes": cs._own_peak(step), "value": float(val), "grad": float(g)}
         print(json.dumps(out), flush=True)
         del val, g
@@ -166,6 +171,11 @@ def adam_adaptive(cs, smi):
 
 
 def main(argv):
+    root = None
+    if "--root" in argv:
+        i = argv.index("--root")
+        root, argv = argv[i + 1], argv[:i] + argv[i + 2:]
+        sys.path.insert(0, str(Path(root).resolve()))
     what = argv or ["check", "measure"]
     cs = _chip_smoke()
     from stheno_torch import config
@@ -179,7 +189,8 @@ def main(argv):
         if "measure" in what:
             value_nlml(cs, smi)
             adam_adaptive(cs, smi)
-            dense_value_grad(cs, smi)
+        if "measure" in what or "dense" in what:
+            dense_value_grad(cs, smi, root)
     return 0
 
 

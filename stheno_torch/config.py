@@ -282,9 +282,24 @@ def forward_mode_active():
     """Whether a forward-mode derivative is being taken: a ``torch.func``
     jvp level (``jvp``, ``jacfwd``, ``hessian``) is on the transform stack,
     or a ``torch.autograd.forward_ad`` dual level is open."""
-    from torch._C._functorch import TransformType
-    from torch._functorch.pyfunctorch import retrieve_all_functorch_interpreters
+    from torch._C._functorch import TransformType, get_interpreter_stack
 
-    if any(i.key() == TransformType.Jvp for i in retrieve_all_functorch_interpreters()):
+    if any(i.key() == TransformType.Jvp for i in get_interpreter_stack() or ()):
         return True
     return torch.autograd.forward_ad._current_level >= 0 and torch._C._is_fwd_grad_enabled()
+
+
+def differentiated_again():
+    """Whether a backward that runs now may itself be differentiated: grad
+    mode is on inside it (``create_graph=True``) and, under ``torch.func``,
+    a grad or jvp level lies outside the innermost one (``torch.func.grad``
+    always differentiates with ``create_graph=True``, for its own level's
+    sake)."""
+    from torch._C._functorch import TransformType, get_interpreter_stack
+
+    if not torch.is_grad_enabled():
+        return False
+    stack = get_interpreter_stack()
+    if not stack:
+        return True
+    return any(i.key() in (TransformType.Grad, TransformType.Jvp) for i in stack[:-1])

@@ -12,6 +12,8 @@ the model of ``bench.py:bench_n2000``:
 - :func:`flagship_jacfwd` is the same NLML's gradient by forward mode
   (``torch.func.jacfwd``) at N=2000 (:func:`flagship_n2000_inputs`): on
   the card it runs K1's tangent kernel and K2's forward rule;
+  :func:`flagship_hessian` is its Hessian (``torch.func.hessian``, forward
+  over reverse), which adds K1's backward and its tangent kernel;
 - :func:`nlml_n2000` is the reference's headline, the periodic-EQ NLML at
   N=2000 (:func:`n2000_inputs`), as a value or a value and gradient;
 - the matrix-free path of ``bench.py:bench_iterative_262k`` (the exact GP
@@ -118,7 +120,9 @@ from . import parallel as par
 from .parallel import cholesky2d as _c2d
 from .parallel._comm import MeshAxis
 from .parallel.cholesky import sharded
-from .opt import AdamDriver, Vars, sample_hmc, sample_nuts
+from .opt import AdamDriver, Vars
+from .opt.hmc import _sample_hmc
+from .opt.nuts import _sample_nuts
 from .opt.minimise import _make_loss
 from .opt.transform import adam
 from .utils import resumable_minimise
@@ -128,6 +132,7 @@ __all__ = [
     "entry",
     "flagship_n2000_inputs",
     "flagship_jacfwd",
+    "flagship_hessian",
     "periodic_nlml",
     "n2000_inputs",
     "nlml_n2000",
@@ -266,6 +271,27 @@ def flagship_jacfwd(x, y, params):
 
     jac, val = torch.func.jacfwd(nlml, has_aux=True)(p)
     return val, dict(zip(names, jac))
+
+
+@config.pin_matmul_precision
+def flagship_hessian(x, y, params):
+    """The Hessian of the flagship NLML of :func:`flagship_step` with
+    respect to ``params``, the port's form of ``jax.hessian`` of that NLML:
+    one ``torch.func.hessian`` (forward over reverse) over the stacked
+    log-hyperparameters, a ``(k, k)`` tensor in the order of ``params``'s
+    keys. On the card the reverse pass launches K1 and K1's backward, and
+    the forward pass over it, in one launch each for all ``k`` directions,
+    K1's tangent kernel, the backward's tangent kernel
+    (``ops/gram_bwd_jvp.py``) and K2's forward rule."""
+    x, y = config.as_tensor(x), config.as_tensor(y)
+    names = list(params)
+    p = torch.stack([config.as_tensor(params[k], device=x.device) for k in names]).detach()
+
+    def nlml(p):
+        f, noise = _eq_model(dict(zip(names, p)))
+        return -f.measure.logpdf(f(x, noise), y)
+
+    return torch.func.hessian(nlml)(p)
 
 
 def periodic_nlml(x, y, ell, period=1.0, noise=0.1):
@@ -470,15 +496,16 @@ def resumable_n2000(checkpoint_path, steps, *, steps_per_dispatch=1, checkpoint_
     )
 
 
-def _nuts_target(n, dev):
+def _nuts_target(n, dev, dtype=torch.float32):
     """``bench_nuts``'s log posterior and start: an EQ GP over ``(log_ell,
     log_s2, log_noise)`` with standard normal priors on the three, from
     ``(0, 0, -1.9)``, on ``n`` sorted uniform points on [0, 10] with ``y =
-    sin x + 0.15 noise`` (float32, from a numpy ``RandomState(0)``)."""
+    sin x + 0.15 noise`` (float32, from a numpy ``RandomState(0)``), in
+    ``dtype``."""
     r = np.random.RandomState(0)
     x = np.sort(r.rand(n).astype(np.float32)) * 10
     y = (np.sin(x) + 0.15 * r.randn(n)).astype(np.float32)
-    x, y = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    x, y = (torch.as_tensor(a, device=dev).to(dtype) for a in (x, y))
 
     def logpost(p):
         f = GP(torch.exp(p["log_s2"]) * EQ().stretch(torch.exp(p["log_ell"])))
@@ -486,15 +513,16 @@ def _nuts_target(n, dev):
         return lp - 0.5 * (p["log_ell"] ** 2 + p["log_s2"] ** 2 + p["log_noise"] ** 2)
 
     init = {
-        "log_ell": torch.zeros((), device=dev),
-        "log_s2": torch.zeros((), device=dev),
-        "log_noise": torch.full((), -1.9, device=dev),
+        "log_ell": torch.zeros((), dtype=dtype, device=dev),
+        "log_s2": torch.zeros((), dtype=dtype, device=dev),
+        "log_noise": torch.full((), -1.9, dtype=dtype, device=dev),
     }
     return logpost, init
 
 
 def nuts_n2000(key_seed, device=None, *, n=2000, num_chains=4, num_warmup=192,
-               num_samples=128, max_depth=6, mesh=None, chain_axis="chains"):
+               num_samples=128, max_depth=6, mesh=None, chain_axis="chains",
+               dtype=torch.float32):
     """``bench_nuts``'s run: NUTS with the dense metric over ``(log_ell,
     log_s2, log_noise)`` of an EQ GP with standard normal priors on the
     three, from ``(0, 0, -1.9)``, on ``n`` sorted uniform points on [0, 10]
@@ -502,15 +530,28 @@ def nuts_n2000(key_seed, device=None, *, n=2000, num_chains=4, num_warmup=192,
     ``RandomState(0)``), with a CPU generator seeded by ``key_seed`` and
     adaptive jitter on (warm-up explores small noise values where the
     fixed float32 jitter fails). ``mesh`` and ``chain_axis`` split the
-    chains over the ranks of a mesh dimension (``sample_nuts``). Returns
-    ``(samples, accept_rate)``, each sample ``(num_chains, num_samples)``."""
-    logpost, init = _nuts_target(n, config.resolve_device(device))
+    chains over the ranks of a mesh dimension (``sample_nuts``); ``dtype``
+    is the model's (the data are drawn in float32). Returns ``(samples,
+    accept_rate)``, each sample ``(num_chains, num_samples)``."""
+    return _nuts_n2000(key_seed, device, None, n=n, num_chains=num_chains,
+                       num_warmup=num_warmup, num_samples=num_samples, max_depth=max_depth,
+                       mesh=mesh, chain_axis=chain_axis, dtype=dtype)[:2]
+
+
+def _nuts_n2000(key_seed, device, drive, *, n=2000, num_chains=4, num_warmup=192,
+                num_samples=128, max_depth=6, mesh=None, chain_axis="chains",
+                dtype=torch.float32):
+    """:func:`nuts_n2000` with its chains run by ``drive``
+    (``opt/nuts.py:_sample_nuts``): ``(samples, accept_rate, accepts,
+    depths)``."""
+    logpost, init = _nuts_target(n, config.resolve_device(device), dtype)
     prev = config.adaptive_jitter
     config.set_adaptive_jitter(True)
     try:
-        return sample_nuts(
-            logpost, init, torch.Generator().manual_seed(key_seed), num_samples=num_samples,
-            num_warmup=num_warmup, num_chains=num_chains, max_depth=max_depth,
+        return _sample_nuts(
+            logpost, init, torch.Generator().manual_seed(key_seed), drive,
+            num_samples=num_samples, num_warmup=num_warmup, step_size=0.1,
+            max_depth=max_depth, num_chains=num_chains, target_accept=0.8,
             adapt_mass="dense", mesh=mesh, chain_axis=chain_axis,
         )
     finally:
@@ -518,19 +559,29 @@ def nuts_n2000(key_seed, device=None, *, n=2000, num_chains=4, num_warmup=192,
 
 
 def hmc_n2000(key_seed, device=None, *, n=2000, num_chains=2, num_warmup=16, num_samples=16,
-              mesh=None, chain_axis="chains"):
+              mesh=None, chain_axis="chains", dtype=torch.float32):
     """HMC (``sample_hmc``, 8 leapfrog steps of 0.05) on :func:`nuts_n2000`'s
     posterior, with a CPU generator seeded by ``key_seed`` and adaptive
     jitter on; ``mesh`` and ``chain_axis`` split the chains over a mesh
-    dimension. Returns ``(samples, logps, accept_rate)``."""
-    logpost, init = _nuts_target(n, config.resolve_device(device))
+    dimension; ``dtype`` is the model's. Returns ``(samples, logps,
+    accept_rate)``."""
+    return _hmc_n2000(key_seed, device, None, n=n, num_chains=num_chains,
+                      num_warmup=num_warmup, num_samples=num_samples, mesh=mesh,
+                      chain_axis=chain_axis, dtype=dtype)
+
+
+def _hmc_n2000(key_seed, device, drive, *, n=2000, num_chains=2, num_warmup=16,
+               num_samples=16, mesh=None, chain_axis="chains", dtype=torch.float32):
+    """:func:`hmc_n2000` with its chains run by ``drive``
+    (``opt/hmc.py:_sample_hmc``)."""
+    logpost, init = _nuts_target(n, config.resolve_device(device), dtype)
     prev = config.adaptive_jitter
     config.set_adaptive_jitter(True)
     try:
-        return sample_hmc(
-            logpost, init, torch.Generator().manual_seed(key_seed), num_samples=num_samples,
-            num_warmup=num_warmup, step_size=0.05, n_leapfrog=8, num_chains=num_chains,
-            mesh=mesh, chain_axis=chain_axis,
+        return _sample_hmc(
+            logpost, init, torch.Generator().manual_seed(key_seed), drive,
+            num_samples=num_samples, num_warmup=num_warmup, step_size=0.05, n_leapfrog=8,
+            num_chains=num_chains, target_accept=0.8, mesh=mesh, chain_axis=chain_axis,
         )
     finally:
         config.set_adaptive_jitter(prev)

@@ -108,6 +108,9 @@ def _declare(lib):
                                            i, p]
     lib.stheno_gram_jvp.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.stheno_gram_jvp.restype = i
+    lib.stheno_gram_bwd_jvp.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                        i, i, i, i, p]
+    lib.stheno_gram_bwd_jvp.restype = i
     lib.stheno_gram_matvec_vjp.restype = i
     return lib
 

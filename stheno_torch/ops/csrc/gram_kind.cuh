@@ -76,4 +76,38 @@ __device__ __forceinline__ T g_prime(T d2, T alpha, T hia, T* k, T* h) {
   return T(-5.0 / 6.0) * (T(1) + r) * e;
 }
 
+// The second-order terms of the five distance kinds at d2 >= 0, the
+// arithmetic of ops/gram.py:_g_second and _alpha_second, for the forward
+// rule of K1's backward (gram_bwd_jvp.cu): *gp receives g'(d2) (as
+// g_prime), the return value is g''(d2) = d^2 K / d(d2)^2. For rq, *h
+// receives dK/dalpha (as g_prime), *gpa the mixed d g' / d alpha and *haa
+// d^2 K / d alpha^2; the other kinds leave them alone. With d = sqrt(d2 +
+// 1e-36), Matérn-1/2's g'' is K (1 + d) / (4 d^3) and Matérn-3/2's 9 e /
+// (4 r): at d2 = 0 (coincident points) the first overflows float32 and
+// the second is 1e18 times larger than anywhere else; the kernel never
+// multiplies them by a d2 tangent of 0 (see gram_bwd_jvp.cu).
+template <int KIND, typename T>
+__device__ __forceinline__ T g_second(T d2, T alpha, T hia, T* gp, T* h, T* gpa, T* haa) {
+  T k;
+  *gp = g_prime<KIND, T>(d2, alpha, hia, &k, h);
+  if (KIND == kEq) return T(0.25) * k;
+  if (KIND == kRq) {
+    const T base = T(1) + d2 * hia;
+    const T ib = T(1) / base;
+    const T u = d2 * hia * ib;  // d2 / (2 alpha base)
+    const T q = u - dev_log(base);  // h = K q
+    const T ia = T(1) / alpha;
+    *gpa = *gp * (q + u * ia);
+    *haa = k * (q * q + u * u * ia);
+    return T(0.25) * (T(1) + ia) * k * ib * ib;
+  }
+  const T d = dev_sqrt(d2 + T(1e-36));
+  if (KIND == kMatern12) return T(0.25) * k * (T(1) + d) / (d * d * d);
+  if (KIND == kMatern32) {
+    const T r = T(1.7320508075688772) * d;
+    return T(2.25) * dev_exp(-r) / r;
+  }
+  return T(25.0 / 12.0) * dev_exp(T(-2.23606797749979) * d);  // matern52
+}
+
 }  // namespace stheno

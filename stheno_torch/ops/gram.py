@@ -28,15 +28,15 @@ The gradient is an ``autograd.Function`` whose backward is K1's backward
 kernel (``ops/gram_bwd.py``, ``csrc/gram_bwd.cu``) on the card and its
 plain version on the CPU: ``xbar_i = 2 sum_j W_ij (x_i - y_j)`` with ``W =
 gbar * g'(d2)``, the gradient of the JAX package's ``_gram_bwd`` in its
-direct form. Its forward rule is the tangent kernel
-(``ops/gram_jvp.py``, ``csrc/gram_jvp.cu``). rq's alpha reaches every
-kernel as a device pointer (:func:`device_alpha`).
+direct form, itself differentiable (``ops/gram_bwd.py:_GramBwd``, whose
+forward rule is ``ops/gram_bwd_jvp.py``). Its forward rule is the tangent
+kernel (``ops/gram_jvp.py``, ``csrc/gram_jvp.cu``). rq's alpha reaches
+every kernel as a device pointer (:func:`device_alpha`).
 """
 
 import math
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from .. import config
 from . import _build
@@ -109,6 +109,35 @@ def _g_prime(kind, d2, K, alpha):
     raise ValueError(kind)
 
 
+def _g_second(kind, d2, K, alpha):
+    """d^2 K / d(d2)^2 as a function of d2 (and the entry K), the
+    arithmetic of ``csrc/gram_kind.cuh:g_second``. Matérn-1/2's and
+    Matérn-3/2's grow as ``1 / d^3`` and ``1 / d`` at coincident points."""
+    if kind == "eq":
+        return 0.25 * K
+    if kind == "rq":
+        return 0.25 * (1.0 + 1.0 / alpha) * K / (1.0 + d2 / (2.0 * alpha)) ** 2
+    d = torch.sqrt(torch.clamp_min(d2, 0.0) + 1e-36)
+    if kind == "matern12":
+        return 0.25 * K * (1.0 + d) / (d * d * d)
+    if kind == "matern32":
+        r = math.sqrt(3.0) * d
+        return 2.25 * torch.exp(-r) / r
+    if kind == "matern52":
+        return (25.0 / 12.0) * torch.exp(-math.sqrt(5.0) * d)
+    raise ValueError(kind)
+
+
+def _alpha_second(d2, K, alpha):
+    """rq's ``(d g' / d alpha, d^2 K / d alpha^2)``: with ``u = d2 / (2
+    alpha base)`` and ``q = u - log base`` (so that dK/d(alpha) = K q),
+    ``g' (q + u / alpha)`` and ``K (q^2 + u^2 / alpha)``."""
+    base = 1.0 + d2 / (2.0 * alpha)
+    u = d2 / (2.0 * alpha * base)
+    q = u - torch.log(base)
+    return -0.5 * K / base * (q + u / alpha), K * (q * q + u * u / alpha)
+
+
 def _alpha_factor(d2, K, alpha):
     """``K (d2 / (2 alpha base) - log base)``: dK/d(alpha) of rq."""
     base = 1.0 + d2 / (2.0 * alpha)
@@ -167,7 +196,10 @@ def device_alpha(kind, alpha, dtype, device):
     if config.capturing():
         return torch.full((), alpha, dtype=dtype, device=device)
     if key not in _ALPHAS:
-        _ALPHAS[key] = torch.full((), alpha, dtype=dtype, device=device)
+        # Made outside any torch.func transform: a tensor made inside one
+        # is that level's, and the cache would hand it to later levels.
+        with torch._C._DisableFuncTorch():
+            _ALPHAS[key] = torch.full((), alpha, dtype=dtype, device=device)
     return _ALPHAS[key]
 
 
@@ -193,31 +225,6 @@ def _launch(kind, x, y, alpha, out_dtype):
     return out
 
 
-def _gram_backward(ctx, gbar):
-    from .gram_bwd import gram_bwd
-
-    x, y, alpha = ctx.saved_tensors
-    # A rounded tile's cotangent is the unrounded one's (the rounding is
-    # the identity to first order, as astype's transpose is a cast).
-    gbar = gbar.to(x.dtype)
-    need_x, need_y, need_alpha = ctx.needs_input_grad[:3]
-    want_alpha = ctx.kind == "rq" and need_alpha
-    if ctx.same:
-        # autograd hands the one tensor twice: the first slot takes the sum
-        # of both roles.
-        xbar, _, dalpha = gram_bwd(ctx.kind, x, x, gbar, alpha, want_x=need_x, want_y=need_x,
-                                   want_alpha=want_alpha, same=True)
-        return xbar, None, dalpha, None, None
-    xbar, ybar, dalpha = gram_bwd(ctx.kind, x, y, gbar, alpha, want_x=need_x, want_y=need_y,
-                                  want_alpha=want_alpha)
-    return xbar, ybar, dalpha, None, None
-
-
-# The CUDA kernel has no derivative of its own: a second derivative
-# through it raises.
-_gram_backward_once = once_differentiable(_gram_backward)
-
-
 class _Gram(torch.autograd.Function):
     """``gram(kind, x, y, alpha)``, differentiable in ``x``, ``y`` and rq's
     ``alpha`` (a tensor): forward K1, backward K1's backward kernel
@@ -225,11 +232,12 @@ class _Gram(torch.autograd.Function):
     keep K. Where ``x`` is ``y`` one launch sums both roles. Forward mode
     (``jvp``) is the tangent kernel (``ops/gram_jvp.py``), launched once for
     a batch of directions by its own Function's vmap rule, so
-    ``torch.func.jacfwd`` takes K1. On CPU tensors the backward is the
-    plain version in torch, itself differentiable, so a second derivative
-    there works; on CUDA tensors the backward kernel has no derivative, so
-    a second derivative (reverse over reverse, or ``torch.func.hessian``'s
-    forward over reverse) raises. Inputs: ``x, y, alpha, kind,
+    ``torch.func.jacfwd`` takes K1. The backward is itself a Function,
+    ``ops/gram_bwd.py:_GramBwd``, on every device (the kernel on the card,
+    the plain version on the CPU), with forward, reverse and vmap rules of
+    its own, so second derivatives (``torch.func.hessian``'s forward over
+    reverse, and reverse over reverse) take K1's backward, its tangent
+    kernel (``ops/gram_bwd_jvp.py``) and K1's. Inputs: ``x, y, alpha, kind,
     out_dtype``."""
 
     @staticmethod
@@ -251,16 +259,23 @@ class _Gram(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gbar):
-        if not gbar.is_cuda:
-            return _gram_backward(ctx, gbar)
-        if config.forward_mode_active():
-            raise NotImplementedError(
-                "gram: a forward-mode derivative of K1's gradient on the card (as "
-                "torch.func.hessian takes, forward over reverse) is not supported: the CUDA "
-                "backward kernel has no forward rule. Take the Hessian on the CPU, or "
-                "differentiate by torch.func.jacfwd alone."
-            )
-        return _gram_backward_once(ctx, gbar)
+        from .gram_bwd import _GramBwd
+
+        x, y, alpha = ctx.saved_tensors
+        # A rounded tile's cotangent is the unrounded one's (the rounding is
+        # the identity to first order, as astype's transpose is a cast).
+        gbar = gbar.to(x.dtype)
+        need_x, need_y, need_alpha = ctx.needs_input_grad[:3]
+        want_alpha = ctx.kind == "rq" and need_alpha
+        if ctx.same:
+            # autograd hands the one tensor twice: the first slot takes the
+            # sum of both roles.
+            xbar, _, dalpha = _GramBwd.apply(x, None, alpha, gbar, ctx.kind, need_x, need_x,
+                                             want_alpha, True)
+            return xbar, None, dalpha, None, None
+        xbar, ybar, dalpha = _GramBwd.apply(x, y, alpha, gbar, ctx.kind, need_x, need_y,
+                                            want_alpha, False)
+        return xbar, ybar, dalpha, None, None
 
     @staticmethod
     def jvp(ctx, xt, yt, at, *_):

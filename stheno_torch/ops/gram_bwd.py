@@ -196,3 +196,84 @@ def gram_bwd(kind, x, y, gbar, alpha=1.0, *, want_x=True, want_y=True, want_alph
     if dalpha is not None and isinstance(alpha, torch.Tensor):
         dalpha = dalpha.to(alpha.dtype)
     return xbar, ybar, dalpha
+
+
+class _GramBwd(torch.autograd.Function):
+    """``gram_bwd(kind, x, y, gbar, alpha)``, differentiable again: what
+    ``ops/gram.py:_Gram.backward`` returns, on every device. Forward: the
+    backward kernel for CUDA tensors, the plain version for CPU tensors.
+    ``jvp``: the forward rule (``ops/gram_bwd_jvp.py:_GramBwdJvp``), which
+    ``torch.func.hessian`` (forward over reverse) takes, in one launch for
+    all its directions. ``backward`` (reverse over reverse) from the two
+    tangent kernels: ``gbar``'s cotangent is K1's tangent (``gram_jvp``)
+    along the output cotangents ``(xbar', ybar', dalpha')``, and ``x``'s,
+    ``y``'s and ``alpha``'s are the backward's own tangent along the same
+    direction with ``gbar`` held, since the Hessian of ``sum(gbar * G)`` is
+    symmetric. ``vmap``: one call per member of a batch. Inputs: ``x, y,
+    alpha, gbar, kind, want_x, want_y, want_alpha, same``, with ``y`` None
+    when ``same`` (``x`` is ``y``: ``xbar`` is both roles'); outputs
+    ``(xbar, ybar, dalpha)``, None where not asked for."""
+
+    @staticmethod
+    def forward(x, y, alpha, gbar, kind, want_x, want_y, want_alpha, same):
+        return gram_bwd(kind, x, x if same else y, gbar, alpha, want_x=want_x, want_y=want_y,
+                        want_alpha=want_alpha, same=same)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, y, alpha, gbar, kind, want_x, want_y, want_alpha, same = inputs
+        ctx.flags = (kind, want_x, want_y, want_alpha, same)
+        ctx.save_for_backward(x, y, alpha, gbar)
+        ctx.save_for_forward(x, y, alpha, gbar)
+
+    @staticmethod
+    def jvp(ctx, xt, yt, at, gt, *_):
+        from .gram_bwd_jvp import _GramBwdJvp
+
+        kind, want_x, want_y, want_alpha, same = ctx.flags
+        x, y, alpha, gbar = ctx.saved_tensors
+        at = at if kind == "rq" else None
+        if xt is None and yt is None and at is None and gt is None:
+            return _zero_outputs(x, y, kind, *ctx.flags[1:])
+        return _GramBwdJvp.apply(x, y, alpha, gbar, xt, yt, at, gt, *ctx.flags)
+
+    @staticmethod
+    def backward(ctx, xbb, ybb, abb):
+        from .gram_bwd_jvp import _GramBwdJvp
+        from .gram_jvp import _GramJvp
+
+        kind, _, _, _, same = ctx.flags
+        x, y, alpha, gbar = ctx.saved_tensors
+        need_x, need_y, need_alpha, need_g = ctx.needs_input_grad[:4]
+        abb = abb if kind == "rq" else None
+        if xbb is None and ybb is None and abb is None:
+            return (None,) * 9
+        gx = gy = ga = gg = None
+        if need_g:
+            gg = _GramJvp.apply(x, x if same else y, alpha, xbb, xbb if same else ybb, abb,
+                                kind).to(gbar.dtype)
+        if need_x or need_y or (need_alpha and kind == "rq"):
+            gx, gy, ga = _GramBwdJvp.apply(x, y, alpha, gbar, xbb, None if same else ybb, abb,
+                                           None, kind, need_x, need_y and not same,
+                                           need_alpha, same)
+        if ga is not None:
+            ga = ga.to(alpha.dtype)
+        return gx, gy, ga, gg, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, y, alpha, gbar, kind, want_x, want_y, want_alpha, same):
+        from .gram import _member
+        from .gram_bwd_jvp import _stack
+
+        outs = [_GramBwd.apply(*(_member(t, d, i) for t, d in zip((x, y, alpha, gbar), in_dims)),
+                               kind, want_x, want_y, want_alpha, same)
+                for i in range(info.batch_size)]
+        return _stack(outs)
+
+
+def _zero_outputs(x, y, kind, want_x, want_y, want_alpha, same):
+    """Zero tangents of ``_GramBwd``'s outputs."""
+    xo = torch.zeros_like(x) if want_x else None
+    yo = torch.zeros_like(y) if want_y and not same else None
+    ao = x.new_zeros((), dtype=arith_dtype(x.dtype)) if want_alpha and kind == "rq" else None
+    return xo, yo, ao

@@ -15,13 +15,15 @@ Counterpart of ``stheno_tpu/opt/nuts.py``, the same algorithm:
 Where the JAX package runs fixed-size loops under ``jit`` and ``vmap``,
 this one is host-driven: each leaf's U-turn and divergence checks are read
 on the host, so a subtree stops at its first U-turn instead of idling
-through its remaining leaves, and the chains run one after another. Each
-leapfrog step's log-density and gradient run where the parameters lie
-(``_flat.Target``). Randomness comes from a CPU ``torch.Generator``; the
-two packages agree in distribution, not draw by draw. Each chain draws
-from its own generator, seeded from the caller's, so with a mesh the
-chains split over the ranks of a mesh dimension and the result is the
-same to the bit (``_flat.run_chains``).
+through its remaining leaves. Each chain is a coroutine that yields the
+positions it needs evaluated (``_flat``): the chains run together, each
+round's pending leapfrog steps evaluated in one batch where the
+parameters lie and read back once (where the JAX package ``vmap``s its
+chains), and a chain whose tree has stopped waits out no other's.
+Randomness comes from a CPU ``torch.Generator``; the two packages agree in
+distribution, not draw by draw. Each chain draws from its own generator,
+seeded from the caller's, so with a mesh the chains split over the ranks
+of a mesh dimension (``_flat.run_chains``).
 """
 
 import math
@@ -72,12 +74,13 @@ class _Leaf:
         self.q, self.p, self.logp, self.grad = q, p, logp, grad
 
 
-def _nuts_trajectory(target, q0, logp0, grad0, gen, eps, max_depth, inv_mass):
+def _nuts_trajectory(q0, logp0, grad0, gen, eps, max_depth, inv_mass):
     """One NUTS transition from ``q0`` (with its log-density and gradient)
     under a diagonal (vector) or dense (matrix) inverse mass ``inv_mass =
     Sigma`` (momenta ~ N(0, M), ``M = Sigma^{-1}``, kinetic ``p^T Sigma p /
-    2``). Returns ``(q, logp, grad)`` of the proposal and the accept
-    statistic."""
+    2``), as a coroutine: it yields each position to evaluate and receives
+    its ``(logp, grad)``. Returns ``(q, logp, grad)`` of the proposal, the
+    accept statistic and the tree's depth (the subtrees it built)."""
 
     def kinetic(p):
         return 0.5 * float(torch.dot(p, _velocity(inv_mass, p)))
@@ -95,7 +98,7 @@ def _nuts_trajectory(target, q0, logp0, grad0, gen, eps, max_depth, inv_mass):
         e = direction * eps
         p_half = leaf.p + 0.5 * e * leaf.grad
         q = leaf.q + e * _velocity(inv_mass, p_half)
-        logp, grad = target.value_and_grad(q)
+        logp, grad = yield q
         return _Leaf(q, p_half + 0.5 * e * grad, logp, grad)
 
     def build_subtree(start, depth, direction):
@@ -106,7 +109,7 @@ def _nuts_trajectory(target, q0, logp0, grad0, gen, eps, max_depth, inv_mass):
         sum_accept, turning, diverged = 0.0, False, False
         ckpt = [None] * (depth + 1)
         for i in range(2**depth):
-            leaf = leapfrog(leaf, direction)
+            leaf = yield from leapfrog(leaf, direction)
             for k in range(depth + 1):
                 if i % (2**k) == 0:
                     ckpt[k] = leaf
@@ -136,10 +139,11 @@ def _nuts_trajectory(target, q0, logp0, grad0, gen, eps, max_depth, inv_mass):
     minus = plus = prop = _Leaf(q0, p0, logp0, grad0)
     logw = 0.0  # The root leaf has weight exp(H0 - H0) = 1.
     sum_accept, n_accept = 0.0, 0.0
+    depth = 0
     for depth in range(max_depth):
         go_right = _uniform(gen) < 0.5
         direction = 1.0 if go_right else -1.0
-        end, sub_prop, sub_logw, sub_accept, sub_turning, sub_diverged = build_subtree(
+        end, sub_prop, sub_logw, sub_accept, sub_turning, sub_diverged = yield from build_subtree(
             plus if go_right else minus, depth, direction
         )
         if go_right:
@@ -157,7 +161,7 @@ def _nuts_trajectory(target, q0, logp0, grad0, gen, eps, max_depth, inv_mass):
         n_accept += 2.0**depth
         if sub_turning or sub_diverged or _turning(plus.q - minus.q, minus.p, plus.p, inv_mass):
             break
-    return (prop.q, prop.logp, prop.grad), sum_accept / max(n_accept, 1.0)
+    return (prop.q, prop.logp, prop.grad), sum_accept / max(n_accept, 1.0), depth + 1
 
 
 def _warmup_schedule(num_warmup, init_buffer=75, term_buffer=50, base_window=25):
@@ -195,10 +199,13 @@ def _warmup_schedule(num_warmup, init_buffer=75, term_buffer=50, base_window=25)
     return collect, window_end
 
 
-def _single_chain(target, q, gen, num_warmup, num_samples, step_size0, max_depth,
-                  target_accept, collect, window_end, dense):
+def _single_chain(q, gen, num_warmup, num_samples, step_size0, max_depth, target_accept,
+                  collect, window_end, dense):
     """Warm-up (dual averaging and windowed Welford estimation of the
-    metric) then sampling, for one chain. Returns ``(qs, accepts)``."""
+    metric) then sampling, for one chain, as a coroutine (``_flat``).
+    Returns ``(qs, accepts, depths)``: the accept statistics as a float64
+    tensor, each transition's tree depth (warm-up included) as an int64
+    one."""
     gamma, t0, kappa = 0.05, 10.0, 0.75
     dim = q.shape[0]
     eye = torch.eye(dim, dtype=q.dtype)
@@ -207,10 +214,12 @@ def _single_chain(target, q, gen, num_warmup, num_samples, step_size0, max_depth
     mu, h_bar, t = math.log(10 * step_size0), 0.0, 0.0
     w_count, w_mean = 0.0, torch.zeros_like(q)
     w_m2 = torch.zeros((dim, dim) if dense else (dim,), dtype=q.dtype)
-    cur = (q, *target.value_and_grad(q))
+    depths = []
+    cur = (q, *(yield q))
     for step in range(num_warmup):
-        cur, accept = _nuts_trajectory(target, *cur, gen, math.exp(log_eps), max_depth,
-                                       inv_mass)
+        cur, accept, depth = yield from _nuts_trajectory(*cur, gen, math.exp(log_eps),
+                                                         max_depth, inv_mass)
+        depths.append(depth)
         q = cur[0]
         # Dual averaging on the subtree-averaged Metropolis statistic.
         t += 1.0
@@ -246,10 +255,12 @@ def _single_chain(target, q, gen, num_warmup, num_samples, step_size0, max_depth
     eps = math.exp(log_eps_bar)
     qs, accepts = [], []
     for _ in range(num_samples):
-        cur, accept = _nuts_trajectory(target, *cur, gen, eps, max_depth, inv_mass)
+        cur, accept, depth = yield from _nuts_trajectory(*cur, gen, eps, max_depth, inv_mass)
+        depths.append(depth)
         qs.append(cur[0])
         accepts.append(accept)
-    return torch.stack(qs), accepts
+    return (torch.stack(qs), torch.tensor(accepts, dtype=torch.float64),
+            torch.tensor(depths, dtype=torch.int64))
 
 
 def sample_nuts(
@@ -285,15 +296,29 @@ def sample_nuts(
 
     ``generator`` is a CPU ``torch.Generator``. Chains start from ``init``
     jittered by 0.1 standard normals drawn from it; then each chain gets a
-    generator of its own, seeded from it. Without a ``mesh`` the chains run
-    one after another; with one (a ``DeviceMesh``), each rank runs the
-    chains ``c = rank (mod D)`` of its dimension ``chain_axis`` (size
-    ``D``, which must divide ``num_chains``) and the results are gathered
-    over it: the same samples, to the bit, as without the mesh.
+    generator of its own, seeded from it. The chains run together, each
+    round's leapfrog steps evaluated in one batch; with a ``mesh`` (a
+    ``DeviceMesh``), each rank runs so the chains ``c = rank (mod D)`` of
+    its dimension ``chain_axis`` (size ``D``, which must divide
+    ``num_chains``) and the results are gathered over it.
 
     Returns ``(samples, accept_rate)`` with ``samples`` a dict of tensors
     shaped ``(num_chains, num_samples, ...)`` on the parameters' device."""
     del dispatch_chunk
+    samples, accept, _, _ = _sample_nuts(
+        logpdf, init, generator, None, num_samples=num_samples, num_warmup=num_warmup,
+        step_size=step_size, max_depth=max_depth, num_chains=num_chains,
+        target_accept=target_accept, adapt_mass=adapt_mass, mesh=mesh, chain_axis=chain_axis)
+    return samples, accept
+
+
+def _sample_nuts(logpdf, init, generator, drive, *, num_samples, num_warmup, step_size,
+                 max_depth, num_chains, target_accept, adapt_mass, mesh, chain_axis):
+    """:func:`sample_nuts` with its chains run by ``drive``
+    (``_flat.run_chains``; ``None`` for the batched driver). Returns
+    ``(samples, accept_rate, accepts, depths)``: each chain's accept
+    statistics ``(num_chains, num_samples)`` and tree depths ``(num_chains,
+    num_warmup + num_samples)`` besides."""
     target = Target(logpdf, init)
     inits = target.q0 + 0.1 * torch.randn(
         (num_chains, target.dim), generator=generator, dtype=target.dtype
@@ -304,13 +329,12 @@ def sample_nuts(
     else:
         collect = window_end = np.zeros(num_warmup, bool)
 
-    def run_one(c):
-        qs, accepts = _single_chain(target, inits[c], gens[c], num_warmup, num_samples,
-                                    step_size, max_depth, target_accept, collect, window_end,
-                                    adapt_mass == "dense")
-        return qs, torch.tensor(accepts, dtype=torch.float64)
+    def chain(c):
+        return _single_chain(inits[c], gens[c], num_warmup, num_samples, step_size, max_depth,
+                             target_accept, collect, window_end, adapt_mass == "dense")
 
-    runs = run_chains(run_one, num_chains, mesh, chain_axis)
-    qs = torch.stack([qs for qs, _ in runs])
-    accepts = [a for _, acc in runs for a in acc.tolist()]
-    return target.samples(qs), sum(accepts) / max(len(accepts), 1)
+    runs = run_chains(target, chain, num_chains, mesh, chain_axis, drive)
+    qs = torch.stack([r[0] for r in runs])
+    accepts = torch.stack([r[1] for r in runs])
+    rate = sum(accepts.reshape(-1).tolist()) / max(accepts.numel(), 1)
+    return target.samples(qs), rate, accepts, torch.stack([r[2] for r in runs])
