@@ -5505,19 +5505,24 @@ def _hold_bwd_jvp(kind, x, y, gbar, xt, yt, at, gt, tag, cases, same):
     return max(errs)
 
 
-#: The backward's tangent kernel's check shapes ``(n, m, d, same)``: the
-#: flagship's N=2000 Gram with x as y (one tangent for both roles, as
-#: ``_GramBwd``'s rule passes it) and with x apart from y (y on [10.4,
-#: 20.4]: two grids of spacing 0.005 on one interval put pairs within
-#: float32's rounding of d2 = 0, where Matérn-1/2's g'' is infinite), and
-#: two ragged ones.
-BWD_JVP_SHAPES = ((2000, 2000, 1, True), (2000, 2000, 1, False), (333, 517, 3, False),
-                  (333, 333, 3, True))
+#: The backward's tangent kernel's check shapes ``(n, m, d, same,
+#: directions)``: the flagship's N=2000 Gram with x as y (one tangent for
+#: both roles, as ``_GramBwd``'s rule passes it) and with x apart from y (y
+#: on [10.4, 20.4]: two grids of spacing 0.005 on one interval put pairs
+#: within float32's rounding of d2 = 0, where Matérn-1/2's g'' is
+#: infinite); a row of 517, which breaks the 16-byte alignment of gbar's
+#: rows, at depth 1 (whose sweep takes up to 8 directions: B = 9 takes a
+#: second) and 3; and depths 8 and 9, the deepest held in registers and
+#: one past it. B = 1, 3 and 8 at each.
+BWD_JVP_SHAPES = ((2000, 2000, 1, True, (1, 3, 8)), (2000, 2000, 1, False, (1, 3, 8)),
+                  (333, 517, 1, False, (1, 3, 8, 9)), (333, 517, 3, False, (1, 3, 8)),
+                  (333, 333, 3, True, (1, 3, 8)), (300, 260, 8, False, (1, 3, 8)),
+                  (260, 260, 9, True, (1, 3, 8)))
 
 
 def _bwd_jvp_kernel_checks():
     """``gram_bwd_jvp`` against ``gram_bwd_jvp_plain`` for every kind, in
-    float32 and float64, at B = 1 and 3, at ``BWD_JVP_SHAPES``, with
+    float32 and float64, at ``BWD_JVP_SHAPES`` and their directions, with
     tangents of x, y, rq's alpha and the cotangent. Returns ``(largest
     float32 error, cases)``."""
     from stheno_torch.ops.gram import KINDS
@@ -5525,7 +5530,7 @@ def _bwd_jvp_kernel_checks():
     gen = torch.Generator(device="cuda").manual_seed(9)
     cases, err32 = [], 0.0
     for dtype in (torch.float32, torch.float64):
-        for n, m, d, same in BWD_JVP_SHAPES:
+        for n, m, d, same, batches in BWD_JVP_SHAPES:
             rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda",  # noqa: E731
                                              dtype=dtype)
             if d == 1:
@@ -5536,7 +5541,7 @@ def _bwd_jvp_kernel_checks():
                 x = rnd(n, d)
                 y = x if same else rnd(m, d)
             gbar = rnd(n, m)
-            for B in (1, 3):
+            for B in batches:
                 xt, gt, at = rnd(B, n, d), rnd(B, n, m), rnd(B)
                 yt = xt if same else rnd(B, m, d)
                 for kind in KINDS:
@@ -5610,47 +5615,69 @@ def _flagship_hessian_checks():
     return out, counts
 
 
-def _bwd_jvp_row(counts, err32):
-    """(iv) The backward's tangent kernel's row of the kernels line at the
-    flagship's shape (2000 x 2000, x as y, d = 1), B = 3, float32, eq:
-    times beside its bound (gbar and the B tangent tiles read once, the
-    inputs and the B outputs moved once; the operations, some 60 an entry,
-    bind less), its plain version and ``torch.func.jvp`` of
-    ``torch.func.vjp`` through the plain ``exp(-0.5 ||x_i - x_j||^2)``
-    under ``vmap`` over the B directions."""
-    from stheno_torch.ops import gram_bwd_jvp as KBJ
+#: The backward's tangent kernel's timed cases at the flagship's shape
+#: (2000 x 2000, x as y, d = 1, eq): ``(B, dtype)``. B = 3 in float32 is
+#: ``entry.flagship_hessian``'s launch, B = 1 each launch of reverse over
+#: reverse, B = 3 in float64 the float64 Hessian's.
+BWD_JVP_TIMED = ((3, torch.float32), (1, torch.float32), (3, torch.float64))
 
-    B, m = 3, 2000
-    xk = torch.linspace(0.0, 10.0, m, device="cuda")[:, None]
+
+def bwd_jvp_times(KBJ, B, dtype, m=2000, library=True, traced=None):
+    """The backward's tangent kernel (``KBJ``: a checkout's
+    ``stheno_torch.ops.gram_bwd_jvp``) at the flagship's shape, ``B``
+    directions in ``dtype``, eq, x as y: its CUDA-event time per wrapper
+    call (``time_ms``, 20 calls back to back), its device time
+    (``device_ms_per_call``), its bound (gbar and the B tangent tiles read
+    once, x, its B tangents and the B outputs moved once; the operations,
+    some 20 + 13 B an entry, bind less), and with ``library`` its plain
+    version and ``torch.func.jvp`` of ``torch.func.vjp`` through the plain
+    ``exp(-0.5 ||x_i - x_j||^2)`` under ``vmap`` over the B directions,
+    which the port never makes; with ``traced``, ``traced(call)`` under
+    ``"kernels"``."""
+    xk = torch.linspace(0.0, 10.0, m, device="cuda", dtype=dtype)[:, None]
     gen = torch.Generator(device="cuda").manual_seed(4)
-    gbar = torch.randn(m, m, generator=gen, device="cuda")
-    xt = torch.randn(B, m, 1, generator=gen, device="cuda")
-    gt = torch.randn(B, m, m, generator=gen, device="cuda")
-    lib_k = lambda z: torch.exp(-0.5 * (z[:, None] - z[None]).square().sum(-1))  # noqa: E731
-
-    def lib_bwd(z, g):
-        return torch.func.vjp(lib_k, z)[1](g)[0]
-
-    lib = lambda: torch.func.vmap(  # noqa: E731
-        lambda t, u: torch.func.jvp(lib_bwd, (xk, gbar), (t, u))[1])(xt, gt)
+    gbar = torch.randn(m, m, generator=gen, device="cuda", dtype=dtype)
+    xt = torch.randn(B, m, 1, generator=gen, device="cuda", dtype=dtype)
+    gt = torch.randn(B, m, m, generator=gen, device="cuda", dtype=dtype)
 
     def call():
         return KBJ.gram_bwd_jvp("eq", xk, xk, gbar, 1.0, xt, None, None, gt, same=True)
 
-    def plain():
-        return KBJ.gram_bwd_jvp_plain("eq", xk, xk, gbar, 1.0, xt, None, None, gt, same=True)
+    size = torch.empty((), dtype=dtype).element_size()
+    b_ms, b_by = bound(((1 + B) * m * m + 2 * m + 2 * B * m) * size, m * m * (20 + 13 * B),
+                       torch.float64 if dtype == torch.float64 else torch.float32)
+    rec = {"shape": [B, m, m, 1], "dtype": str(dtype), "ms": time_ms(call, inner=20),
+           "device_ms": device_ms_per_call(call), "bound_ms": b_ms, "bound_by": b_by}
+    if traced is not None:
+        rec["kernels"] = traced(call)
+    if library:
+        lib_k = lambda z: torch.exp(-0.5 * (z[:, None] - z[None]).square().sum(-1))  # noqa: E731
 
-    b_ms, b_by = bound(((1 + B) * m * m + 2 * m + 2 * B * m) * 4, m * m * (20 + 13 * B),
-                       torch.float32)
+        def lib_bwd(z, g):
+            return torch.func.vjp(lib_k, z)[1](g)[0]
+
+        lib = lambda: torch.func.vmap(  # noqa: E731
+            lambda t, u: torch.func.jvp(lib_bwd, (xk, gbar), (t, u))[1])(xt, gt)
+        rec["plain_ms"] = time_ms(lambda: KBJ.gram_bwd_jvp_plain(
+            "eq", xk, xk, gbar, 1.0, xt, None, None, gt, same=True), reps=5)
+        rec["library_ms"] = time_ms(lib, reps=5)
+    return rec
+
+
+def _bwd_jvp_row(counts, err32):
+    """(iv) The backward's tangent kernel's row of the kernels line at the
+    flagship's shape, B = 3, float32 (``bwd_jvp_times``); the B = 1 and
+    float64 cases of ``BWD_JVP_TIMED`` emitted beside it, each with its
+    bound."""
+    from stheno_torch.ops import gram_bwd_jvp as KBJ
+
+    recs = [bwd_jvp_times(KBJ, B, dtype) for B, dtype in BWD_JVP_TIMED]
     row = {"name": "gram_bwd_jvp", "route": "cuda", "source": KERNELS["gram_bwd_jvp"]["source"],
            "replaces": KERNELS["gram_bwd_jvp"]["replaces"],
-           "launches": counts["gram_bwd_jvp"], "max_abs_err": err32,
-           "ms": time_ms(call, inner=20),
-           "device_ms": device_ms_per_call(call),
-           "plain_ms": time_ms(plain, reps=5),
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lib, reps=5),
-           "shape": [B, m, m, 1]}
+           "launches": counts["gram_bwd_jvp"], "max_abs_err": err32, **recs[0]}
+    del row["dtype"]
     emit({"phase": "item2_7_path", "kernel": row})
+    emit({"phase": "item2_7_path", "gram_bwd_jvp_cases": recs[1:]})
     return row
 
 
@@ -5812,14 +5839,17 @@ def phase_item2_7_path(smi):
         policy's K2 recursion) against ``-n / s^2``, rel 1e-3; then second
         derivatives through K1's backward: (i) its tangent kernel
         (``csrc/gram_bwd_jvp.cu``) against its plain version for every
-        kind, float32 and float64, B = 1 and 3, x as y and apart, at
-        2000 x 2000 and ragged shapes (``_bwd_jvp_kernel_checks``); (ii)
+        kind, float32 and float64, B = 1, 3 and 8 (and 9: a second sweep
+        of directions), x as y and apart, at 2000 x 2000, ragged and
+        unaligned rows and depths 1, 3, 8 and 9 (``BWD_JVP_SHAPES``,
+        ``_bwd_jvp_kernel_checks``); (ii)
         ``entry.flagship_hessian`` at N=2000, which must launch K1, its
         backward, both tangent kernels and K2, in float32 against the
         port's float64 on the CPU within twice ``JAX_F32_HESSIAN`` and in
         float64 within 1e-8; (iii) reverse over reverse of the same NLML on
         the card against (ii) (``_flagship_hessian_checks``); (iv) the
-        tangent kernel's row of the kernels line (``_bwd_jvp_row``);
+        tangent kernel's row of the kernels line, with its B = 1 and
+        float64 cases beside it (``_bwd_jvp_row``);
     (d) item 7: a captured Adam step with the adaptive jitter on a Gram
         that needs k >= 2 against eager steps; a captured rq step with
         alpha trainable against eager steps;

@@ -1,7 +1,7 @@
 """Items 2 and 7's measurements on one GPU, and ``chip_smoke.py``'s phase
 ``item2_7_path`` alone.
 
-    python3 scripts/torch_item2_7.py [check] [measure] [dense] [--root DIR]
+    python3 scripts/torch_item2_7.py [check] [measure] [dense] [hessian] [--root DIR]
 
 ``check`` builds the kernels and runs ``chip_smoke.phase_item2_7_path``
 (the tangent kernel against its plain version, K2's forward rule,
@@ -27,7 +27,12 @@ the tangent kernel's row of the kernels line).
   1), ``run(100)`` after ``run(2)``, steps/s with ``config.adaptive_jitter``
   off and on (two turns each, off, on, on, off), and the probe's jitter.
 
-``dense`` runs ``dense_value_grad`` alone. ``--root DIR`` imports
+``dense`` runs ``dense_value_grad`` alone. ``hessian`` (alone too) traces
+one ``entry.flagship_hessian`` call at N=2000 in float32 after three
+warm-ups: its CUDA-event time (median of 10), the trace's span, busy time
+and share, device launches and device ms by kernel, the wrappers' launch
+counts, and the host's operators by self CPU time over one more call
+(``torch.profiler``, CPU only): where the call's time goes. ``--root DIR`` imports
 ``stheno_torch`` from the checkout at DIR (default: this one) and measures
 it with this checkout's ``chip_smoke.py``, so that two checkouts compare
 in one run on one card (``dense`` and ``measure`` only).
@@ -170,6 +175,33 @@ def adam_adaptive(cs, smi):
     print(json.dumps(out), flush=True)
 
 
+def hessian_trace(cs, smi):
+    from stheno_torch import entry as E
+
+    x, y, params = E.flagship_n2000_inputs()
+    call = lambda: E.flagship_hessian(x, y, params)  # noqa: E731
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    ms = cs.time_ms(call, reps=10)
+    t = cs.trace("flagship_hessian", call)
+    kernels = sorted(t["by_name"].items(), key=lambda kv: -kv[1][1])
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        call()
+        torch.cuda.synchronize()
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:20]
+    print(json.dumps({
+        "what": "flagship_hessian_trace", "nvidia_smi": smi, "ms": ms,
+        "span_ms": t["span_us"] / 1e3, "busy_ms": t["busy_us"] / 1e3,
+        "busy_share": t["busy_us"] / t["span_us"],
+        "device_launches": sum(c for _, (c, _) in kernels),
+        "kernels": {k: [c, us / 1e3] for k, (c, us) in kernels},
+        "wrapper_launches": t["launches"],
+        "host_self_cpu": [{"op": e.key, "calls": e.count,
+                           "self_cpu_ms": e.self_cpu_time_total / 1e3} for e in host],
+    }), flush=True)
+
+
 def main(argv):
     root = None
     if "--root" in argv:
@@ -191,6 +223,8 @@ def main(argv):
             adam_adaptive(cs, smi)
         if "measure" in what or "dense" in what:
             dense_value_grad(cs, smi, root)
+        if "hessian" in what:
+            hessian_trace(cs, smi)
     return 0
 
 

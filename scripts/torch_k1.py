@@ -1,10 +1,11 @@
-"""K1 (the fused Gram of stheno_torch) and its backward on one GPU: checks
-against the plain versions, times of two checkouts side by side, what the
-compiler made of the kernels, and where chip_smoke.py's device memory
-goes.
+"""K1 (the fused Gram of stheno_torch), its backward and the backward's
+tangent kernel on one GPU: checks against the plain versions, times of two
+checkouts side by side, what the compiler made of the kernels, and where
+chip_smoke.py's device memory goes.
 
     python3 scripts/torch_k1.py check
     python3 scripts/torch_k1.py times [--root DIR]
+    python3 scripts/torch_k1.py jvb [--root DIR] [--check] [--library]
     python3 scripts/torch_k1.py ptxas [--out DIR]
     python3 scripts/torch_k1.py mem [--root DIR]
 
@@ -24,6 +25,17 @@ matern32), each with chip_smoke's numbers and the device kernels of one
 call with their profiled device times (``trace``); then the N=2000
 value+grad step's device launches, busy time and kernels by launch count.
 
+``jvb`` imports ``stheno_torch`` from the checkout at ``--root`` and
+times the backward's tangent kernel (``ops/gram_bwd_jvp.py``) with this
+checkout's ``chip_smoke.bwd_jvp_times`` at its ``BWD_JVP_TIMED`` cases (the
+flagship's 2000 x 2000, x as y, eq: B = 3 and 1 in float32, B = 3 in
+float64), each with its device kernels of one call and their profiled
+times (``trace``); with ``--library`` also its plain version and the
+PyTorch yardstick. One JSON line, with the build's seconds. ``--check``
+first runs ``chip_smoke._bwd_jvp_kernel_checks`` (every kind, both dtypes,
+``BWD_JVP_SHAPES``) against the checkout's plain version. Run it for two
+checkouts in turns in one call to compare them.
+
 ``mem`` takes the peak device memory of one amortised N=262,144 step
 apart. For the checkout at ``--root`` (default: this one), in a fresh
 process: the step's own peak (``max_memory_allocated`` less what was
@@ -33,16 +45,21 @@ start: what is allocated there, the step's own peak, and the live blocks
 grouped by the innermost frame of this repository that allocated them
 (``torch.cuda.memory._record_memory_history``).
 
-``ptxas`` compiles ``gram.cu``, ``gram_bwd.cu`` and ``gram_bwd_f64.cu``
-with the build's flags and ``-Xptxas -v`` (written to
-``DIR/ptxas_<source>.txt``) and prints the registers and spills of every
-kernel: one JSON line.
+``ptxas`` compiles ``gram.cu``, ``gram_bwd.cu``, ``gram_bwd_f64.cu``,
+``gram_bwd_jvp.cu`` and ``gram_bwd_jvp_f64.cu`` with the build's flags and
+``-Xptxas -v`` (written to ``DIR/ptxas_<source>.txt``) and prints the
+registers and spills of every kernel, demangled where ``cu++filt`` is
+there, and each source's compile seconds; for the backward's tangent
+kernel's instances on the Hessian's path (eq, depth 1, B = 1 and 3) also
+the instructions of its step loop (``cuobjdump -sass``, written to
+``DIR/sass_*.txt``) per entry and by unit: one JSON line.
 """
 
 import argparse
 import gc
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import time
@@ -50,7 +67,7 @@ from pathlib import Path
 
 import torch
 
-from torch_k3 import _ptxas, _smi
+from torch_k3 import _count, _loop_body, _ptxas, _smi
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -114,6 +131,30 @@ def times(root):
             "kernels_by_launches": {k: [c, us / 1e3] for k, (c, us) in
                                     sorted(by_name.items(), key=lambda kv: -kv[1][0])},
         }
+    print(json.dumps(out), flush=True)
+
+
+def jvb(root, run_check, library):
+    sys.path.insert(0, str(Path(root).resolve()))
+    cs = _chip_smoke()
+    from stheno_torch import config
+    from stheno_torch.ops import _build
+    from stheno_torch.ops import gram_bwd_jvp as KBJ
+
+    t0 = time.perf_counter()
+    _build.library()
+    out = {"nvidia_smi": _smi(), "root": str(root), "build_s": time.perf_counter() - t0}
+    with config.matmul_precision_ctx():
+        if run_check:
+            t0 = time.perf_counter()
+            err32, cases = cs._bwd_jvp_kernel_checks()
+            worst = max(cases, key=lambda c: max(v for k, v in c.items() if k.endswith("of_tol")))
+            out["check"] = {"cases": len(cases), "err32": err32, "worst": worst,
+                            "seconds": time.perf_counter() - t0}
+        out["cases"] = []
+        for B, dtype in cs.BWD_JVP_TIMED:
+            out["cases"].append(cs.bwd_jvp_times(KBJ, B, dtype, library=library,
+                                                 traced=lambda fn: _kernels(cs, fn)))
     print(json.dumps(out), flush=True)
 
 
@@ -207,6 +248,48 @@ def mem(root):
     print(json.dumps(out), flush=True)
 
 
+def _demangle(names):
+    """``{mangled: readable}`` by ``cu++filt`` beside nvcc, or the names as
+    they are where it is missing."""
+    from stheno_torch.ops import _build
+
+    filt = Path(_build._nvcc()).with_name("cu++filt")
+    if not names or not filt.exists():
+        return {n: n for n in names}
+    got = subprocess.run([str(filt)], input="\n".join(names), capture_output=True, text=True)
+    lines = got.stdout.splitlines()
+    return dict(zip(names, lines)) if got.returncode == 0 and len(lines) == len(names) else {
+        n: n for n in names}
+
+
+def _jvb_loops(obj, out_dir):
+    """The step loop of ``gram_bwd_jvp_kernel<eq, T, NB, 1>`` for NB = 1
+    and 3: instructions, entries a lane computes an iteration (its rows
+    times its 4 columns: float32 at NB = 1 takes 2 rows a step, else 1),
+    and both per entry and by unit."""
+    from stheno_torch.ops import _build
+
+    cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    dump = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for block in re.split(r"\n\s*Function : ", dump)[1:]:
+        name, *lines = block.split("\n")
+        m = re.search(r"gram_bwd_jvp_kernelILi0E([fd])Li([13])ELi1E", name)
+        if not m:
+            continue
+        dtype, nb = m.group(1), int(m.group(2))
+        (out_dir / f"sass_jvb_eq_{dtype}_{nb}.txt").write_text(block)
+        total, by_unit, by_op = _count(_loop_body(lines))
+        entries = (2 if dtype == "f" and nb == 1 else 1) * 4
+        out[f"eq {'float32' if dtype == 'f' else 'float64'} B={nb}"] = {
+            "loop_instructions": total, "entries_per_iteration": entries,
+            "instructions_per_entry": total / entries,
+            "by_unit_per_entry": {k: v / entries for k, v in by_unit.items()},
+            "by_op": dict(by_op)}
+    return out
+
+
 def ptxas(out_dir):
     sys.path.insert(0, str(REPO))
     from stheno_torch.ops import _build
@@ -215,32 +298,40 @@ def ptxas(out_dir):
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     procs = {}
-    for src in ("gram.cu", "gram_bwd.cu", "gram_bwd_f64.cu"):
+    t0 = time.perf_counter()
+    for src in ("gram.cu", "gram_bwd.cu", "gram_bwd_f64.cu", "gram_bwd_jvp.cu",
+                "gram_bwd_jvp_f64.cu"):
         obj = out_dir / (Path(src).stem + ".o")
         procs[src] = subprocess.Popen(
             [nvcc, *_build._FLAGS, "-Xptxas", "-v", "-c", str(_build._CSRC / src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     report = {"nvidia_smi": _smi(), "sources": {}}
     for src, proc in procs.items():
-        t0 = time.perf_counter()
         log, _ = proc.communicate()
         (out_dir / f"ptxas_{Path(src).stem}.txt").write_text(log)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {src}:\n{log}")
         kernels = _ptxas(log)
-        report["sources"][src] = {
+        entry = {
             "kernels": len(kernels),
             "max_registers": max((k["registers"] or 0) for k in kernels.values()),
             "spilling": {name: k for name, k in kernels.items() if k["spill_bytes"]},
-            "wait_s": time.perf_counter() - t0,
+            "done_s": time.perf_counter() - t0,
         }
+        if "jvp" in src:
+            names = _demangle(sorted(kernels))
+            entry["each"] = {names[k]: v for k, v in kernels.items()}
+            entry["step_loops"] = _jvb_loops(out_dir / (Path(src).stem + ".o"), out_dir)
+        report["sources"][src] = entry
     print(json.dumps(report), flush=True)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("what", choices=("check", "times", "ptxas", "mem"))
+    parser.add_argument("what", choices=("check", "times", "jvb", "ptxas", "mem"))
     parser.add_argument("--root", default=str(REPO))
+    parser.add_argument("--check", action="store_true")
+    parser.add_argument("--library", action="store_true")
     parser.add_argument("--out", default=str(REPO / "build" / "k1_ptxas"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -250,6 +341,8 @@ def main():
         check()
     elif args.what == "times":
         times(args.root)
+    elif args.what == "jvb":
+        jvb(args.root, args.check, args.library)
     elif args.what == "mem":
         mem(args.root)
     else:

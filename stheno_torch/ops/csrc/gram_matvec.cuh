@@ -24,8 +24,17 @@ __global__ void gmv_reduce(const T* __restrict__ part, T* __restrict__ out, size
                            int splits) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < count;
        i += (size_t)gridDim.x * blockDim.x) {
+    // In order, sixteen loads in flight at a time.
     T s = part[i];
-    for (int k = 1; k < splits; ++k) s += part[(size_t)k * count + i];
+    int k = 1;
+    for (; k + 16 <= splits; k += 16) {
+      T v[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) v[u] = part[(size_t)(k + u) * count + i];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) s += v[u];
+    }
+    for (; k < splits; ++k) s += part[(size_t)k * count + i];
     out[i] = s;
   }
 }

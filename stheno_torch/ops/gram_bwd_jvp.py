@@ -21,12 +21,21 @@ adds exactly 0 whatever ``gbar`` and ``gt`` hold there (Matérn-1/2's ``g''``
 is infinite in float32 there).
 
 - On CUDA tensors (float32 or float64) it launches
-  ``csrc/gram_bwd_jvp.cu`` once for the whole batch. It replaces no Pallas
-  kernel: on the TPU the JAX package's forward mode differentiates the XLA
-  backward ``_gram_bwd`` (``stheno_tpu/ops/gram.py:198``) op by op; a
-  ctypes launch of K1's backward carries no tangents, so the port needs
-  one. It is bound by reading ``gbar`` and the ``B`` tiles ``gt``; see the
-  source's header.
+  ``csrc/gram_bwd_jvp.cu``: one sweep for all of a call's directions at
+  depth 1 (up to 8; more take further sweeps of 8), then the fixed-order
+  sum of its partials. It replaces no Pallas kernel: on the TPU the JAX
+  package's forward mode differentiates the XLA backward ``_gram_bwd``
+  (``stheno_tpu/ops/gram.py:198``) op by op; a ctypes launch of K1's
+  backward carries no tangents, so the port needs one. It is bound by
+  reading ``gbar`` and the ``B`` tiles ``gt`` (64.1 MB at 2000 x 2000, B =
+  3, float32: 19.1 us at 3.35 TB/s). Blocks of one 128-column span
+  (:func:`bwd_jvp_shape`) read them in 16-byte vectors, the next step's
+  loads in flight (float32 in registers, float64 through a ring of shared
+  memory), keep the y partials in registers across the row sweep and write
+  each partial once, with no barrier inside the sweep; see the source's
+  header. On an H100 (700 W) a call at 2000 x 2000, eq, x is y, takes
+  about 0.035 device ms at B = 3 in float32, 0.019 at B = 1 and 0.058 at B
+  = 3 in float64 (``PERF.md`` §6, ``scripts/torch_k1.py jvb``).
 - On CPU tensors it runs :func:`gram_bwd_jvp_plain`, the same arithmetic in
   plain torch over the same blocks, which the tests hold to ``jax.jvp`` of
   ``_gram_bwd`` and ``chip_smoke.py`` holds the kernel to.
@@ -42,7 +51,7 @@ import torch
 from . import _build
 from .gram import (_DTYPE_CODES, KINDS, _alpha_factor, _alpha_second, _apply_kind, _d2,
                    _g_prime, _g_second, _member, arith_dtype, device_alpha)
-from .gram_bwd import _ordered_sum, launch_shape
+from .gram_bwd import _cdiv, _ordered_sum
 
 __all__ = ["gram_bwd_jvp", "gram_bwd_jvp_plain", "launches"]
 
@@ -50,29 +59,46 @@ __all__ = ["gram_bwd_jvp", "gram_bwd_jvp_plain", "launches"]
 launches = 0
 
 _DTYPES = (torch.float32, torch.float64)
+_SPAN = 128  # columns of a block: csrc/gram_bwd_jvp.cuh:kJvbSpan
+_ROWS = 128  # rows of a block's group: 16,000 of the flagship's entries a block
+_BLOCKS = 256  # halve the groups below this many blocks: two a streaming multiprocessor
+_MIN_ROWS = 32
+_MAX_GROUPS = 65535  # the grid's y extent
 
 
 def _batch(*tangents):
     return next(t.shape[0] for t in tangents if t is not None)
 
 
-def bwd_jvp_shape(n, m, d, batch, dtype):
-    """The launch's ``(splits, rows, span)``: K1's backward's grid
-    (:func:`~stheno_torch.ops.gram_bwd.launch_shape`) taken at depth ``d
-    batch``, so the B directions' partials stay as small a share of the
-    read as one direction's are there."""
-    return launch_shape(n, m, d * batch, dtype)
+def bwd_jvp_shape(n, m, d):
+    """The launch's ``(splits, rows, span)``: ``splits`` row groups of
+    ``rows`` rows against ``ceil(m / span)`` column spans of ``span`` =
+    ``_SPAN`` columns (a warp's 32 lanes of 4: one 16-byte load of float32
+    or two of float64), one block each. The row groups are about
+    ``max(_ROWS, 16 d)`` rows, halved while the grid has fewer than
+    ``_BLOCKS`` blocks and a group keeps ``max(_MIN_ROWS, 16 d)`` rows (the
+    y partials, ``splits m d`` a direction, stay at most 1/16 of a tangent
+    tile). Depends on the shapes only, so one shape always sums in the same
+    order, whatever the dtype and the number of directions."""
+    span = _SPAN
+    spans = _cdiv(m, span)
+    groups = _cdiv(n, max(_ROWS, 16 * d))
+    while groups * spans < _BLOCKS and _cdiv(n, 2 * groups) >= max(_MIN_ROWS, 16 * d):
+        groups *= 2
+    rows = _cdiv(n, min(groups, _MAX_GROUPS))
+    return _cdiv(n, rows), rows, span
 
 
 def gram_bwd_jvp_plain(kind, x, y, gbar, alpha=1.0, xt=None, yt=None, at=None, gt=None, *,
                        want_x=True, want_y=True, want_alpha=False, same=False, shape=None):
     """Plain torch version of the kernel: per block ``(a, b)`` of ``shape``
-    (default :func:`bwd_jvp_shape`), the terms of the module docstring
-    summed over the block into slice ``b`` (x) and ``a`` (y), then the
-    slices added in order: x's, then (with ``same``) y's into the same
-    sum. Returns ``(xbar' (B, n, d), ybar' (B, m, d), dalpha' (B,))``, each
-    None where not asked for; with ``same`` (``y`` is ``x`` and ``yt`` is
-    ``xt``) ``xbar'`` is the sum of both roles and ``ybar'`` None."""
+    (default :func:`bwd_jvp_shape`: row group ``a``, column span ``b``),
+    the terms of the module docstring summed over the block into x slice
+    ``b`` and y slice ``a``, then the slices added in order: x's, then
+    (with ``same``) y's into the same sum. Returns ``(xbar' (B, n, d),
+    ybar' (B, m, d), dalpha' (B,))``, each None where not asked for; with
+    ``same`` (``y`` is ``x`` and ``yt`` is ``xt``) ``xbar'`` is the sum of
+    both roles and ``ybar'`` None."""
     want_alpha = want_alpha and kind == "rq"
     if same:
         y, yt, want_y = x, xt, want_x
@@ -84,17 +110,18 @@ def gram_bwd_jvp_plain(kind, x, y, gbar, alpha=1.0, xt=None, yt=None, at=None, g
     xf, yf, gf, xtf, ytf, gtf = (cast(t) for t in (x, y, gbar, xt, yt, gt))
     atf = None if at is None or kind != "rq" else at.to(ct)
     alpha = torch.as_tensor(alpha, dtype=ct, device=x.device)
-    splits, rows, span = shape or bwd_jvp_shape(n, m, d, batch, x.dtype)
+    splits, rows, span = shape or bwd_jvp_shape(n, m, d)
+    spans = _cdiv(m, span)
     scale = 1.0 if kind == "linear" else 2.0
-    xs = xf.new_zeros((splits, batch, n, d))
+    xs = xf.new_zeros((spans, batch, n, d))
     ys = xf.new_zeros((splits, batch, m, d))
-    al = xf.new_zeros((splits, batch, splits))
+    al = xf.new_zeros((batch, splits, spans))
     zero = xf.new_zeros(())
     for a in range(splits):
         r = slice(a * rows, min(n, (a + 1) * rows))
         if r.start >= r.stop:
             continue
-        for b in range(splits):
+        for b in range(spans):
             c = slice(b * span, min(m, (b + 1) * span))
             xb, yb, gb = xf[r], yf[c], gf[r, c]
             xtb = zero if xtf is None else xtf[:, r]  # (B, rows, d)
@@ -128,7 +155,7 @@ def gram_bwd_jvp_plain(kind, x, y, gbar, alpha=1.0, xt=None, yt=None, at=None, g
                 if want_alpha:
                     e = gtb * _alpha_factor(d2, K, alpha) + gb * haa * atb + torch.where(
                         drop, 0.0, gb * gpa * dd2)
-                    al[b, :, a] = torch.broadcast_to(e, (batch,) + d2.shape).sum((1, 2))
+                    al[:, a, b] = torch.broadcast_to(e, (batch,) + d2.shape).sum((1, 2))
             t = wd[..., None] * diff + (gb * gp)[..., None] * tdiff  # (B, rows, span, d)
             xs[b, :, r] = scale * t.sum(2)
             ys[a, :, c] = -scale * t.sum(1)
@@ -139,7 +166,7 @@ def gram_bwd_jvp_plain(kind, x, y, gbar, alpha=1.0, xt=None, yt=None, at=None, g
         xdot = _ordered_sum(list(xs)).to(x.dtype) if want_x else None
         ydot = _ordered_sum(list(ys)).to(y.dtype) if want_y else None
     if want_alpha:
-        adot = _ordered_sum(list(al)).sum(-1)
+        adot = al.flatten(1).sum(-1)
     return xdot, ydot, adot
 
 
@@ -149,15 +176,16 @@ def _launch(kind, x, y, gbar, alpha, xt, yt, at, gt, want_x, want_y, want_alpha,
     n, d = x.shape
     m = y.shape[0]
     batch = _batch(xt, yt, at, gt)
-    splits, rows, span = bwd_jvp_shape(n, m, d, batch, x.dtype)
+    splits, rows, span = bwd_jvp_shape(n, m, d)
+    spans = _cdiv(m, span)
     fold = same and want_x
     nx = batch * n * d if want_x else 0
     ny = batch * m * d if want_y and not fold else 0
-    na = batch * splits if want_alpha else 0
-    count = nx + ny + na
-    slices = 2 * splits if fold else splits
-    out = torch.empty(count, dtype=x.dtype, device=x.device)
-    work = torch.empty(slices * count, dtype=x.dtype, device=x.device) if slices > 1 else None
+    na = batch * splits * spans if want_alpha else 0
+    # The x slices (one a column span), then the y slices (one a row group).
+    slices = spans * nx + splits * (nx if fold else ny)
+    out = torch.empty(nx + ny + na, dtype=x.dtype, device=x.device)
+    work = torch.empty(slices, dtype=x.dtype, device=x.device) if slices else None
     prep = lambda t: None if t is None else t.to(x.dtype).contiguous()  # noqa: E731
     gbar, xt, yt, gt = (prep(t) for t in (gbar, xt, yt, gt))
     at = None if at is None or kind != "rq" else prep(at)
@@ -174,7 +202,7 @@ def _launch(kind, x, y, gbar, alpha, xt, yt, at, gt, want_x, want_y, want_alpha,
     launches += 1
     xdot = out[:nx].view(batch, n, d) if want_x else None
     ydot = out[nx:nx + ny].view(batch, m, d) if ny else None
-    adot = out[nx + ny:].view(batch, splits).sum(-1) if want_alpha else None
+    adot = out[nx + ny:].view(batch, -1).sum(-1) if want_alpha else None
     return xdot, ydot, adot
 
 

@@ -87,9 +87,9 @@ def _lattice(n, offset, seed, d=2):
     return grid * 0.6 + offset + 0.1 * r.rand(n, d)
 
 
-def _case(kind, same, B, seed=1):
-    x = _lattice(37, 0.0, 2)
-    y = x if same else _lattice(29, 0.3, 3)
+def _case(kind, same, B, seed=1, n=37, m=29, d=2):
+    x = _lattice(n, 0.0, 2, d)
+    y = x if same else _lattice(m, 0.3, 3, d)
     r = np.random.RandomState(seed)
     g, gt = r.randn(len(x), len(y)), r.randn(B, len(x), len(y))
     xt = r.randn(B, *x.shape)
@@ -142,6 +142,58 @@ def test_gram_bwd_jvp_plain_matches_jax(kind, same, B):
         _close(got[2], want[2])
     else:
         assert got[2] is None
+
+
+#: Cases at the kernel's launch shape with several blocks (``bwd_jvp_shape``:
+#: spans of 128 columns, row groups of 32 to 144 rows): ``(n, m, d, B,
+#: same)``. B = 8 is the largest sweep of
+#: directions at depth 1; depths 8 and 9 hold the whole depth in registers
+#: and one past it; ragged n != m.
+LAUNCH_CASES = {"b8": (150, 130, 1, 8, False), "same_b8": (150, 150, 1, 8, True),
+                "d8": (70, 150, 8, 3, False), "d9": (150, 150, 9, 2, True),
+                "ragged": (133, 67, 3, 3, False)}
+
+
+@pytest.mark.parametrize("case", sorted(LAUNCH_CASES))
+@pytest.mark.parametrize("kind", KINDS)
+def test_gram_bwd_jvp_plain_at_launch_shape_matches_jax(kind, case):
+    n, m, d, B, same = LAUNCH_CASES[case]
+    x, y, g, xt, yt, at, gt = _case(kind, same, B, seed=5, n=n, m=m, d=d)
+    splits, rows, span = tjvb.bwd_jvp_shape(n, m, d)
+    assert splits * tjvb._cdiv(m, span) > 1
+    T = torch.tensor
+    got = tjvb.gram_bwd_jvp_plain(kind, T(x), T(y), T(g), T(ALPHA), T(xt),
+                                  None if same else T(yt), T(at), T(gt), want_alpha=True,
+                                  same=same)
+    want = _jax_bwd_jvp(kind, x, y, g, xt, yt, at, gt, same)
+    _close(got[0], want[0])
+    if same:
+        assert got[1] is None
+    else:
+        _close(got[1], want[1])
+    if kind == "rq":
+        _close(got[2], want[2])
+
+
+@pytest.mark.parametrize("n,m,d", [
+    (2000, 2000, 1), (2001, 1999, 1), (1000, 1000, 1), (333, 517, 3), (517, 333, 9), (1, 1, 1),
+    (517, 1, 2), (3, 100_000, 1), (100_000, 3, 1), (4096, 300, 9)])
+def test_bwd_jvp_shape_blocks_cover_every_entry_once(n, m, d):
+    # The grid of row groups by column spans of 128 columns (a warp's
+    # lanes, 4 columns each: whole 16-byte vectors of float32 and float64)
+    # covers each entry of the n x m tile exactly once, with no empty row
+    # group and within the grid's limits; a direction's y partials stay
+    # within 1/16 of a tile where the tile is large enough to split.
+    splits, rows, span = tjvb.bwd_jvp_shape(n, m, d)
+    assert span == 32 * 4
+    assert 1 <= splits <= 65535 and rows * (splits - 1) < n <= rows * splits
+    seen = torch.zeros(n, m, dtype=torch.int32)
+    for a in range(splits):
+        for b in range(tjvb._cdiv(m, span)):
+            seen[a * rows:(a + 1) * rows, b * span:(b + 1) * span] += 1
+    assert bool((seen == 1).all())
+    if splits > 1:
+        assert 16 * splits * m * d <= n * m + 16 * m * d
 
 
 @pytest.mark.parametrize("kind", ["eq", "rq", "linear"])
