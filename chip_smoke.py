@@ -602,7 +602,9 @@ def phase_gram():
     kind's diagonal exactly 1. Backward: every kind, dtype and depth of
     that list at 1000xd by 777xd (rq's alpha included), at x is y (both
     roles in one launch) and with only x wanting a gradient, within
-    ``_bwd_tols``, each run twice with equal bits; then the main path's
+    ``_bwd_tols``, each run twice with equal bits; the ragged edges of its
+    grid (64x1 by 100,003x1, with and without y; 3001x2 at x is y); then
+    the main path's
     N=2000 Gram (x is y) in float32, the gradient through both kernels
     against autograd through the plain version there (rtol 1e-3), and one
     tile of the blocked sweep (8192 rows of the N=262,144 inputs against
@@ -655,6 +657,18 @@ def phase_gram():
                 _hold_bwd(kind, x, y, g, tag, bwd)
                 _hold_bwd(kind, x, y, g, tag + ", x only", bwd, want_y=False)
                 _hold_bwd(kind, x, x, gsq, f"1000x{d}, x is y, {dtype}", bwd, same=True)
+    # The grid's edges: a ragged wide cross Gram (spans of 8 tiles whose
+    # warps each take every row, the last span and tile ragged; with and
+    # without y) and a ragged square one at x is y (the fold's ranges, the
+    # last row group and span ragged).
+    xr, yr = randn(64, 1, dtype=torch.float32), randn(100_003, 1, dtype=torch.float32)
+    gr = randn(64, 100_003, dtype=torch.float32)
+    xq, gq = randn(3001, 2, dtype=torch.float32), randn(3001, 3001, dtype=torch.float32)
+    for kind in K1.KINDS:
+        _hold_bwd(kind, xr, yr, gr, "64x1 by 100003x1 float32 (wide, ragged)", bwd)
+        _hold_bwd(kind, xr, yr, gr, "64x1 by 100003x1 float32, x only", bwd, want_y=False)
+        _hold_bwd(kind, xq, xq, gq, "3001x2, x is y, float32 (ragged)", bwd, same=True)
+    del xr, yr, gr, xq, gq
     gw = randn(2000, 2000, dtype=torch.float32)
     bwd_err = max(_hold_bwd(kind, xw, xw, gw, "2000x2, x is y (the main path's)", bwd, same=True)
                   for kind in K1.KINDS)
@@ -1959,8 +1973,8 @@ def phase_profile():
     the six kernels of most device time, and ``Kernel2`` and ``enable_if``
     (library kernels named by their templates), were launched
     (``_attribute``).
-    The device launches of K1, its backward and K2 must match the
-    wrappers' counts."""
+    The device launches of K1, its backward (its sweep and the sum of its
+    partials) and K2 must match the wrappers' counts."""
     from stheno_torch import entry as E
 
     xb, yb, ell = E.n2000_inputs()
@@ -1973,6 +1987,7 @@ def phase_profile():
     t = trace("n2000_value_grad", lambda: E.nlml_n2000(xb, yb, ell, grad=True),
               lambda b, n: _traced(b, "gram_kernel") == n["gram"]
               and _traced(b, "gram_bwd_kernel") == n["gram_bwd"]
+              and _traced(b, "gram_bwd_reduce") == n["gram_bwd"]
               and all(_traced(b, k) == c * n["chol_tile"] for k, c in k2_want.items()))
     span_us, busy_us, by_name, launches = t["span_us"], t["busy_us"], t["by_name"], t["launches"]
     k1_n, k1_us = by_name.get("gram_kernel", (0, 0.0))
@@ -1983,6 +1998,11 @@ def phase_profile():
     kb_n, kb_us = by_name.get("gram_bwd_kernel", (0, 0.0))
     check(kb_n == launches["gram_bwd"] >= 1,
           f"profiled gram_bwd_kernel launches {kb_n} != wrapper count {launches['gram_bwd']}")
+    # Each of the path's backward calls (x is y) sums its partials in a
+    # second launch.
+    kr_n, kr_us = by_name.get("gram_bwd_reduce", (0, 0.0))
+    check(kr_n == launches["gram_bwd"],
+          f"profiled gram_bwd_reduce launches {kr_n} != wrapper count {launches['gram_bwd']}")
     check(tiles == 2, f"the N=2000 value+grad ran {tiles} tiles, not 2")
     for name, per_tile in k2_want.items():
         got = by_name.get(name, (0, 0.0))[0]
@@ -1999,6 +2019,7 @@ def phase_profile():
             "gram_device_ms_per_launch": k1_us / k1_n / 1e3,
             "gram_bwd_launches": kb_n,
             "gram_bwd_device_ms_per_launch": kb_us / kb_n / 1e3,
+            "gram_bwd_reduce_device_ms_per_launch": kr_us / max(kr_n, 1) / 1e3,
             "device_launches": sum(c for c, _ in by_name.values()),
             "chol_tile_device_ms_per_tile": k2_us / tiles / 1e3,
             "chol_tile_share_of_busy": k2_us / busy_us,
@@ -2213,6 +2234,8 @@ def phase_opt_adam():
     prof_driver = E.adam_n2000()
     prof_driver.run(2 * reps)
     want = {"gram_kernel": reps * per_step["gram"], "gram_bwd_kernel": reps * per_step["gram_bwd"],
+            # K1's backward sums its partials in a second launch.
+            "gram_bwd_reduce": reps * per_step["gram_bwd"],
             # 8 factor_panel launches per n=1024 tile (both tiles pad to it).
             "factor_panel": 8 * reps * per_step["chol_tile"]}
     t = trace("adam_replays", lambda: prof_driver.run(reps),
@@ -2228,10 +2251,12 @@ def phase_opt_adam():
     mem_after = (torch.cuda.memory_allocated(), torch.cuda.mem_get_info()[0])
     k1_n = by_name.get("gram_kernel", (0, 0.0))[0]
     kb_n = by_name.get("gram_bwd_kernel", (0, 0.0))[0]
+    kr_n = by_name.get("gram_bwd_reduce", (0, 0.0))[0]
     k2_n = by_name.get("factor_panel", (0, 0.0))[0]
     checks += [
         (k1_n == want["gram_kernel"], "gram_kernel launches in the replays"),
         (kb_n == want["gram_bwd_kernel"], "gram_bwd_kernel launches in the replays"),
+        (kr_n == want["gram_bwd_reduce"], "gram_bwd_reduce launches in the replays"),
         (k2_n == want["factor_panel"], "factor_panel launches in the replays"),
         (busy_us / span_us >= 0.5, "the replays' device busy share"),
         (mem_after[0] == mem[0], "the replays changed the allocated device memory"),
@@ -2243,6 +2268,7 @@ def phase_opt_adam():
         "device_busy_share": busy_us / span_us, "device_ms_per_step": busy_us / reps / 1e3,
         "device_launches_per_step": sum(c for c, _ in by_name.values()) / reps,
         "launches_per_step": {"gram_kernel": k1_n / reps, "gram_bwd_kernel": kb_n / reps,
+                              "gram_bwd_reduce": kr_n / reps,
                               "factor_panel": k2_n / reps},
         "memory_allocated_before_after": [mem[0], mem_after[0]],
         "device_free_before_after": [mem[1], mem_after[1]],

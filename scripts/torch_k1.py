@@ -6,6 +6,7 @@ chip_smoke.py's device memory goes.
     python3 scripts/torch_k1.py check
     python3 scripts/torch_k1.py times [--root DIR]
     python3 scripts/torch_k1.py jvb [--root DIR] [--check] [--library]
+    python3 scripts/torch_k1.py bwd [--root DIR]
     python3 scripts/torch_k1.py ptxas [--out DIR]
     python3 scripts/torch_k1.py mem [--root DIR]
 
@@ -36,6 +37,26 @@ first runs ``chip_smoke._bwd_jvp_kernel_checks`` (every kind, both dtypes,
 ``BWD_JVP_SHAPES``) against the checkout's plain version. Run it for two
 checkouts in turns in one call to compare them.
 
+``bwd`` imports ``stheno_torch`` from the checkout at ``--root`` and
+times K1's backward (``ops/gram_bwd.py:gram_bwd``, called directly) at
+every shape where the paths launch it (``BWD_SHAPES``: 2000x2 at x is y,
+eq and matern32 in float32, eq in float64 and bfloat16; rq at 2000x1, x
+is y; 512x1 by 10^6x1; 16,384x1 at x is y; the 8192x1 by 8192x1 tile set;
+the 1024x1 Kronecker factor, both roles; 512x1 by 4096x1), each with its
+CUDA-event and device times per call, its device kernels of one call and
+their profiled times (``trace``; the sum, a programmatic dependent launch,
+is recorded from its early start, so its time includes its wait for the
+sweep), its bound (inputs and cotangent read
+once, gradients written once, at 3.35 TB/s; 20 flops an entry) and
+``autograd.grad`` through the PyTorch expression of the same Gram
+(``exp(-0.5 cdist^2)``; matern32's and rq's forms), which the port never
+calls. Then three records of the paths that launch it: the N=2000
+value+grad step's device busy time and launches (traced), the captured
+Adam step's replay device time per step (50 replays traced) and the
+N=10^6 sparse value+grad (CUDA events, median of 5). One JSON line with the
+card's ``nvidia-smi`` name and power limit and the build's seconds. Run it
+for two checkouts in turns in one call to compare them.
+
 ``mem`` takes the peak device memory of one amortised N=262,144 step
 apart. For the checkout at ``--root`` (default: this one), in a fresh
 process: the step's own peak (``max_memory_allocated`` less what was
@@ -49,16 +70,18 @@ grouped by the innermost frame of this repository that allocated them
 ``gram_bwd_jvp.cu`` and ``gram_bwd_jvp_f64.cu`` with the build's flags and
 ``-Xptxas -v`` (written to ``DIR/ptxas_<source>.txt``) and prints the
 registers and spills of every kernel, demangled where ``cu++filt`` is
-there, and each source's compile seconds; for the backward's tangent
-kernel's instances on the Hessian's path (eq, depth 1, B = 1 and 3) also
-the instructions of its step loop (``cuobjdump -sass``, written to
-``DIR/sass_*.txt``) per entry and by unit: one JSON line.
+there, and each source's compile seconds; for K1's backward's instances
+on the paths (eq, depths 1 and 2) and the backward's tangent kernel's on
+the Hessian's (eq, depth 1, B = 1 and 3) also the instructions of their
+step loops (``cuobjdump -sass``, written to ``DIR/sass_*.txt``) per entry
+and by unit: one JSON line.
 """
 
 import argparse
 import gc
 import importlib.util
 import json
+import math
 import re
 import subprocess
 import sys
@@ -155,6 +178,137 @@ def jvb(root, run_check, library):
         for B, dtype in cs.BWD_JVP_TIMED:
             out["cases"].append(cs.bwd_jvp_times(KBJ, B, dtype, library=library,
                                                  traced=lambda fn: _kernels(cs, fn)))
+    print(json.dumps(out), flush=True)
+
+
+#: K1's backward's shapes on the paths (PERF.md §6): name, kind, n, m, d,
+#: storage dtype, x is y, calls timed back to back.
+BWD_SHAPES = (
+    ("n2000 eq", "eq", 2000, 2000, 2, torch.float32, True, 20),
+    ("n2000 matern32", "matern32", 2000, 2000, 2, torch.float32, True, 20),
+    ("n2000 eq float64", "eq", 2000, 2000, 2, torch.float64, True, 20),
+    ("n2000 eq bfloat16", "eq", 2000, 2000, 2, torch.bfloat16, True, 20),
+    ("dsl rq 2000x1", "rq", 2000, 2000, 1, torch.float32, True, 20),
+    ("sparse 512x1e6", "eq", 512, 1_000_000, 1, torch.float32, False, 3),
+    ("dist 16384", "eq", 16_384, 16_384, 1, torch.float32, True, 3),
+    ("tiles 8192", "eq", 8192, 8192, 1, torch.float32, False, 5),
+    ("kron 1024", "eq", 1024, 1024, 1, torch.float32, False, 20),
+    ("svgp 512x4096", "eq", 512, 4096, 1, torch.float32, False, 20),
+)
+
+
+def _bwd_inputs(cs, n, m, d, dtype, same):
+    """Seeded inputs of one shape: the main path's warped 2000x2 points, or
+    points on [0, 10] at depth 1, and a standard normal cotangent."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    if d == 2:
+        x = cs._warped(n)
+        y = x if same else cs._warped(m)
+    else:
+        x = torch.rand(n, 1, generator=gen, device="cuda") * 10
+        y = x if same else torch.rand(m, 1, generator=gen, device="cuda") * 10
+    gbar = torch.randn(n, m, generator=gen, device="cuda")
+    return x.to(dtype), y.to(dtype), gbar.to(dtype)
+
+
+def _library_bwd(kind, x, y, gbar, same, alpha):
+    """``autograd.grad`` of the Gram written in PyTorch (``cdist``), with
+    ``gbar``; None where ``cdist`` refuses the dtype."""
+    r3 = math.sqrt(3.0)
+    forms = {"eq": lambda r: torch.exp(-0.5 * r.square()),
+             "matern32": lambda r: (1 + r3 * r) * torch.exp(-r3 * r),
+             "rq": lambda r: (1 + r.square() / (2 * alpha)) ** -alpha}
+    xl = x.clone().requires_grad_(True)
+    yl = xl if same else y.clone().requires_grad_(True)
+    try:
+        K = forms[kind](torch.cdist(xl, yl))
+    except RuntimeError:
+        return None
+    wrt = (xl,) if same else (xl, yl)
+    return lambda: torch.autograd.grad(K, wrt, gbar, retain_graph=True)
+
+
+def _bwd_shape_times(cs, KB, name, kind, n, m, d, dtype, same, inner):
+    x, y, gbar = _bwd_inputs(cs, n, m, d, dtype, same)
+    alpha = 1.3
+    call = lambda: KB.gram_bwd(kind, x, y, gbar, alpha, same=same)  # noqa: E731
+    item = torch.empty((), dtype=dtype).element_size()
+    grads = (n if same else n + m) * d
+    byts = (n * d + (0 if same else m * d) + n * m) * item + grads * 4
+    b_ms, b_by = cs.bound(byts, 20 * n * m, torch.float64 if dtype == torch.float64
+                          else torch.float32)
+    lib = _library_bwd(kind, x, y, gbar, same, alpha)
+    rec = {"case": name, "kind": kind, "shape": [n, m, d], "dtype": str(dtype), "x_is_y": same,
+           "ms": cs.time_ms(call, inner=inner),
+           "device_ms": cs.device_ms_per_call(call, inner=inner),
+           "kernels": _kernels(cs, call),
+           "library_ms": None if lib is None else cs.time_ms(lib, reps=5),
+           "bound_ms": b_ms, "bound_by": b_by}
+    try:
+        rec["launch_shape"] = list(KB.launch_shape(n, m, d, dtype, same))
+    except TypeError:  # a checkout whose shape takes no fold
+        rec["launch_shape"] = list(KB.launch_shape(n, m, d, dtype))
+    del x, y, gbar, lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _bwd_paths(cs, E):
+    """The paths' records: the N=2000 value+grad step traced, 50 captured
+    Adam replays traced, the N=10^6 sparse value+grad timed."""
+    out = {}
+    xb, yb, ell = E.n2000_inputs()
+    step = lambda: E.nlml_n2000(xb, yb, ell, grad=True)  # noqa: E731
+    for _ in range(3):
+        step()
+    t = cs.trace("n2000_value_grad", step)
+    out["n2000_value_grad"] = {
+        "span_ms": t["span_us"] / 1e3, "device_busy_ms": t["busy_us"] / 1e3,
+        "device_launches": sum(c for c, _ in t["by_name"].values()),
+        "gram_bwd": _named(t["by_name"], "gram_bwd_kernel"),
+        "gmv_reduce": _named(t["by_name"], "gmv_reduce")}
+    reps = 50
+    adam = E.adam_n2000()
+    adam.run(2 * reps)
+    t = cs.trace("adam_replays", lambda: adam.run(reps))
+    out["adam_replay"] = {
+        "steps": reps, "device_busy_ms_per_step": t["busy_us"] / reps / 1e3,
+        "device_busy_share": t["busy_us"] / t["span_us"],
+        "device_launches_per_step": sum(c for c, _ in t["by_name"].values()) / reps,
+        "gram_bwd": _named(t["by_name"], "gram_bwd_kernel")}
+    del adam
+    x, y, z, ell = E.sparse_1m_inputs()
+    out["sparse_1m_value_grad_ms"] = cs.time_ms(lambda: E.sparse_elbo(x, y, z, ell, grad=True),
+                                                reps=5, warmup=2)
+    del x, y, z, ell
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _named(by_name, kernel):
+    """``[launches, device_ms]`` of one kernel in a trace."""
+    c, us = by_name.get(kernel, (0, 0.0))
+    return [c, us / 1e3]
+
+
+def bwd(root):
+    sys.path.insert(0, str(Path(root).resolve()))
+    cs = _chip_smoke()
+    from stheno_torch import config
+    from stheno_torch import entry as E
+    from stheno_torch.ops import _build
+    from stheno_torch.ops import gram_bwd as KB
+
+    t0 = time.perf_counter()
+    _build.library()
+    out = {"nvidia_smi": _smi(), "root": str(root), "build_s": time.perf_counter() - t0,
+           "shapes": []}
+    with config.matmul_precision_ctx():
+        for case in BWD_SHAPES:
+            out["shapes"].append(_bwd_shape_times(cs, KB, *case))
+        out["paths"] = _bwd_paths(cs, E)
     print(json.dumps(out), flush=True)
 
 
@@ -262,11 +416,11 @@ def _demangle(names):
         n: n for n in names}
 
 
-def _jvb_loops(obj, out_dir):
-    """The step loop of ``gram_bwd_jvp_kernel<eq, T, NB, 1>`` for NB = 1
-    and 3: instructions, entries a lane computes an iteration (its rows
-    times its 4 columns: float32 at NB = 1 takes 2 rows a step, else 1),
-    and both per entry and by unit."""
+def _step_loops(obj, out_dir, pattern, entries, tag):
+    """The step loop of each kernel instance of ``obj`` whose mangled name
+    matches ``pattern`` (groups: the arithmetic type's letter and a
+    template count): instructions, entries a lane computes an iteration
+    (``entries(dtype, count)``), and both per entry and by unit."""
     from stheno_torch.ops import _build
 
     cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
@@ -275,19 +429,35 @@ def _jvb_loops(obj, out_dir):
     out = {}
     for block in re.split(r"\n\s*Function : ", dump)[1:]:
         name, *lines = block.split("\n")
-        m = re.search(r"gram_bwd_jvp_kernelILi0E([fd])Li([13])ELi1E", name)
+        m = re.search(pattern, name)
         if not m:
             continue
-        dtype, nb = m.group(1), int(m.group(2))
-        (out_dir / f"sass_jvb_eq_{dtype}_{nb}.txt").write_text(block)
+        dtype, count = m.group(1), int(m.group(2))
+        (out_dir / f"sass_{tag}_eq_{dtype}_{count}.txt").write_text(block)
         total, by_unit, by_op = _count(_loop_body(lines))
-        entries = (2 if dtype == "f" and nb == 1 else 1) * 4
-        out[f"eq {'float32' if dtype == 'f' else 'float64'} B={nb}"] = {
-            "loop_instructions": total, "entries_per_iteration": entries,
-            "instructions_per_entry": total / entries,
-            "by_unit_per_entry": {k: v / entries for k, v in by_unit.items()},
+        per = entries(dtype, count)
+        out[f"eq {'float32' if dtype == 'f' else 'float64'} {count}"] = {
+            "loop_instructions": total, "entries_per_iteration": per,
+            "instructions_per_entry": total / per,
+            "by_unit_per_entry": {k: v / per for k, v in by_unit.items()},
             "by_op": dict(by_op)}
     return out
+
+
+def _jvb_loops(obj, out_dir):
+    """The step loop of ``gram_bwd_jvp_kernel<eq, T, NB, 1>`` for NB = 1
+    and 3 (directions): a lane's 4 columns of its rows (float32 at NB = 1
+    takes 2 rows a step, else 1)."""
+    return _step_loops(obj, out_dir, r"gram_bwd_jvp_kernelILi0E([fd])Li([13])ELi1E",
+                       lambda dt, nb: (2 if dt == "f" and nb == 1 else 1) * 4, "jvb")
+
+
+def _bwd_loops(obj, out_dir):
+    """The step loop of ``gram_bwd_kernel<eq, T, D>`` for depths D = 1 and
+    2 (csrc/gram_bwd.cuh:kBwdRows: 4 rows a step in float32, 2 in float64,
+    of a lane's 4 columns)."""
+    return _step_loops(obj, out_dir, r"gram_bwd_kernelILi0E([fd])Li([12])EE",
+                       lambda dt, depth: (4 if dt == "f" else 2) * 4, "bwd")
 
 
 def ptxas(out_dir):
@@ -318,17 +488,18 @@ def ptxas(out_dir):
             "spilling": {name: k for name, k in kernels.items() if k["spill_bytes"]},
             "done_s": time.perf_counter() - t0,
         }
-        if "jvp" in src:
+        if "bwd" in src:
             names = _demangle(sorted(kernels))
             entry["each"] = {names[k]: v for k, v in kernels.items()}
-            entry["step_loops"] = _jvb_loops(out_dir / (Path(src).stem + ".o"), out_dir)
+            loops = _jvb_loops if "jvp" in src else _bwd_loops
+            entry["step_loops"] = loops(out_dir / (Path(src).stem + ".o"), out_dir)
         report["sources"][src] = entry
     print(json.dumps(report), flush=True)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("what", choices=("check", "times", "jvb", "ptxas", "mem"))
+    parser.add_argument("what", choices=("check", "times", "jvb", "bwd", "ptxas", "mem"))
     parser.add_argument("--root", default=str(REPO))
     parser.add_argument("--check", action="store_true")
     parser.add_argument("--library", action="store_true")
@@ -343,6 +514,8 @@ def main():
         times(args.root)
     elif args.what == "jvb":
         jvb(args.root, args.check, args.library)
+    elif args.what == "bwd":
+        bwd(args.root)
     elif args.what == "mem":
         mem(args.root)
     else:

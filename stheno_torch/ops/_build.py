@@ -94,7 +94,7 @@ def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.stheno_gram.argtypes = [i, i, p, p, p, i, i, i, p, i, i, p]
     lib.stheno_gram.restype = i
-    lib.stheno_gram_bwd.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, i, p, i, i, i, i, p]
+    lib.stheno_gram_bwd.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, i, i, i, p, i, i, i, i, p]
     lib.stheno_gram_bwd.restype = i
     lib.stheno_chol_tile.argtypes = [p, p, p, p, p, i, p]
     lib.stheno_chol_tile.restype = i

@@ -66,11 +66,6 @@ template <typename T, int NB, int D>
 constexpr int kJvbRingBytes =
     kJvbStaged<T> ? kJvbStages<T, NB, D> * kJvbStageBytes<T, NB, D> : 0;
 
-__host__ __device__ constexpr int next_pow2(int v) {
-  return v <= 1 ? 1 : 2 * next_pow2((v + 1) / 2);
-}
-__host__ __device__ constexpr int log2i(int v) { return v <= 1 ? 0 : 1 + log2i(v / 2); }
-
 // Column j of a lane: its kJvbCols columns are kJvbCols / V vectors of V
 // (16 bytes), vector h at c_begin + h 32 V + lane V, so that each 16-byte
 // load of a warp covers 512 consecutive bytes of a row.
@@ -175,19 +170,6 @@ __device__ __forceinline__ void load_tiles(JvbStep<T, R, NB, D>& st, const JvbLa
   }
 }
 
-// 16 bytes from device to shared memory, asynchronously (cp.async through
-// L2), and the groups that order them.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Tile t of a step's row i in a warp's stage: t = 0 is gbar, 1 + q the
 // tangent tile of direction q; the lane's vector h of it at (h 32 + lane)
 // V, so that each 16-byte copy and read of a warp covers 512 bytes.
@@ -257,37 +239,6 @@ __device__ __forceinline__ void read_step(JvbStep<T, R, NB, D>& st, const T* sta
       }
     }
   }
-}
-
-// The sum over the warp's 32 lanes of each of v[0, P) by recursive
-// halving, a fixed tree: at offset o each lane keeps the half of its
-// entries named by its bit o and adds its partner's, so P entries take P
-// - 1 + 5 - log2(P) shuffles rather than 5 P. Returns the sum of entry
-// halving_entry<P>(lane), the same in every lane that shares the lane's
-// top log2(P) bits.
-template <int P>
-__device__ __forceinline__ int halving_entry(int lane) {
-  int e = 0;
-#pragma unroll
-  for (int h = P / 2, o = 16; h >= 1; h /= 2, o /= 2) e += lane & o ? h : 0;
-  return e;
-}
-template <int P, typename T>
-__device__ __forceinline__ T halving_sum(T (&v)[P], int lane) {
-  static_assert(P >= 1 && P <= 32 && (P & (P - 1)) == 0, "a power of two up to 32");
-#pragma unroll
-  for (int h = P / 2, o = 16; h >= 1; h /= 2, o /= 2) {
-    const bool up = lane & o;
-#pragma unroll
-    for (int k = 0; k < h; ++k) {
-      const T send = up ? v[k] : v[k + h];
-      const T keep = up ? v[k + h] : v[k];
-      v[k] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-    }
-  }
-#pragma unroll
-  for (int o = 16 >> log2i(P); o > 0; o /= 2) v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
-  return v[0];
 }
 
 // One sweep: directions [q0, q0 + nb) (nb <= NB) and the depth slice [k0,

@@ -34,6 +34,7 @@ kernel (``ops/gram_jvp.py``, ``csrc/gram_jvp.cu``). rq's alpha reaches
 every kernel as a device pointer (:func:`device_alpha`).
 """
 
+import collections
 import math
 
 import torch
@@ -177,8 +178,10 @@ def launch_shape(n, m, dtype):
 
 
 #: rq's alpha on the device, per (value, dtype, device), for alphas given
-#: as numbers: each is filled in once and kept (no copy from host memory).
-_ALPHAS = {}
+#: as numbers: each is filled in once (no copy from host memory) and kept
+#: while it is among the ``_ALPHAS_KEPT`` used last.
+_ALPHAS = collections.OrderedDict()
+_ALPHAS_KEPT = 64
 
 
 def device_alpha(kind, alpha, dtype, device):
@@ -186,8 +189,9 @@ def device_alpha(kind, alpha, dtype, device):
     kernels read (once per thread, through a pointer), or None for the
     other kinds, which read none. A tensor is cast there on the device; a
     number is filled in by a kernel, once per value outside a CUDA graph
-    capture, and inside one at each replay (a tensor kept from a capture
-    would hold what the fill had not yet written)."""
+    capture (and kept while among the ``_ALPHAS_KEPT`` values used last),
+    and inside one at each replay (a tensor kept from a capture would hold
+    what the fill had not yet written)."""
     if kind != "rq":
         return None
     if isinstance(alpha, torch.Tensor):
@@ -195,12 +199,18 @@ def device_alpha(kind, alpha, dtype, device):
     key = (alpha, dtype, torch.device(device))
     if config.capturing():
         return torch.full((), alpha, dtype=dtype, device=device)
-    if key not in _ALPHAS:
+    held = _ALPHAS.pop(key, None)
+    if held is None:
         # Made outside any torch.func transform: a tensor made inside one
         # is that level's, and the cache would hand it to later levels.
         with torch._C._DisableFuncTorch():
-            _ALPHAS[key] = torch.full((), alpha, dtype=dtype, device=device)
-    return _ALPHAS[key]
+            held = torch.full((), alpha, dtype=dtype, device=device)
+    _ALPHAS[key] = held  # the most recently used last
+    while len(_ALPHAS) > _ALPHAS_KEPT:
+        # Dropped tensors are freed in stream order, after the launches
+        # that read them.
+        _ALPHAS.popitem(last=False)
+    return held
 
 
 def _launch(kind, x, y, alpha, out_dtype):

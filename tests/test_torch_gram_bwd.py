@@ -100,7 +100,7 @@ def test_gram_bwd_plain_matches_jax_gram_bwd(kind, case, shape, jax_interpret_f6
     gx, gy, ga = _jax_grads(kind, x, y, cot, case)
     T = torch.tensor
     n, m = len(x), len(y)
-    grid = (3, -(-n // 3), 2 * -(-m // 6)) if shape == "split" else None
+    grid = tbwd.BwdShape(3, -(-n // 3), 3, 2 * -(-m // 6), 1) if shape == "split" else None
     xbar, ybar, abar = tbwd.gram_bwd_plain(
         kind, T(x), T(y), T(cot), ALPHA, want_y=case != "x_only", want_alpha=True,
         same=case == "square", shape=grid,
@@ -222,28 +222,186 @@ def test_launch_shape_covers_every_entry_once(n, m, dtype):
     assert (hits == 1).all()
 
 
+def _blocks(shape):
+    return shape.groups * shape.spans
+
+
+def _share_ok(shape, n, m, d, fold):
+    # csrc/gram_bwd.cuh: x slices (spans of n d) where several spans add
+    # into a row, y slices (groups of m d) where several groups add into a
+    # column, both with fold; none in a grid of one block.
+    if _blocks(shape) == 1:
+        return True
+    parts = ((shape.spans * n * d if fold or shape.spans > 1 else 0)
+             + (shape.groups * m * d if fold or shape.groups > 1 else 0))
+    return parts * 16 <= n * m
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [1, 2, 3, 8, 9, 17])
-@pytest.mark.parametrize("n,m", [(1, 1), (9, 40), (1000, 777), (2000, 2000), (8192, 262_144)])
+@pytest.mark.parametrize("n,m", [(1, 1), (9, 40), (1000, 777), (2000, 2000), (8192, 262_144),
+                                 (512, 1_000_000), (512, 4096), (16_384, 16_384)])
 def test_bwd_launch_shape_covers_every_entry_once(n, m, d, dtype):
-    # The backward's S x S grid: every (row, column) in one block, each of
-    # the S x slices holds every row once and each y slice every column
-    # once; spans are whole 16-byte vectors, and the partials stay within
-    # 1/16 of gbar where more than one split is taken.
-    splits, rows, span = tbwd.launch_shape(n, m, d, dtype)
-    vec = 16 // torch.empty((), dtype=dtype).element_size()
-    assert span % vec == 0 and 1 <= splits <= 16
-    assert (splits - 1) * span < m <= splits * span and n <= splits * rows
-    if splits > 1:
-        assert splits * (n + m) * d * 16 <= n * m
-    row_hits, col_hits = np.zeros(n, np.int64), np.zeros(m, np.int64)
-    for a in range(splits):
-        row_hits[a * rows:(a + 1) * rows] += 1
-    for b in range(splits):
-        col_hits[b * span:(b + 1) * span] += 1
-    # Block (a, b) owns rows of group a times columns of span b, so each
-    # entry is one block's when each row and each column is one group's.
-    assert (row_hits == 1).all() and (col_hits == 1).all()
+    # The backward's grid of spans x groups blocks (and, where x is y, the
+    # fold's): every (row, column) in one block, each x slice holds every
+    # row once and each y slice every column once; spans are whole tiles of
+    # 128 columns a warp (wcols of them a round), the grid is within the
+    # card's limits and the staged partials within a block's shared memory,
+    # and the partials stay within 1/16 of gbar where there are several
+    # blocks.
+    itemsize = torch.empty((), dtype=tgram.arith_dtype(dtype)).element_size()
+    for fold in (False, True) if n == m else (False,):
+        shape = tbwd.launch_shape(n, m, d, dtype, fold)
+        groups, rows, spans, span, wcols = shape
+        assert wcols in (1, 8) and span % (128 * wcols) == 0
+        assert 1 <= groups <= 65535 and (groups - 1) * rows < n <= groups * rows
+        assert (spans - 1) * span < m <= spans * span
+        assert tbwd._stage_bytes(shape, d, itemsize) <= tbwd._STAGE
+        assert _share_ok(shape, n, m, d, fold)
+        row_hits, col_hits = np.zeros(n, np.int64), np.zeros(m, np.int64)
+        for a in range(groups):
+            row_hits[a * rows:(a + 1) * rows] += 1
+        for b in range(spans):
+            col_hits[b * span:(b + 1) * span] += 1
+        # Block (a, b) owns rows of group a times columns of span b, so each
+        # entry is one block's when each row and each column is one group's.
+        assert (row_hits == 1).all() and (col_hits == 1).all()
+
+
+#: The shapes where the paths launch K1's backward (PERF.md §6): n, m, d,
+#: dtype, x is y, and whether the columns are wide (spans of a block's
+#: warps each owning its tiles).
+PATH_SHAPES = {
+    "n2000": (2000, 2000, 2, torch.float32, True, False),
+    "sparse_512x1e6": (512, 1_000_000, 1, torch.float32, False, True),
+    "dist_16384": (16_384, 16_384, 1, torch.float32, True, False),
+    "tiles_8192": (8192, 8192, 1, torch.float32, False, False),
+    "rq_2000x1": (2000, 2000, 1, torch.float32, True, False),
+    "kron_1024": (1024, 1024, 1, torch.float32, True, False),
+    "svgp_512x4096": (512, 4096, 1, torch.float32, False, False),
+    "sweep_8192x262144": (8192, 262_144, 1, torch.float64, False, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PATH_SHAPES))
+def test_bwd_launch_shape_at_the_paths(case):
+    # The paths' grids: partials within 1/16 of gbar; the wide and large
+    # ones more than one block an SM of the H100's 132 (at most two an SM
+    # resident at once, so one full wave or more), wide columns taken by
+    # each warp alone with every row of a group (no y partials across
+    # warps), x is y in spans of one tile.
+    n, m, d, dtype, same, wide = PATH_SHAPES[case]
+    shape = tbwd.launch_shape(n, m, d, dtype, same)
+    assert _share_ok(shape, n, m, d, same)
+    assert shape.wcols == (8 if wide else 1)
+    if wide or n * m >= 4_000_000:
+        assert _blocks(shape) > tbwd._SMS
+    if same:
+        assert shape.span == 128
+    if case == "sparse_512x1e6":
+        assert shape.groups == 1  # ybar complete in one block: no y partials
+
+
+@pytest.mark.parametrize("case", sorted(PATH_SHAPES) + ["ragged_fold", "ragged_cross"])
+def test_bwd_partials_are_each_written_once(case):
+    # The partials' layout in work (csrc/gram_bwd.cu): block (a, b) writes
+    # its rows' x partials into x slice b and its columns' y partials into
+    # y slice a, and its alpha partial; every entry of the layout is written
+    # by exactly one block, and the sum reads, for each entry of out, one
+    # slice of each block that adds into it.
+    if case == "ragged_fold":
+        n, m, d, dtype, same = 1000, 1000, 2, torch.float32, True
+    elif case == "ragged_cross":
+        n, m, d, dtype, same = 1000, 777, 2, torch.float32, False
+    else:
+        n, m, d, dtype, same, _ = PATH_SHAPES[case]
+    shape = tbwd.launch_shape(n, m, d, dtype, same)
+    groups, rows, spans, span, _ = shape
+    for want_x, want_y in ((True, True), (True, False), (False, True)):
+        if same and not (want_x and want_y):
+            continue
+        x_sliced, y_sliced, y_work, a_work, total = tbwd._work_layout(
+            shape, n, m, 1, want_x, want_y, True, same)
+        hits = np.zeros(total, np.int64)
+        for a in range(groups):
+            r0, r1 = a * rows, min(n, (a + 1) * rows)
+            for b in range(spans):
+                c0, c1 = b * span, min(m, (b + 1) * span)
+                if x_sliced:
+                    hits[b * n + r0:b * n + r1] += 1
+                if y_sliced:
+                    hits[y_work + a * m + c0:y_work + a * m + c1] += 1
+                hits[a_work + a * spans + b] += 1
+        assert (hits == 1).all()
+        assert x_sliced == (want_x and (same or spans > 1))
+        assert y_sliced == (want_y and (same or groups > 1))
+
+
+def _kernel_order(kind, x, y, g, shape, alpha=ALPHA):
+    """float64: the kernel's sums of x's and y's slices in its order
+    (csrc/gram_bwd.cuh), block by block: a warp's steps of R rows (every
+    8th step of the group with wcols = 1; every row with wcols = 8, tiles
+    w, w + 8, ... of the span), each step's rows summed over the lanes'
+    4 columns (lane l: columns 4 l, + 4 of the tile) and then over the
+    lanes; x added over a warp's tiles and then over the warps in order,
+    y over a tile's rows and then over the warps in order. Returns the
+    slices (spans, n, d) and (groups, m, d)."""
+    n, d = x.shape
+    m = y.shape[0]
+    groups, rows, spans, span, wcols = shape
+    R = 4 if d <= 2 else 2 if d <= 4 else 1
+    wrows, rounds = 8 // wcols, span // (128 * wcols)
+    xs, ys = x.new_zeros((spans, n, d)), y.new_zeros((groups, m, d))
+    for a in range(groups):
+        r_begin, r_end = a * rows, min(n, (a + 1) * rows)
+        for b in range(spans):
+            c_begin, c_end = b * span, min(m, (b + 1) * span)
+            xw = x.new_zeros((wcols, n, d))
+            for warp in range(8):
+                wc, wr = warp % wcols, warp // wcols
+                for u in range(rounds):
+                    tile = c_begin + (u * wcols + wc) * 128
+                    if tile >= c_end:
+                        continue
+                    cols = torch.arange(tile, min(c_end, tile + 128))
+                    lanes = (cols - tile) // 4
+                    yacc = y.new_zeros((len(cols), d))
+                    for r0 in range(r_begin + wr * R, r_end, wrows * R):
+                        rr = torch.arange(r0, min(r_end, r0 + R))
+                        W, diff = _terms(kind, x[rr], y[cols], g[rr][:, cols], alpha)
+                        t = W[..., None] * diff  # (R, cols, d)
+                        per_lane = torch.zeros((len(rr), 32, d), dtype=x.dtype).index_add_(
+                            1, lanes, t)
+                        xw[wc, rr] += 2 * per_lane.sum(1)
+                        yacc -= t.sum(0)
+                    ys[a, cols] += 2 * yacc
+            xs[b, r_begin:r_end] = xw[:, r_begin:r_end].sum(0)
+    return xs, ys
+
+
+def _terms(kind, xb, yb, gb, alpha):
+    d2 = torch.clamp_min(tgram._d2(xb, yb, xb @ yb.T), 0.0)
+    K = tgram._apply_kind(kind, d2, None, torch.tensor(alpha, dtype=xb.dtype))
+    return gb * tgram._g_prime(kind, d2, K, alpha), xb[:, None, :] - yb[None, :, :]
+
+
+@pytest.mark.parametrize("shape", [(3, 14, 3, 128, 1), (2, 20, 2, 256, 1), (2, 20, 1, 1024, 8),
+                                   (1, 40, 1, 2048, 8)])
+@pytest.mark.parametrize("kind", ["eq", "matern32"])
+def test_kernel_order_matches_plain(kind, shape):
+    # The kernel's order of sums within and across blocks (both wcols, one
+    # and several tiles a span, ragged edges) against the plain version's
+    # blocks at the same grid, float64: the same slices to rounding.
+    r = np.random.RandomState(11)
+    T = torch.tensor
+    x, y, g = T(r.randn(40, 2)), T(r.randn(300, 2)), T(r.randn(40, 300))
+    shape = tbwd.BwdShape(*shape)
+    xs, ys = _kernel_order(kind, x, y, g, shape)
+    want = tbwd.gram_bwd_plain(kind, x, y, g, ALPHA, shape=shape)
+    np.testing.assert_allclose(np_(tbwd._ordered_sum(list(xs))), np_(want[0]), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(np_(tbwd._ordered_sum(list(ys))), np_(want[1]), rtol=1e-12,
+                               atol=1e-12)
 
 
 def test_gram_bwd_plain_split_order_agrees():
@@ -253,9 +411,9 @@ def test_gram_bwd_plain_split_order_agrees():
     T = torch.tensor
     for kind in KINDS:
         ref = tbwd.gram_bwd_plain(kind, T(x), T(y), T(cot), ALPHA, want_alpha=True,
-                                  shape=(1, 9, 40))
+                                  shape=tbwd.BwdShape(1, 9, 1, 40, 1))
         got = tbwd.gram_bwd_plain(kind, T(x), T(y), T(cot), ALPHA, want_alpha=True,
-                                  shape=(4, 3, 10))
+                                  shape=tbwd.BwdShape(4, 3, 4, 10, 1))
         for a, b in zip(got, ref):
             if b is None:
                 assert a is None
@@ -281,3 +439,19 @@ def test_gram_bwd_runs_plain_and_launches_nothing_on_cpu():
     torch.sum(tgram.gram("matern32", x, x)).backward()
     assert torch.isfinite(x.grad).all()
     assert (tgram.launches, tbwd.launches) == before
+
+
+def test_device_alpha_keeps_the_values_used_last():
+    # rq's alpha as a number: one device tensor per value, reused while it
+    # is among the last _ALPHAS_KEPT used, the oldest dropped beyond them.
+    tgram._ALPHAS.clear()
+    first = tgram.device_alpha("rq", 0.5, torch.float32, "cpu")
+    assert tgram.device_alpha("rq", 0.5, torch.float32, "cpu") is first
+    for i in range(3 * tgram._ALPHAS_KEPT):
+        a = tgram.device_alpha("rq", 1.0 + i, torch.float64, "cpu")
+        assert a.dtype == torch.float64 and float(a) == 1.0 + i
+        assert len(tgram._ALPHAS) <= tgram._ALPHAS_KEPT
+    recent = tgram.device_alpha("rq", 3.0 * tgram._ALPHAS_KEPT, torch.float64, "cpu")
+    assert tgram.device_alpha("rq", 3.0 * tgram._ALPHAS_KEPT, torch.float64, "cpu") is recent
+    assert tgram.device_alpha("rq", 0.5, torch.float32, "cpu") is not first
+    assert tgram.device_alpha("eq", 0.5, torch.float32, "cpu") is None
